@@ -99,10 +99,12 @@ def kernel_phase(card: str) -> list[dict]:
     # bf16 output and two bf16 roundings of f32 sums: two bf16 ulps (2^-6)
     # of the element or of the largest element, whichever is larger
     tol = 2.0 ** -6
-    out_k = da.attention_fwd(qkv, HEADS, scale)
+    out_k, lse_k = da.attention_fwd(qkv, HEADS, scale)
     torch.cuda.synchronize()
-    out_p = da.fused_qkv_attention_plain(qkv, HEADS, scale)
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, HEADS, scale)
     err = check_close("attention_fwd", out_k, out_p, tol)
+    # f32 log-sum-exp of f32 sums of bf16 products: 2^-16 relative
+    check_close("attention_fwd lse", lse_k, lse_p, 2.0 ** -16)
     ms = cuda_ms(lambda: da.attention_fwd(qkv, HEADS, scale))
     plain_ms = cuda_ms(lambda: da.fused_qkv_attention_plain(qkv, HEADS, scale))
     results.append({"name": "dense_attention_fwd", "route": "cuda",
@@ -113,11 +115,12 @@ def kernel_phase(card: str) -> list[dict]:
           f"bf16: max|err|={err:.3g} (tol {tol:.3g} rel) kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms  [{card}]", flush=True)
 
-    dq_k = da.attention_bwd(qkv, dout, HEADS, scale)
+    dq_k = da.attention_bwd(qkv, out_k, lse_k, dout, HEADS, scale)
     torch.cuda.synchronize()
     dq_p = da.fused_qkv_attention_bwd_plain(qkv, dout, HEADS, scale)
     err = check_close("attention_bwd", dq_k, dq_p, tol)
-    ms = cuda_ms(lambda: da.attention_bwd(qkv, dout, HEADS, scale))
+    ms = cuda_ms(lambda: da.attention_bwd(qkv, out_k, lse_k, dout, HEADS,
+                                          scale))
     x = qkv.detach().requires_grad_(True)
     o = da.fused_qkv_attention_plain(x, HEADS, scale)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(o, x, dout,

@@ -1,281 +1,383 @@
 // Packed-QKV multi-head softmax attention for short sequences, forward and
-// backward, for Hopper (sm_90a).
+// backward, on Hopper's tensor cores (sm_90a).
 //
 // Replaces the Pallas TPU kernels in ssl4gie_tpu/kernels/dense_attention.py:
 // `_fwd_kernel` (forward, pallas_call in `_fused_fwd`) and `_bwd_kernel`
 // (backward, pallas_call in `_fused_bwd_vjp`). Same function: qkv is the
 // (B, N, 3C) output of the qkv Linear with columns [q_0..q_H-1 | k.. | v..],
-// each head Dh wide; the output is (B, N, C) with head h in columns
-// [h*Dh, (h+1)*Dh); the backward recomputes the softmax from qkv and writes a
-// packed dqkv (B, N, 3C). No head split or merge copies on either side.
+// each head Dh = 64 wide; the output is (B, N, C) with head h in columns
+// [h*64, (h+1)*64); the backward writes a packed dqkv (B, N, 3C). No head
+// split or merge copies on either side.
 //
 // What bounds it on the card: at ViT-B 224 (N=197, Dh=64) one (image, head)
-// is 197x197x64 multiply-adds per product, 50 KB of K and V in bf16. These
-// kernels do the products on the CUDA cores in f32 (no tensor cores yet), so
-// they are bound by f32 FMA issue and shared-memory bandwidth, not by device
-// memory. The design keeps everything a row needs on chip:
-// - one block per (query-row tile, head, image); the head's whole K and V
-//   (N rows) are staged once into shared memory, rows padded to Dh+2 values
-//   so that lanes reading different rows hit different banks;
-// - one warp per query row: lanes stride over keys for the scores (keys >= N
-//   simply do not exist, so the TPU's 16-row padding and its analytic
-//   softmax-denominator fix are not needed), the softmax is done in f32 with
-//   warp shuffles, and lanes stride over the head's 64 columns for P @ V;
-// - the scale multiplies the f32 scores (the TPU scales q in bf16 first: the
-//   same function with one rounding fewer).
-// Backward: dK and dV are sums over all query rows. Instead of atomics (run-
-// to-run nondeterministic) it is two kernels, as the flash-attention backward
-// does: `attn_bwd_dq` walks query rows, writes dq and saves each row's
-// log-sum-exp and delta = rowsum(P * dP); `attn_bwd_dkv` walks key rows,
-// recomputes P from the saved log-sum-exp and writes dk and dv.
-// Tensor-core products (wgmma) are later work.
+// reads 75 KB of q, k, v and does 197x197x64 products: three in the forward
+// (the scores twice, for the row statistics and then the probabilities, and
+// P.V) and seven in the backward (scores and dP recomputed by both
+// kernels). So it is bound by matrix-unit issue, shared-memory traffic and
+// occupancy, not by device memory. The design:
+// - one block of 4 warps per (64-row tile, head, image); the head's whole K
+//   and V (or Q and dO for the dK/dV kernel) are staged once into shared
+//   memory, rows zero-padded to whole 32-row chunks and padded to 72 values
+//   so that matrix loads of neighbouring rows start in different banks;
+// - each warp owns 16 rows and walks the other sequence in chunks of 32:
+//   products on the tensor cores (WMMA 16x16x16, bf16 in, f32 accumulate),
+//   the softmax elementwise in f32 through a per-warp tile in shared memory;
+// - keys >= N are masked by index, so the TPU's 16-row padding and its
+//   analytic softmax-denominator fix are not needed; the scale multiplies
+//   the f32 scores (the TPU scales q in bf16 first: one rounding fewer);
+// - the forward takes two passes over the keys, row max and sum first, then
+//   normalized probabilities (bf16, as the TPU's) times V, so no running
+//   rescale of the output is needed; it saves each row's log-sum-exp.
+// Backward: dK and dV sum over all query rows. Instead of atomics (run-to-
+// run nondeterministic) it is two kernels, as the flash-attention backward:
+// `attn_bwd_dq` walks query rows, computes delta = rowsum(dO * O) and dq;
+// `attn_bwd_dkv` walks key rows and recomputes P from the saved log-sum-exp.
+// wgmma, TMA and pipelining are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <mma.h>
 
 namespace {
 
+using namespace nvcuda;
+
 constexpr int kDh = 64;               // head width the kernels are built for
-constexpr int kLd = kDh + 2;          // padded shared-memory row, in bf16
-constexpr int kWarps = 8;
+constexpr int kLd = kDh + 8;          // bf16 row of a staged 64-wide slice
+constexpr int kChunk = 32;            // keys (or queries) per inner step
+constexpr int kLdS = kDh + 4;         // f32 per-warp tile row (16 x 68)
+constexpr int kLdP = kChunk + 8;      // bf16 per-warp tile row (16 x 40)
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 64;     // rows of one head a block owns
+constexpr int kRows = kWarps * 16;    // rows a block owns
 constexpr unsigned kFull = 0xffffffffu;
 
 typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+// B = X^T for X stored row-major [n][k] (scores against staged rows)
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
+// B = X for X stored row-major [k][n]
+typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
-}
+int pad_rows(int n) { return (n + kChunk - 1) / kChunk * kChunk; }
 
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Copy rows [0, n) of a Dh-wide column slice (row stride `stride` elements)
-// into shared memory with the padded row length kLd.
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int n,
-                                      int stride) {
-  constexpr int kPairs = kDh / 2;
-  for (int idx = threadIdx.x; idx < n * kPairs; idx += blockDim.x) {
-    const int r = idx / kPairs, c = (idx % kPairs) * 2;
-    *reinterpret_cast<bf162*>(dst + r * kLd + c) =
-        *reinterpret_cast<const bf162*>(src + (size_t)r * stride + c);
+// Rows [first, first + count) of a 64-wide column slice of `src` (row stride
+// `stride` elements) into shared memory with row length kLd; rows >= n_valid
+// become zeros. 16-byte pieces, 8 per row.
+__device__ __forceinline__ void stage(bf16* dst, const bf16* src, int first,
+                                      int count, int n_valid, int stride) {
+  for (int idx = threadIdx.x; idx < count * 8; idx += blockDim.x) {
+    const int r = idx >> 3, c = (idx & 7) * 8;
+    const int g = first + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (g < n_valid)
+      v = *reinterpret_cast<const uint4*>(src + (size_t)g * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) = v;
   }
 }
 
-__device__ __forceinline__ void load_row(float2 (&x)[kDh / 2], const bf16* p) {
+__device__ __forceinline__ void load_rows(FragA (&a)[4], const bf16* rows) {
 #pragma unroll
-  for (int d = 0; d < kDh / 2; ++d) x[d] = ld2(p + 2 * d);
+  for (int kk = 0; kk < 4; ++kk) wmma::load_matrix_sync(a[kk], rows + kk * 16, kLd);
 }
 
-__device__ __forceinline__ float dot_row(const float2 (&x)[kDh / 2],
-                                         const bf16* row) {
-  float acc = 0.f;
+// S (16 x kChunk f32, row length kLdS) = A (16 x 64) . X^T for the kChunk
+// staged rows X starting at `x`.
+__device__ __forceinline__ void scores(float* S, const FragA (&a)[4],
+                                       const bf16* x) {
 #pragma unroll
-  for (int d = 0; d < kDh / 2; ++d) {
-    const float2 y = ld2(row + 2 * d);
-    acc = fmaf(x[d].x, y.x, acc);
-    acc = fmaf(x[d].y, y.y, acc);
+  for (int n = 0; n < kChunk / 16; ++n) {
+    FragC c;
+    wmma::fill_fragment(c, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      FragBt b;
+      wmma::load_matrix_sync(b, x + n * 16 * kLd + kk * 16, kLd);
+      wmma::mma_sync(c, a[kk], b, c);
+    }
+    wmma::store_matrix_sync(S + n * 16, c, kLdS, wmma::mem_row_major);
   }
-  return acc;
 }
 
-// grid (ceil(N / kRowsPerBlock), H, B); dynamic smem: K, V (N x kLd bf16
-// each) and one N-float score row per warp.
+// acc[n] += P (16 x kChunk bf16, row length kLdP) . X (kChunk staged rows x 64)
+__device__ __forceinline__ void accumulate(FragC (&acc)[4], const bf16* P,
+                                           const bf16* x) {
+#pragma unroll
+  for (int kk = 0; kk < kChunk / 16; ++kk) {
+    FragA pa;
+    wmma::load_matrix_sync(pa, P + kk * 16, kLdP);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      FragB b;
+      wmma::load_matrix_sync(b, x + kk * 16 * kLd + n * 16, kLd);
+      wmma::mma_sync(acc[n], pa, b, acc[n]);
+    }
+  }
+}
+
+// Write the warp's 16 x 64 accumulators times `mul` as bf16 into rows
+// [row0, row0 + 16) (those < n_valid) of `dst` (row stride `stride`), via
+// the per-warp f32 tile T. Lane: row lane & 15, columns (lane >> 4) * 32 + [0, 32).
+__device__ __forceinline__ void write_rows(FragC (&acc)[4], float* T, float mul,
+                                           bf16* dst, int row0, int n_valid,
+                                           int stride) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+    wmma::store_matrix_sync(T + n * 16, acc[n], kLdS, wmma::mem_row_major);
+  __syncwarp();
+  const int lane = threadIdx.x & 31, r = lane & 15, c0 = (lane >> 4) * 32;
+  if (row0 + r < n_valid) {
+    bf16* d = dst + (size_t)(row0 + r) * stride + c0;
+    const float* t = T + r * kLdS + c0;
+#pragma unroll
+    for (int c = 0; c < 32; c += 8) {
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(t[c + e] * mul);
+      *reinterpret_cast<uint4*>(d + c) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------- forward
+// grid (ceil(N / kRows), H, B). smem: K, V (NP rows), Q (kRows rows), per
+// warp a 16 x kLdS f32 tile and a 16 x kLdP bf16 tile.
 __global__ void __launch_bounds__(kThreads)
-attn_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H,
-         float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z;
+attn_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+         float* __restrict__ lse, int N, int H, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NP = (N + kChunk - 1) / kChunk * kChunk;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kRows;
   const int C = H * kDh, C3 = 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + N * kLd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* p = reinterpret_cast<float*>(Vs + N * kLd) + warp * N;
+  bf16* Vs = Ks + NP * kLd;
+  bf16* Qs = Vs + NP * kLd;
+  float* S = reinterpret_cast<float*>(Qs + kRows * kLd) + warp * 16 * kLdS;
+  bf16* P = reinterpret_cast<bf16*>(reinterpret_cast<float*>(Qs + kRows * kLd) +
+                                    kWarps * 16 * kLdS) + warp * 16 * kLdP;
 
   const bf16* base = qkv + (size_t)b * N * C3;
-  stage(Ks, base + C + h * kDh, N, C3);
-  stage(Vs, base + 2 * C + h * kDh, N, C3);
+  stage(Ks, base + C + h * kDh, 0, NP, N, C3);
+  stage(Vs, base + 2 * C + h * kDh, 0, NP, N, C3);
+  stage(Qs, base + h * kDh, q0, kRows, N, C3);
   __syncthreads();
 
-  const int row_end = min(N, (blockIdx.x + 1) * kRowsPerBlock);
-  for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
-    float2 q[kDh / 2];
-    load_row(q, base + (size_t)i * C3 + h * kDh);
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < N; j += 32) {
-      const float s = dot_row(q, Ks + j * kLd) * scale;
-      p[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      l += e;
-    }
-    const float inv = 1.f / warp_sum(l);
+  FragA qa[4];
+  load_rows(qa, Qs + warp * 16 * kLd);
+  // elementwise: row r of the warp's 16, columns half * 16 + [0, 16)
+  const int r = lane & 15, half = lane >> 4;
+  const float* Srow = S + r * kLdS + half * 16;
+
+  float m = -1e30f, l = 0.f;
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    scores(S, qa, Ks + c0 * kLd);
     __syncwarp();
-    bf16* orow = out + ((size_t)b * N + i) * C + h * kDh;
-    for (int d = lane; d < kDh / 2; d += 32) {
-      float ax = 0.f, ay = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float pj = p[j];
-        const float2 v = ld2(Vs + j * kLd + 2 * d);
-        ax = fmaf(pj, v.x, ax);
-        ay = fmaf(pj, v.y, ay);
-      }
-      st2(orow + 2 * d, ax * inv, ay * inv);
-    }
+    const int key0 = c0 + half * 16;
+    float cm = -1e30f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (key0 + j < N) cm = fmaxf(cm, Srow[j] * scale);
+    const float mn = fmaxf(m, cm);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (key0 + j < N) sum += expf(Srow[j] * scale - mn);
+    l = l * expf(m - mn) + sum;
+    m = mn;
     __syncwarp();
   }
+  {
+    const float mo = __shfl_xor_sync(kFull, m, 16);
+    const float lo = __shfl_xor_sync(kFull, l, 16);
+    const float mt = fmaxf(m, mo);
+    l = l * expf(m - mt) + lo * expf(mo - mt);
+    m = mt;
+  }
+  const float row_lse = m + logf(l);
+  const int qrow = q0 + warp * 16 + r;
+  if (half == 0 && qrow < N) lse[((size_t)b * H + h) * N + qrow] = row_lse;
+
+  FragC acc[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
+  bf16* Prow = P + r * kLdP + half * 16;
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    scores(S, qa, Ks + c0 * kLd);
+    __syncwarp();
+    const int key0 = c0 + half * 16;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      Prow[j] = __float2bfloat16(key0 + j < N ? expf(Srow[j] * scale - row_lse)
+                                              : 0.f);
+    __syncwarp();
+    accumulate(acc, P, Vs + c0 * kLd);
+    __syncwarp();
+  }
+  write_rows(acc, S, 1.f, out + (size_t)b * N * C + h * kDh, q0 + warp * 16,
+             N, C);
 }
 
-// grid (ceil(N / kRowsPerBlock), H, B); dynamic smem: K, V and two N-float
-// rows per warp. Writes the q columns of dqkv and, per (b, h, row), the
-// log-sum-exp of the scaled scores and delta = rowsum(P * dP).
+// ---------------------------------------------------------------- dq
+// grid (ceil(N / kRows), H, B). smem: K, V (NP rows), Q, dO (kRows rows),
+// per warp two f32 tiles and one bf16 tile. Also writes delta per row.
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-            bf16* __restrict__ dqkv, float* __restrict__ lse,
-            float* __restrict__ delta, int N, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z;
+attn_bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
+            const float* __restrict__ lse, const bf16* __restrict__ dout,
+            float* __restrict__ delta, bf16* __restrict__ dqkv, int N, int H,
+            float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NP = (N + kChunk - 1) / kChunk * kChunk;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kRows;
   const int C = H * kDh, C3 = 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + N * kLd;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* p = reinterpret_cast<float*>(Vs + N * kLd) + warp * 2 * N;
-  float* dp = p + N;
+  bf16* Vs = Ks + NP * kLd;
+  bf16* Qs = Vs + NP * kLd;
+  bf16* Gs = Qs + kRows * kLd;
+  float* S = reinterpret_cast<float*>(Gs + kRows * kLd) + warp * 2 * 16 * kLdS;
+  float* D = S + 16 * kLdS;
+  bf16* P = reinterpret_cast<bf16*>(reinterpret_cast<float*>(Gs + kRows * kLd) +
+                                    kWarps * 2 * 16 * kLdS) + warp * 16 * kLdP;
 
   const bf16* base = qkv + (size_t)b * N * C3;
-  stage(Ks, base + C + h * kDh, N, C3);
-  stage(Vs, base + 2 * C + h * kDh, N, C3);
+  const bf16* gbase = dout + (size_t)b * N * C + h * kDh;
+  stage(Ks, base + C + h * kDh, 0, NP, N, C3);
+  stage(Vs, base + 2 * C + h * kDh, 0, NP, N, C3);
+  stage(Qs, base + h * kDh, q0, kRows, N, C3);
+  stage(Gs, gbase, q0, kRows, N, C);
   __syncthreads();
 
-  const int row_end = min(N, (blockIdx.x + 1) * kRowsPerBlock);
-  for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
-    float2 q[kDh / 2], g[kDh / 2];
-    load_row(q, base + (size_t)i * C3 + h * kDh);
-    load_row(g, dout + ((size_t)b * N + i) * C + h * kDh);
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < N; j += 32) {
-      const float s = dot_row(q, Ks + j * kLd) * scale;
-      p[j] = s;
-      dp[j] = dot_row(g, Vs + j * kLd);
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(p[j] - m);
-      p[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    const float inv = 1.f / l;
-    float dl = 0.f;
-    for (int j = lane; j < N; j += 32) dl += p[j] * inv * dp[j];
-    dl = warp_sum(dl);
-    for (int j = lane; j < N; j += 32) p[j] = p[j] * inv * (dp[j] - dl);
+  const int r = lane & 15, half = lane >> 4;
+  const int qrow = q0 + warp * 16 + r;
+  const size_t stat = ((size_t)b * H + h) * N + qrow;
+  // delta = rowsum(dO * O) over the row's 64 columns, split between halves
+  float dl = 0.f, row_lse = CUDART_INF_F;      // rows >= N get p = 0
+  if (qrow < N) {
+    const bf16* orow = o + ((size_t)b * N + qrow) * C + h * kDh + half * 32;
+    const bf16* grow = Gs + (warp * 16 + r) * kLd + half * 32;
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      dl += __bfloat162float(orow[c]) * __bfloat162float(grow[c]);
+    row_lse = lse[stat];
+  }
+  dl += __shfl_xor_sync(kFull, dl, 16);
+  if (half == 0 && qrow < N) delta[stat] = dl;
+
+  FragA qa[4], ga[4];
+  load_rows(qa, Qs + warp * 16 * kLd);
+  load_rows(ga, Gs + warp * 16 * kLd);
+  FragC acc[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
+  const float* Srow = S + r * kLdS + half * 16;
+  const float* Drow = D + r * kLdS + half * 16;
+  bf16* Prow = P + r * kLdP + half * 16;
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    scores(S, qa, Ks + c0 * kLd);          // q . k
+    scores(D, ga, Vs + c0 * kLd);          // dP = dO . v
     __syncwarp();
-    bf16* drow = dqkv + ((size_t)b * N + i) * C3 + h * kDh;
-    for (int d = lane; d < kDh / 2; d += 32) {
-      float ax = 0.f, ay = 0.f;
-      for (int j = 0; j < N; ++j) {
-        const float ds = p[j];
-        const float2 k = ld2(Ks + j * kLd + 2 * d);
-        ax = fmaf(ds, k.x, ax);
-        ay = fmaf(ds, k.y, ay);
-      }
-      st2(drow + 2 * d, ax * scale, ay * scale);
+    const int key0 = c0 + half * 16;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p = key0 + j < N ? expf(Srow[j] * scale - row_lse) : 0.f;
+      Prow[j] = __float2bfloat16(p * (Drow[j] - dl));   // dS
     }
-    if (lane == 0) {
-      const size_t r = ((size_t)b * H + h) * N + i;
-      lse[r] = m + logf(l);
-      delta[r] = dl;
-    }
+    __syncwarp();
+    accumulate(acc, P, Ks + c0 * kLd);     // dq += dS . K
     __syncwarp();
   }
+  write_rows(acc, S, scale, dqkv + (size_t)b * N * C3 + h * kDh,
+             q0 + warp * 16, N, C3);
 }
 
-// grid (ceil(N / kRowsPerBlock), H, B) over KEY rows; dynamic smem: Q, dO
-// (N x kLd bf16 each), the head's lse and delta (N floats each) and two
-// N-float rows per warp. Writes the k and v columns of dqkv.
+// ---------------------------------------------------------------- dk, dv
+// grid (ceil(N / kRows), H, B) over KEY rows. smem: Q, dO (NP rows), the
+// block's K and V rows, lse and delta (NP floats), per warp two f32 tiles
+// and two bf16 tiles.
 __global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
+attn_bwd_dkv(const bf16* __restrict__ qkv, const float* __restrict__ lse,
+             const bf16* __restrict__ dout, const float* __restrict__ delta,
              bf16* __restrict__ dqkv, int N, int H, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NP = (N + kChunk - 1) / kChunk * kChunk;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kRows;
   const int C = H * kDh, C3 = 3 * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + N * kLd;
-  float* lse_s = reinterpret_cast<float*>(Gs + N * kLd);
-  float* delta_s = lse_s + N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* p = delta_s + N + warp * 2 * N;
-  float* ds = p + N;
+  bf16* Gs = Qs + NP * kLd;
+  bf16* Ks = Gs + NP * kLd;
+  bf16* Vs = Ks + kRows * kLd;
+  float* lse_s = reinterpret_cast<float*>(Vs + kRows * kLd);
+  float* delta_s = lse_s + NP;
+  float* S = delta_s + NP + warp * 2 * 16 * kLdS;
+  float* D = S + 16 * kLdS;
+  bf16* P = reinterpret_cast<bf16*>(delta_s + NP + kWarps * 2 * 16 * kLdS) +
+            warp * 2 * 16 * kLdP;
+  bf16* DS = P + 16 * kLdP;
 
   const bf16* base = qkv + (size_t)b * N * C3;
-  stage(Qs, base + h * kDh, N, C3);
-  stage(Gs, dout + (size_t)b * N * C + h * kDh, N, C);
+  stage(Qs, base + h * kDh, 0, NP, N, C3);
+  stage(Gs, dout + (size_t)b * N * C + h * kDh, 0, NP, N, C);
+  stage(Ks, base + C + h * kDh, k0, kRows, N, C3);
+  stage(Vs, base + 2 * C + h * kDh, k0, kRows, N, C3);
   const size_t r0 = ((size_t)b * H + h) * N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    lse_s[i] = lse[r0 + i];
-    delta_s[i] = delta[r0 + i];
+  for (int i = threadIdx.x; i < NP; i += blockDim.x) {
+    lse_s[i] = i < N ? lse[r0 + i] : CUDART_INF_F;    // queries >= N: p = 0
+    delta_s[i] = i < N ? delta[r0 + i] : 0.f;
   }
   __syncthreads();
 
-  const int row_end = min(N, (blockIdx.x + 1) * kRowsPerBlock);
-  for (int j = blockIdx.x * kRowsPerBlock + warp; j < row_end; j += kWarps) {
-    float2 k[kDh / 2], v[kDh / 2];
-    load_row(k, base + (size_t)j * C3 + C + h * kDh);
-    load_row(v, base + (size_t)j * C3 + 2 * C + h * kDh);
-    for (int i = lane; i < N; i += 32) {
-      const float pij = expf(dot_row(k, Qs + i * kLd) * scale - lse_s[i]);
-      p[i] = pij;
-      ds[i] = pij * (dot_row(v, Gs + i * kLd) - delta_s[i]);
+  FragA ka[4], va[4];
+  load_rows(ka, Ks + warp * 16 * kLd);
+  load_rows(va, Vs + warp * 16 * kLd);
+  FragC dk[4], dv[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    wmma::fill_fragment(dk[n], 0.f);
+    wmma::fill_fragment(dv[n], 0.f);
+  }
+  const int r = lane & 15, half = lane >> 4;
+  const float* Srow = S + r * kLdS + half * 16;
+  const float* Drow = D + r * kLdS + half * 16;
+  bf16* Prow = P + r * kLdP + half * 16;
+  bf16* DSrow = DS + r * kLdP + half * 16;
+  for (int c0 = 0; c0 < NP; c0 += kChunk) {
+    scores(S, ka, Qs + c0 * kLd);          // (k . q)^T
+    scores(D, va, Gs + c0 * kLd);          // dP^T = v . dO
+    __syncwarp();
+    const int qi = c0 + half * 16;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p = expf(Srow[j] * scale - lse_s[qi + j]);
+      Prow[j] = __float2bfloat16(p);
+      DSrow[j] = __float2bfloat16(p * (Drow[j] - delta_s[qi + j]));
     }
     __syncwarp();
-    bf16* drow = dqkv + ((size_t)b * N + j) * C3 + h * kDh;
-    for (int d = lane; d < kDh / 2; d += 32) {
-      float kx = 0.f, ky = 0.f, vx = 0.f, vy = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float2 q = ld2(Qs + i * kLd + 2 * d);
-        const float2 g = ld2(Gs + i * kLd + 2 * d);
-        const float pi = p[i], dsi = ds[i];
-        kx = fmaf(dsi, q.x, kx);
-        ky = fmaf(dsi, q.y, ky);
-        vx = fmaf(pi, g.x, vx);
-        vy = fmaf(pi, g.y, vy);
-      }
-      st2(drow + C + 2 * d, kx * scale, ky * scale);
-      st2(drow + 2 * C + 2 * d, vx, vy);
-    }
+    accumulate(dv, P, Gs + c0 * kLd);      // dv += P^T . dO
+    accumulate(dk, DS, Qs + c0 * kLd);     // dk += dS^T . Q
     __syncwarp();
   }
+  bf16* drows = dqkv + (size_t)b * N * C3 + h * kDh;
+  write_rows(dk, S, scale, drows + C, k0 + warp * 16, N, C3);
+  write_rows(dv, S, 1.f, drows + 2 * C, k0 + warp * 16, N, C3);
 }
 
-size_t fwd_smem(int N) { return 2 * (size_t)N * kLd * 2 + kWarps * (size_t)N * 4; }
-size_t dq_smem(int N) { return 2 * (size_t)N * kLd * 2 + kWarps * 2 * (size_t)N * 4; }
+size_t fwd_smem(int N) {
+  return (2 * (size_t)pad_rows(N) + kRows) * kLd * 2 +
+         kWarps * 16 * ((size_t)kLdS * 4 + kLdP * 2);
+}
+size_t dq_smem(int N) {
+  return (2 * (size_t)pad_rows(N) + 2 * kRows) * kLd * 2 +
+         kWarps * 16 * (2 * (size_t)kLdS * 4 + kLdP * 2);
+}
 size_t dkv_smem(int N) {
-  return 2 * (size_t)N * kLd * 2 + 2 * (size_t)N * 4 + kWarps * 2 * (size_t)N * 4;
+  return (2 * (size_t)pad_rows(N) + 2 * kRows) * kLd * 2 +
+         2 * (size_t)pad_rows(N) * 4 +
+         kWarps * 16 * (2 * (size_t)kLdS * 4 + 2 * kLdP * 2);
 }
 
 // Set the dynamic shared-memory cap a kernel needs (above the 48 KB default).
@@ -289,34 +391,34 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError(). The Python wrapper checks the shapes, the dtype (bf16),
-// Dh == 64 and N <= 512 (at most 171 KB of shared memory) before calling.
-
-extern "C" int ssl4gie_attn_fwd(const void* qkv, void* out, int B, int N, int H,
-                                float scale, void* stream) {
+// Dh == 64 and N <= 512 (at most 210 KiB of shared memory) before calling.
+extern "C" int ssl4gie_attn_fwd(const void* qkv, void* out, void* lse, int B,
+                                int N, int H, float scale, void* stream) {
   cudaError_t err = allow_smem(attn_fwd, fwd_smem(N));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  dim3 grid((N + kRows - 1) / kRows, H, B);
   attn_fwd<<<grid, kThreads, fwd_smem(N), (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, N, H, scale);
+      (const bf16*)qkv, (bf16*)out, (float*)lse, N, H, scale);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ssl4gie_attn_bwd(const void* qkv, const void* dout, void* dqkv,
-                                void* lse, void* delta, int B, int N, int H,
-                                float scale, void* stream) {
+extern "C" int ssl4gie_attn_bwd(const void* qkv, const void* out,
+                                const void* lse, const void* dout, void* delta,
+                                void* dqkv, int B, int N, int H, float scale,
+                                void* stream) {
   cudaError_t err = allow_smem(attn_bwd_dq, dq_smem(N));
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(attn_bwd_dkv, dkv_smem(N));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  dim3 grid((N + kRows - 1) / kRows, H, B);
   cudaStream_t s = (cudaStream_t)stream;
   attn_bwd_dq<<<grid, kThreads, dq_smem(N), s>>>(
-      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (float*)lse,
-      (float*)delta, N, H, scale);
+      (const bf16*)qkv, (const bf16*)out, (const float*)lse,
+      (const bf16*)dout, (float*)delta, (bf16*)dqkv, N, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dkv<<<grid, kThreads, dkv_smem(N), s>>>(
-      (const bf16*)qkv, (const bf16*)dout, (const float*)lse,
+      (const bf16*)qkv, (const float*)lse, (const bf16*)dout,
       (const float*)delta, (bf16*)dqkv, N, H, scale);
   return (int)cudaGetLastError();
 }

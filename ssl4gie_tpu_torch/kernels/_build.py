@@ -31,8 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point; pointers and the stream as c_void_p
 SIGNATURES = {
-    "ssl4gie_attn_fwd": (_P, _P, _I, _I, _I, _F, _P),
-    "ssl4gie_attn_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "ssl4gie_attn_fwd": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "ssl4gie_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "ssl4gie_shear_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 

@@ -3,8 +3,9 @@
 Port of `ssl4gie_tpu/kernels/dense_attention.py:fused_qkv_attention`. The
 input is the raw (B, N, 3C) output of the qkv Linear, columns
 [q_0..q_{H-1} | k_0..k_{H-1} | v_0..v_{H-1}], each head Dh wide; the output is
-(B, N, C). The backward recomputes the softmax from qkv and returns a packed
-dqkv, so no head split or merge copies surround the kernels.
+(B, N, C). The forward also returns each row's log-sum-exp (B, H, N); the
+backward recomputes the softmax from qkv and that log-sum-exp and returns a
+packed dqkv, so no head split or merge copies surround the kernels.
 
 On a CUDA tensor the forward and backward run the hand-written kernels of
 `csrc/dense_attention.cu` (bf16, Dh = 64; anything else raises). On a CPU
@@ -30,15 +31,23 @@ def _split(shape, num_heads: int):
     return B, N, C3 // 3, C3 // (3 * num_heads)
 
 
-def fused_qkv_attention_plain(qkv: torch.Tensor, num_heads: int,
-                              scale: float) -> torch.Tensor:
-    """The plain version: head-split softmax attention in f32, output in the
-    input dtype. Differentiable through autograd."""
+def fused_qkv_attention_fwd_plain(qkv: torch.Tensor, num_heads: int,
+                                  scale: float):
+    """The plain version: head-split softmax attention in f32. Returns the
+    output in the input dtype and the f32 log-sum-exp of each row's scaled
+    scores, (B, H, N). Differentiable through autograd."""
     B, N, C, Dh = _split(qkv.shape, num_heads)
     t = qkv.float().reshape(B, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     s = (t[0] @ t[1].transpose(-2, -1)) * scale
     o = torch.softmax(s, dim=-1) @ t[2]
-    return o.transpose(1, 2).reshape(B, N, C).to(qkv.dtype)
+    return (o.transpose(1, 2).reshape(B, N, C).to(qkv.dtype),
+            torch.logsumexp(s, dim=-1))
+
+
+def fused_qkv_attention_plain(qkv: torch.Tensor, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """The plain version's output alone."""
+    return fused_qkv_attention_fwd_plain(qkv, num_heads, scale)[0]
 
 
 def fused_qkv_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
@@ -80,46 +89,55 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def attention_fwd(qkv: torch.Tensor, num_heads: int,
-                  scale: float) -> torch.Tensor:
-    """Forward: (B, N, 3C) -> (B, N, C). Launches `attn_fwd` on a CUDA tensor;
-    the plain version on a CPU tensor."""
+def attention_fwd(qkv: torch.Tensor, num_heads: int, scale: float):
+    """Forward: (B, N, 3C) -> (out (B, N, C), lse (B, H, N) f32). Launches
+    `attn_fwd` on a CUDA tensor; the plain version on a CPU tensor."""
     if qkv.device.type == "cpu":
-        return fused_qkv_attention_plain(qkv, num_heads, scale)
+        return fused_qkv_attention_fwd_plain(qkv, num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     B, N, C = _check_qkv(qkv, num_heads)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_attn_fwd", qkv.data_ptr(), out.data_ptr(), B, N,
-                      num_heads, float(scale), _stream(qkv))
+        _build.launch("ssl4gie_attn_fwd", qkv.data_ptr(), out.data_ptr(),
+                      lse.data_ptr(), B, N, num_heads, float(scale),
+                      _stream(qkv))
     attention_fwd.launches += 1
-    return out
+    return out, lse
 
 
 attention_fwd.launches = 0
 
 
-def attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, num_heads: int,
+def attention_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                  dout: torch.Tensor, num_heads: int,
                   scale: float) -> torch.Tensor:
-    """Backward: (qkv (B, N, 3C), dO (B, N, C)) -> dqkv (B, N, 3C). Launches
-    `attn_bwd_dq` then `attn_bwd_dkv` on CUDA tensors; on CPU tensors the
-    gradient of the plain version."""
+    """Backward: (qkv (B, N, 3C), the forward's out (B, N, C) and lse
+    (B, H, N), dO (B, N, C)) -> dqkv (B, N, 3C). Launches `attn_bwd_dq` then
+    `attn_bwd_dkv` on CUDA tensors; on CPU tensors the gradient of the plain
+    version (which needs neither out nor lse)."""
     if qkv.device.type == "cpu":
         return fused_qkv_attention_bwd_plain(qkv, dout, num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     B, N, C = _check_qkv(qkv, num_heads)
-    if dout.device != qkv.device:
-        raise ValueError("dout and qkv must be on one device")
+    for name, t in (("out", out), ("lse", lse), ("dout", dout)):
+        if t.device != qkv.device:
+            raise ValueError(f"{name} and qkv must be on one device")
+    _check_cuda("out", out, (B, N, C))
     _check_cuda("dout", dout, (B, N, C))
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, num_heads, N)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({B}, {num_heads}, {N}) "
+                         "float32 tensor")
     dqkv = torch.empty_like(qkv)
-    lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
-    delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
     with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_attn_bwd", qkv.data_ptr(), dout.data_ptr(),
-                      dqkv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, N,
-                      num_heads, float(scale), _stream(qkv))
+        _build.launch("ssl4gie_attn_bwd", qkv.data_ptr(), out.data_ptr(),
+                      lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+                      dqkv.data_ptr(), B, N, num_heads, float(scale),
+                      _stream(qkv))
     attention_bwd.launches += 1
     return dqkv
 
@@ -130,14 +148,15 @@ attention_bwd.launches = 0
 class _FusedQKVAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
-        ctx.save_for_backward(qkv)
+        out, lse = attention_fwd(qkv, num_heads, scale)
+        ctx.save_for_backward(qkv, out, lse)
         ctx.num_heads, ctx.scale = num_heads, scale
-        return attention_fwd(qkv, num_heads, scale)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        (qkv,) = ctx.saved_tensors
-        return attention_bwd(qkv, dout.contiguous(), ctx.num_heads,
+        qkv, out, lse = ctx.saved_tensors
+        return attention_bwd(qkv, out, lse, dout.contiguous(), ctx.num_heads,
                              ctx.scale), None, None
 
 

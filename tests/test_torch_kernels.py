@@ -83,11 +83,18 @@ def test_attention_wrappers_match_pallas_vjp(qkv_np, no_build):
         (dref,) = vjp(jnp.asarray(dout))
 
     fwd0, bwd0 = da.attention_fwd.launches, da.attention_bwd.launches
-    out = da.attention_fwd(torch.from_numpy(qkv_np), H, SCALE)
-    dqkv = da.attention_bwd(torch.from_numpy(qkv_np), torch.from_numpy(dout),
-                            H, SCALE)
+    out, lse = da.attention_fwd(torch.from_numpy(qkv_np), H, SCALE)
+    dqkv = da.attention_bwd(torch.from_numpy(qkv_np), out, lse,
+                            torch.from_numpy(dout), H, SCALE)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
                                atol=2e-4)
+    # log-sum-exp of each row's scaled scores, in float64
+    t = qkv_np.astype(np.float64).reshape(B, N, 3, H, DH).transpose(2, 0, 3, 1, 4)
+    s = np.einsum("bhnd,bhmd->bhnm", t[0], t[1]) * SCALE
+    smax = s.max(-1)
+    np.testing.assert_allclose(
+        lse.numpy(), smax + np.log(np.exp(s - smax[..., None]).sum(-1)),
+        rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(dqkv.numpy(), np.asarray(dref), rtol=2e-3,
                                atol=2e-3)
     assert (da.attention_fwd.launches, da.attention_bwd.launches) == (fwd0, bwd0)
@@ -177,13 +184,16 @@ def test_attention_kernels_match_plain_on_card(cuda, batch, n):
     qkv = torch.randn((batch, n, 3 * C12), generator=gen, device=cuda).bfloat16()
     dout = torch.randn((batch, n, C12), generator=gen, device=cuda).bfloat16()
     n0 = da.attention_fwd.launches
-    for got, ref in ((da.attention_fwd(qkv, H12, SCALE),
-                      da.fused_qkv_attention_plain(qkv, H12, SCALE)),
-                     (da.attention_bwd(qkv, dout, H12, SCALE),
-                      da.fused_qkv_attention_bwd_plain(qkv, dout, H12, SCALE))):
+    out, lse = da.attention_fwd(qkv, H12, SCALE)
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, H12, SCALE)
+    for got, ref, tol in (
+            (out, out_p, 2.0 ** -6), (lse, lse_p, 2.0 ** -16),
+            (da.attention_bwd(qkv, out, lse, dout, H12, SCALE),
+             da.fused_qkv_attention_bwd_plain(qkv, dout, H12, SCALE),
+             2.0 ** -6)):
         torch.cuda.synchronize()
         got, ref = got.float(), ref.float()
-        bound = 2.0 ** -6 * (ref.abs() + ref.abs().max())
+        bound = tol * (ref.abs() + ref.abs().max())
         assert bool(((got - ref).abs() <= bound).all())
     assert da.attention_fwd.launches == n0 + 1
 
