@@ -136,18 +136,17 @@ def kernel_phase(card: str) -> list[dict]:
     img = (torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
            .to(torch.bfloat16) / 255.0).contiguous()
     angle = (torch.rand((B,), generator=gen, device=dev) * 360.0) - 180.0
-    q, alpha, beta, P = rotation_factors(angle, IMG)
-    q = torch.remainder(q, 4).contiguous()
-    r_k = rot.shear_rotate(img, alpha, beta, P, 0.0, quarter=q)
+    q, alpha, beta = rotation_factors(angle)
+    r_k = rot.shear_rotate(img, alpha, beta, 0.0, quarter=q)
     torch.cuda.synchronize()
-    r_p = rot.shear_rotate_plain(img, alpha, beta, P, 0.0, quarter=q)
+    r_p = rot.shear_rotate_plain(img, alpha, beta, 0.0, quarter=q)
     if not torch.equal(r_k, r_p):
         n_bad = int((r_k != r_p).sum())
         raise AssertionError(f"shear_rotate: {n_bad} elements differ from the "
                              "plain version (must be element-exact)")
     err = (r_k.float() - r_p.float()).abs().max().item()
-    ms = cuda_ms(lambda: rot.shear_rotate(img, alpha, beta, P, 0.0, quarter=q))
-    plain_ms = cuda_ms(lambda: rot.shear_rotate_plain(img, alpha, beta, P, 0.0,
+    ms = cuda_ms(lambda: rot.shear_rotate(img, alpha, beta, 0.0, quarter=q))
+    plain_ms = cuda_ms(lambda: rot.shear_rotate_plain(img, alpha, beta, 0.0,
                                                       quarter=q))
     results.append({"name": "shear_rotate", "route": "cuda",
                     "source": "ssl4gie_tpu_torch/csrc/rotate.cu",
@@ -179,8 +178,7 @@ def main_path(card: str) -> dict:
     depth = len(model.backbone.blocks)
     optimizer = make_adamw(model.parameters(), LR)
     task = TaskDefinition(name="classification", aug_mode="classification",
-                          target_key="label", loss_fn=weighted_cross_entropy,
-                          eval_kind="accumulate_preds")
+                          target_key="label", loss_fn=weighted_cross_entropy)
     full_step = make_full_step(task)
     rng = np.random.default_rng(SEED)
     img_u8 = torch.from_numpy(

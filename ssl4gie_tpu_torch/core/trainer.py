@@ -9,7 +9,7 @@ augmentation and that step, as the JAX package's bench step does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -20,14 +20,12 @@ from ssl4gie_tpu_torch.data.augment import (apply_classification,
 
 @dataclasses.dataclass
 class TaskDefinition:
-    """What a task contributes to the engine."""
+    """What a task contributes to the train step. (The JAX package's
+    evaluation and selection fields come with the ported Trainer.)"""
     name: str
-    aug_mode: str                       # classification | segmentation | depth | none
+    aug_mode: str                       # classification (the one ported)
     target_key: str                     # label | mask | depth
     loss_fn: Callable                   # (outputs, targets) -> scalar loss
-    eval_metric_fn: Optional[Callable] = None
-    eval_kind: str = "batch_metric"     # batch_metric | accumulate_preds
-    select_mode: str = "max"            # plateau/selection direction
 
 
 def make_train_step(task: TaskDefinition, accum_steps: int = 1):

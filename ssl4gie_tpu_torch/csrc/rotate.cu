@@ -10,9 +10,12 @@
 // with s1(y) = round(alpha * (y - c)), s2(j) = round(beta * (j - P - c)),
 // c = (H - 1) / 2. The three passes compose into one chain of indices per
 // output pixel, so here each thread follows that chain back to the one source
-// element it copies: a gather. The TPU needed the roll/select binary
-// decomposition, the 128-lane padding and the channel-group split to keep its
-// canvas in VMEM; none of them is needed here.
+// element it copies: a gather. With u = x + s1(y) the canvas column less P,
+//   y2 = y + round(beta * (u - c)),  x2 = u + s1(y2),  out = g[y2, x2]
+// (fill where y2 or x2 falls outside the image): the pad P cancels, because
+// the TPU's P only keeps its circular rolls from wrapping. The roll/select
+// binary decomposition, the 128-lane padding and the channel-group split kept
+// the TPU's canvas in VMEM; none of them is needed here.
 //
 // Rounding must be the reference's: jnp.round rounds half to even, so the
 // shifts use rintf (never roundf, which rounds half away from zero), and
@@ -44,7 +47,7 @@ __global__ void shear_rotate(const bf16* __restrict__ g,
                              const float* __restrict__ beta,
                              const int* __restrict__ quarter,
                              bf16* __restrict__ out, int B, int H, int W, int C,
-                             int P, float fill) {
+                             float fill) {
   const long long total = (long long)B * H * W * C;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -57,11 +60,11 @@ __global__ void shear_rotate(const bf16* __restrict__ g,
 
   const float c = (H - 1) * 0.5f;
   const float a = alpha[b];
-  const int j = x + P + shift(a, y, c);            // pass C source column
-  const int y2 = y + shift(beta[b], j - P, c);     // pass B source row
+  const int u = x + shift(a, y, c);                // pass C source column - P
+  const int y2 = y + shift(beta[b], u, c);         // pass B source row
   bf16 v = __float2bfloat16(fill);
   if (y2 >= 0 && y2 < H) {
-    const int x2 = j - P + shift(a, y2, c);        // pass A source column
+    const int x2 = u + shift(a, y2, c);            // pass A source column
     if (x2 >= 0 && x2 < W) {
       int sy = y2, sx = x2;                        // (sy, sx) in the canvas
       if (quarter != nullptr) {
@@ -85,12 +88,12 @@ __global__ void shear_rotate(const bf16* __restrict__ g,
 extern "C" int ssl4gie_shear_rotate(const void* g, const void* alpha,
                                     const void* beta, const void* quarter,
                                     void* out, int B, int H, int W, int C,
-                                    int P, float fill, void* stream) {
+                                    float fill, void* stream) {
   const long long total = (long long)B * H * W * C;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   shear_rotate<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const bf16*)g, (const float*)alpha, (const float*)beta,
-      (const int*)quarter, (bf16*)out, B, H, W, C, P, fill);
+      (const int*)quarter, (bf16*)out, B, H, W, C, fill);
   return (int)cudaGetLastError();
 }

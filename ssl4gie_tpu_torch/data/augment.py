@@ -16,13 +16,19 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ssl4gie_tpu_torch.kernels.rotate import shear_rotate
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+# the reference's ColorJitter(0.4, 0.5, 0.25, 0.01), GaussianBlur(25, sigma
+# U[0.001, 2]) and RandomRotation(180), as the JAX package's defaults
+JITTER = {"brightness": 0.4, "contrast": 0.5, "saturation": 0.25}
+HUE = 0.01
+BLUR_TAPS = 25
+SIGMA_RANGE = (0.001, 2.0)
+DEGREES = 180.0
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
@@ -130,27 +136,27 @@ def _reflect_index(n: int, k: int, device) -> torch.Tensor:
     return torch.where(i >= n, 2 * (n - 1) - i, i)
 
 
-def blur_weights(sigma: torch.Tensor, kernel_size: int = 25) -> torch.Tensor:
-    """(B,) sigmas -> (B, K) normalized Gaussian taps in float32."""
-    k = kernel_size // 2
+def blur_weights(sigma: torch.Tensor) -> torch.Tensor:
+    """(B,) sigmas -> (B, BLUR_TAPS) normalized Gaussian taps in float32."""
+    k = BLUR_TAPS // 2
     xs = torch.arange(-k, k + 1, dtype=torch.float32,
                       device=sigma.device)[None, :]
     w = torch.exp(-0.5 * (xs / sigma.to(torch.float32).reshape(-1, 1)) ** 2)
     return w / torch.sum(w, dim=1, keepdim=True)
 
 
-def gaussian_blur(img, sigma, kernel_size: int = 25):
+def gaussian_blur(img, sigma):
     """Separable Gaussian with one sigma per image and reflect padding, as 25
     shifted adds per axis in the image dtype."""
     B, H, W, C = img.shape
-    k = kernel_size // 2
-    w = blur_weights(sigma, kernel_size).to(img.dtype)
+    k = BLUR_TAPS // 2
+    w = blur_weights(sigma).to(img.dtype)
 
     def conv_axis(x, axis):
         n = x.shape[axis]
         xp = x.index_select(axis, _reflect_index(n, k, x.device))
         out = torch.zeros_like(x)
-        for i in range(kernel_size):
+        for i in range(BLUR_TAPS):
             out = out + xp.narrow(axis, i, n) * w[:, i].reshape(B, 1, 1, 1)
         return out
 
@@ -166,16 +172,15 @@ def random_flips(img, hflip, vflip):
     return torch.where(vflip.reshape(B, 1, 1, 1), img.flip(1), img)
 
 
-def rotation_factors(angle_deg: torch.Tensor, size: int):
+def rotation_factors(angle_deg: torch.Tensor):
     """Fold each angle to 90q + r with r in [-45, 45] degrees. Returns
-    (q as int32, alpha = tan(r/2), beta = -sin(r), P), as
-    `rotate_nearest_shear` computes them for a `size`-pixel square image."""
+    (q mod 4 as int32, alpha = tan(r/2), beta = -sin(r)), as the JAX
+    package's `rotate_nearest_shear` computes them."""
     theta = torch.deg2rad(angle_deg.to(torch.float32))
     q = torch.round(theta / (0.5 * math.pi))
     r = theta - q * (0.5 * math.pi)
-    c = (size - 1) / 2.0
-    P = int(np.ceil(np.tan(np.pi / 8) * c)) + 1   # shear-x shift bound + 1
-    return q.to(torch.int32), torch.tan(r / 2.0), -torch.sin(r), P
+    return (torch.remainder(q, 4).to(torch.int32), torch.tan(r / 2.0),
+            -torch.sin(r))
 
 
 def rotate_nearest_shear(img, angle_deg, fill: float = 0.0):
@@ -184,18 +189,14 @@ def rotate_nearest_shear(img, angle_deg, fill: float = 0.0):
     B, H, W, C = img.shape
     if H != W:
         raise ValueError("rotate_nearest_shear requires square images")
-    q, alpha, beta, P = rotation_factors(angle_deg, H)
+    q, alpha, beta = rotation_factors(angle_deg)
     return shear_rotate(img.contiguous(), alpha.contiguous(),
-                        beta.contiguous(), P, fill,
-                        quarter=torch.remainder(q, 4).contiguous())
+                        beta.contiguous(), fill, quarter=q.contiguous())
 
 
 # ---------------------------------------------------------------- pipeline
 
-def sample_classification_params(B: int, generator: torch.Generator, *,
-                                 brightness=0.4, contrast=0.5, saturation=0.25,
-                                 hue=0.01, sigma_range=(0.001, 2.0),
-                                 degrees=180.0) -> dict:
+def sample_classification_params(B: int, generator: torch.Generator) -> dict:
     """Draw every random factor of the classification augmentation on the
     generator's device, with the JAX package's ranges: jitter factors
     U[1-x, 1+x] (hue U[-h, h]) and one op order per batch (`color_jitter`),
@@ -207,17 +208,15 @@ def sample_classification_params(B: int, generator: torch.Generator, *,
         u = torch.rand((B,), generator=generator, device=dev)
         return lo + (hi - lo) * u
 
-    return {
-        "brightness": uniform(1 - brightness, 1 + brightness),
-        "contrast": uniform(1 - contrast, 1 + contrast),
-        "saturation": uniform(1 - saturation, 1 + saturation),
-        "hue": uniform(-hue, hue),
-        "order": torch.randperm(4, generator=generator, device=dev).tolist(),
-        "sigma": uniform(*sigma_range),
-        "hflip": torch.rand((B,), generator=generator, device=dev) > 0.5,
-        "vflip": torch.rand((B,), generator=generator, device=dev) > 0.5,
-        "angle": uniform(-degrees, degrees),
-    }
+    params = {name: uniform(1 - x, 1 + x) for name, x in JITTER.items()}
+    params.update(
+        hue=uniform(-HUE, HUE),
+        order=torch.randperm(4, generator=generator, device=dev).tolist(),
+        sigma=uniform(*SIGMA_RANGE),
+        hflip=torch.rand((B,), generator=generator, device=dev) > 0.5,
+        vflip=torch.rand((B,), generator=generator, device=dev) > 0.5,
+        angle=uniform(-DEGREES, DEGREES))
+    return params
 
 
 def apply_classification(img_u8: torch.Tensor, params: dict) -> torch.Tensor:

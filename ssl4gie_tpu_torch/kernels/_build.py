@@ -33,7 +33,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "ssl4gie_attn_fwd": (_P, _P, _P, _I, _I, _I, _F, _P),
     "ssl4gie_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "ssl4gie_shear_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "ssl4gie_shear_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -2,9 +2,12 @@
 
 Port of `ssl4gie_tpu/kernels/rotate.py:shear_rotate_pallas`: rotate each image
 of a (B, H, W, C) canvas by the shears x(alpha) y(beta) x(alpha), alpha =
-tan(r/2) and beta = -sin(r), padding the x-shears by P columns and writing
-`fill` where a pass reads outside the image. Element for element the same as
-the JAX package's shear passes (`data/augment.py:rotate_nearest_shear`).
+tan(r/2) and beta = -sin(r), writing `fill` where a pass reads outside the
+image. Element for element the same as the JAX package's shear passes
+(`data/augment.py:rotate_nearest_shear`) and as `shear_rotate_pallas` with
+any pad P larger than the largest x-shift: the TPU pads its canvas by P
+columns only so that its circular rolls do not wrap, and the pad cancels
+out of the composed index chain, so the port takes no P.
 
 `quarter` (optional, (B,) int32) also applies the rot90 fold of
 `rotate_nearest_shear` first (q quarter turns per image), so the caller can
@@ -36,7 +39,7 @@ def _shift(factor: torch.Tensor, pos: torch.Tensor, c: float) -> torch.Tensor:
     return torch.round(factor * (pos.to(torch.float32) - c)).to(torch.int64)
 
 
-def shear_rotate_plain(g, alpha, beta, P: int, fill: float, quarter=None):
+def shear_rotate_plain(g, alpha, beta, fill: float, quarter=None):
     """The plain version: the three shear passes composed into one gather."""
     if quarter is not None:
         g = rot90_fold(g, quarter)
@@ -47,9 +50,9 @@ def shear_rotate_plain(g, alpha, beta, P: int, fill: float, quarter=None):
     be = beta.to(torch.float32).reshape(B, 1, 1)
     y = torch.arange(H, device=dev).reshape(1, H, 1)
     x = torch.arange(W, device=dev).reshape(1, 1, W)
-    j = x + P + _shift(a, y, c)                       # pass C source column
-    y2 = y + _shift(be, j - P, c)                     # pass B source row
-    x2 = j - P + _shift(a, y2, c)                     # pass A source column
+    u = x + _shift(a, y, c)                           # pass C source column - P
+    y2 = y + _shift(be, u, c)                         # pass B source row
+    x2 = u + _shift(a, y2, c)                         # pass A source column
     valid = (y2 >= 0) & (y2 < H) & (x2 >= 0) & (x2 < W)
     flat = (y2.clamp(0, H - 1) * W + x2.clamp(0, W - 1)).reshape(B, H * W, 1)
     src = torch.gather(g.reshape(B, H * W, C), 1, flat.expand(B, H * W, C))
@@ -59,11 +62,11 @@ def shear_rotate_plain(g, alpha, beta, P: int, fill: float, quarter=None):
 
 
 def shear_rotate(g: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
-                 P: int, fill: float, quarter=None) -> torch.Tensor:
+                 fill: float, quarter=None) -> torch.Tensor:
     """g: (B, H, W, C); alpha, beta: (B,) f32 shear factors; quarter: None or
     (B,) int32 quarter turns to fold first (square g). Returns (B, H, W, C)."""
     if g.device.type == "cpu":
-        return shear_rotate_plain(g, alpha, beta, P, fill, quarter)
+        return shear_rotate_plain(g, alpha, beta, fill, quarter)
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
     if g.dim() != 4 or g.numel() == 0:
@@ -74,8 +77,6 @@ def shear_rotate(g: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
         raise TypeError(f"the CUDA kernel takes bfloat16, got {g.dtype}")
     if not g.is_contiguous():
         raise ValueError("the CUDA kernel takes a contiguous g")
-    if not 0 < P < W:
-        raise ValueError(f"pad P={P} outside (0, W={W})")
     args = [(alpha, "alpha", torch.float32), (beta, "beta", torch.float32)]
     if quarter is not None:
         if H != W:
@@ -91,7 +92,7 @@ def shear_rotate(g: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
         _build.launch("ssl4gie_shear_rotate", g.data_ptr(), alpha.data_ptr(),
                       beta.data_ptr(),
                       None if quarter is None else quarter.data_ptr(),
-                      out.data_ptr(), B, H, W, C, int(P), float(fill),
+                      out.data_ptr(), B, H, W, C, float(fill),
                       torch.cuda.current_stream(g.device).cuda_stream)
     shear_rotate.launches += 1
     return out

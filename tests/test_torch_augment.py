@@ -92,7 +92,7 @@ def test_flips_match_jax_exactly(img):
     key = jax.random.PRNGKey(5)
     ref, _ = jaug.random_flips(key, jnp.asarray(img))
     kh, kv = jax.random.split(key)
-    do = lambda k: torch.from_numpy(np.asarray(
+    do = lambda k: torch.from_numpy(np.array(
         jax.random.uniform(k, (B, 1, 1, 1)) > 0.5).reshape(B))
     out = taug.random_flips(torch.from_numpy(img), do(kh), do(kv))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))

@@ -141,11 +141,10 @@ def test_shear_rotate_matches_pallas_exactly(no_build):
                                              jnp.asarray(beta), P, 0.0))
     launches = rot.shear_rotate.launches
     out = rot.shear_rotate(torch.from_numpy(np.array(g)),
-                           torch.from_numpy(alpha), torch.from_numpy(beta), P,
-                           0.0)
+                           torch.from_numpy(alpha), torch.from_numpy(beta), 0.0)
     np.testing.assert_array_equal(out.numpy(), ref)
     folded = rot.shear_rotate(torch.from_numpy(img), torch.from_numpy(alpha),
-                              torch.from_numpy(beta), P, 0.0,
+                              torch.from_numpy(beta), 0.0,
                               quarter=torch.from_numpy(q))
     np.testing.assert_array_equal(folded.numpy(), ref)
     assert rot.shear_rotate.launches == launches
@@ -169,7 +168,7 @@ def test_shear_rotate_fill_matches_pallas(fill, no_build):
         ref = np.asarray(shear_rotate_pallas(jnp.asarray(g), jnp.asarray(alpha),
                                              jnp.asarray(beta), P, fill))
     out = rot.shear_rotate(torch.from_numpy(g), torch.from_numpy(alpha),
-                           torch.from_numpy(beta), P, fill)
+                           torch.from_numpy(beta), fill)
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
@@ -214,9 +213,8 @@ def test_shear_rotate_kernel_matches_plain_on_card(cuda):
     img, angle = _shear_case(5, B=4)
     from ssl4gie_tpu_torch.data.augment import rotation_factors
     img = torch.from_numpy(img).to(cuda).bfloat16()
-    q, alpha, beta, P = rotation_factors(torch.from_numpy(angle).to(cuda), 224)
-    q = torch.remainder(q, 4)
-    got = rot.shear_rotate(img, alpha, beta, P, 0.0, quarter=q)
+    q, alpha, beta = rotation_factors(torch.from_numpy(angle).to(cuda))
+    got = rot.shear_rotate(img, alpha, beta, 0.0, quarter=q)
     torch.cuda.synchronize()
-    assert torch.equal(got, rot.shear_rotate_plain(img, alpha, beta, P, 0.0,
+    assert torch.equal(got, rot.shear_rotate_plain(img, alpha, beta, 0.0,
                                                    quarter=q))

@@ -115,6 +115,48 @@ def test_train_step_matches_jax(setup, accum_steps):
     assert np.mean(diffs <= 1e-6) >= 0.999
 
 
+def test_adamw_lr_and_clip_match_optax():
+    """`make_adamw` with a global-norm clip, `set_lr`/`get_lr` between two
+    steps, against the JAX package's optax chain on the same arrays."""
+    import optax
+
+    from ssl4gie_tpu.core.train_state import get_lr as jax_get_lr
+    from ssl4gie_tpu.core.train_state import set_lr as jax_set_lr
+    from ssl4gie_tpu_torch.core.train_state import (apply_gradients, get_lr,
+                                                    set_lr)
+
+    rng = np.random.default_rng(3)
+    params = {"w": rng.normal(0, 1, (8, 5)).astype(np.float32),
+              "b": rng.normal(0, 1, (5,)).astype(np.float32)}
+    grads = [{k: rng.normal(0, 4, v.shape).astype(np.float32)   # norm >> 1
+              for k, v in params.items()} for _ in range(2)]
+    lrs = (1e-2, 5e-3)
+
+    tx = jax_make_adamw(lrs[0], grad_clip=1.0)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    state = tx.init(jp)
+    for i, g in enumerate(grads):
+        if i:
+            state = jax_set_lr(state, lrs[i])
+        upd, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state, jp)
+        jp = optax.apply_updates(jp, upd)
+    assert jax_get_lr(state) == pytest.approx(lrs[1])
+
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = make_adamw(tp.values(), lrs[0], grad_clip=1.0)
+    for i, g in enumerate(grads):
+        if i:
+            set_lr(opt, lrs[i])
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        apply_gradients(opt)
+    assert get_lr(opt) == pytest.approx(lrs[1])
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter leaves jax,
     flax and optax out of sys.modules."""
