@@ -46,8 +46,12 @@ using namespace nvcuda;
 constexpr int kDh = 64;               // head width the kernels are built for
 constexpr int kLd = kDh + 8;          // bf16 row of a staged 64-wide slice
 constexpr int kChunk = 32;            // keys (or queries) per inner step
-constexpr int kLdS = kDh + 4;         // f32 per-warp tile row (16 x 68)
-constexpr int kLdP = kChunk + 8;      // bf16 per-warp tile row (16 x 40)
+constexpr int kLdS = kChunk + 4;      // f32 score tile row (16 x 36)
+constexpr int kLdP = kChunk + 8;      // bf16 probability tile row (16 x 40)
+constexpr int kLdO = kDh + 4;         // f32 output staging row (16 x 68)
+// per-warp f32 area: two score tiles, also the output staging area
+constexpr int kTileF = 2 * 16 * kLdS;
+static_assert(kTileF >= 16 * kLdO, "output staging must fit two score tiles");
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;    // rows a block owns
@@ -119,18 +123,19 @@ __device__ __forceinline__ void accumulate(FragC (&acc)[4], const bf16* P,
 
 // Write the warp's 16 x 64 accumulators times `mul` as bf16 into rows
 // [row0, row0 + 16) (those < n_valid) of `dst` (row stride `stride`), via
-// the per-warp f32 tile T. Lane: row lane & 15, columns (lane >> 4) * 32 + [0, 32).
+// the warp's kTileF f32 area T. Lane: row lane & 15, columns
+// (lane >> 4) * 32 + [0, 32).
 __device__ __forceinline__ void write_rows(FragC (&acc)[4], float* T, float mul,
                                            bf16* dst, int row0, int n_valid,
                                            int stride) {
 #pragma unroll
   for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(T + n * 16, acc[n], kLdS, wmma::mem_row_major);
+    wmma::store_matrix_sync(T + n * 16, acc[n], kLdO, wmma::mem_row_major);
   __syncwarp();
   const int lane = threadIdx.x & 31, r = lane & 15, c0 = (lane >> 4) * 32;
   if (row0 + r < n_valid) {
     bf16* d = dst + (size_t)(row0 + r) * stride + c0;
-    const float* t = T + r * kLdS + c0;
+    const float* t = T + r * kLdO + c0;
 #pragma unroll
     for (int c = 0; c < 32; c += 8) {
       __align__(16) bf16 v[8];
@@ -144,7 +149,7 @@ __device__ __forceinline__ void write_rows(FragC (&acc)[4], float* T, float mul,
 
 // ---------------------------------------------------------------- forward
 // grid (ceil(N / kRows), H, B). smem: K, V (NP rows), Q (kRows rows), per
-// warp a 16 x kLdS f32 tile and a 16 x kLdP bf16 tile.
+// warp a kTileF f32 area and a 16 x kLdP bf16 tile.
 __global__ void __launch_bounds__(kThreads)
 attn_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
          float* __restrict__ lse, int N, int H, float scale) {
@@ -156,9 +161,9 @@ attn_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + NP * kLd;
   bf16* Qs = Vs + NP * kLd;
-  float* S = reinterpret_cast<float*>(Qs + kRows * kLd) + warp * 16 * kLdS;
+  float* S = reinterpret_cast<float*>(Qs + kRows * kLd) + warp * kTileF;
   bf16* P = reinterpret_cast<bf16*>(reinterpret_cast<float*>(Qs + kRows * kLd) +
-                                    kWarps * 16 * kLdS) + warp * 16 * kLdP;
+                                    kWarps * kTileF) + warp * 16 * kLdP;
 
   const bf16* base = qkv + (size_t)b * N * C3;
   stage(Ks, base + C + h * kDh, 0, NP, N, C3);
@@ -223,7 +228,8 @@ attn_fwd(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 
 // ---------------------------------------------------------------- dq
 // grid (ceil(N / kRows), H, B). smem: K, V (NP rows), Q, dO (kRows rows),
-// per warp two f32 tiles and one bf16 tile. Also writes delta per row.
+// per warp a kTileF f32 area (two score tiles) and one bf16 tile. Also
+// writes delta per row.
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
             const float* __restrict__ lse, const bf16* __restrict__ dout,
@@ -238,10 +244,10 @@ attn_bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
   bf16* Vs = Ks + NP * kLd;
   bf16* Qs = Vs + NP * kLd;
   bf16* Gs = Qs + kRows * kLd;
-  float* S = reinterpret_cast<float*>(Gs + kRows * kLd) + warp * 2 * 16 * kLdS;
+  float* S = reinterpret_cast<float*>(Gs + kRows * kLd) + warp * kTileF;
   float* D = S + 16 * kLdS;
   bf16* P = reinterpret_cast<bf16*>(reinterpret_cast<float*>(Gs + kRows * kLd) +
-                                    kWarps * 2 * 16 * kLdS) + warp * 16 * kLdP;
+                                    kWarps * kTileF) + warp * 16 * kLdP;
 
   const bf16* base = qkv + (size_t)b * N * C3;
   const bf16* gbase = dout + (size_t)b * N * C + h * kDh;
@@ -296,8 +302,8 @@ attn_bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
 
 // ---------------------------------------------------------------- dk, dv
 // grid (ceil(N / kRows), H, B) over KEY rows. smem: Q, dO (NP rows), the
-// block's K and V rows, lse and delta (NP floats), per warp two f32 tiles
-// and two bf16 tiles.
+// block's K and V rows, lse and delta (NP floats), per warp a kTileF f32
+// area (two score tiles) and two bf16 tiles.
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkv(const bf16* __restrict__ qkv, const float* __restrict__ lse,
              const bf16* __restrict__ dout, const float* __restrict__ delta,
@@ -313,9 +319,9 @@ attn_bwd_dkv(const bf16* __restrict__ qkv, const float* __restrict__ lse,
   bf16* Vs = Ks + kRows * kLd;
   float* lse_s = reinterpret_cast<float*>(Vs + kRows * kLd);
   float* delta_s = lse_s + NP;
-  float* S = delta_s + NP + warp * 2 * 16 * kLdS;
+  float* S = delta_s + NP + warp * kTileF;
   float* D = S + 16 * kLdS;
-  bf16* P = reinterpret_cast<bf16*>(delta_s + NP + kWarps * 2 * 16 * kLdS) +
+  bf16* P = reinterpret_cast<bf16*>(delta_s + NP + kWarps * kTileF) +
             warp * 2 * 16 * kLdP;
   bf16* DS = P + 16 * kLdP;
 
@@ -366,18 +372,20 @@ attn_bwd_dkv(const bf16* __restrict__ qkv, const float* __restrict__ lse,
   write_rows(dv, S, 1.f, drows + 2 * C, k0 + warp * 16, N, C3);
 }
 
+// Shared memory per block. At N = 197: 95, 104 and 111 KiB, so two blocks
+// fit on one SM (228 KiB); at N = 512: 176, 185 and 194 KiB.
 size_t fwd_smem(int N) {
   return (2 * (size_t)pad_rows(N) + kRows) * kLd * 2 +
-         kWarps * 16 * ((size_t)kLdS * 4 + kLdP * 2);
+         kWarps * ((size_t)kTileF * 4 + 16 * kLdP * 2);
 }
 size_t dq_smem(int N) {
   return (2 * (size_t)pad_rows(N) + 2 * kRows) * kLd * 2 +
-         kWarps * 16 * (2 * (size_t)kLdS * 4 + kLdP * 2);
+         kWarps * ((size_t)kTileF * 4 + 16 * kLdP * 2);
 }
 size_t dkv_smem(int N) {
   return (2 * (size_t)pad_rows(N) + 2 * kRows) * kLd * 2 +
          2 * (size_t)pad_rows(N) * 4 +
-         kWarps * 16 * (2 * (size_t)kLdS * 4 + 2 * kLdP * 2);
+         kWarps * ((size_t)kTileF * 4 + 2 * 16 * kLdP * 2);
 }
 
 // Set the dynamic shared-memory cap a kernel needs (above the 48 KB default).
@@ -391,7 +399,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError(). The Python wrapper checks the shapes, the dtype (bf16),
-// Dh == 64 and N <= 512 (at most 210 KiB of shared memory) before calling.
+// Dh == 64 and N <= 512 (at most 194 KiB of shared memory) before calling.
 extern "C" int ssl4gie_attn_fwd(const void* qkv, void* out, void* lse, int B,
                                 int N, int H, float scale, void* stream) {
   cudaError_t err = allow_smem(attn_fwd, fwd_smem(N));

@@ -115,6 +115,34 @@ def test_train_step_matches_jax(setup, accum_steps):
     assert np.mean(diffs <= 1e-6) >= 0.999
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_classification_metrics_match_jax(weighted):
+    """Weighted cross-entropy and the per-class metrics against the JAX
+    package's, on the same logits, labels and predictions."""
+    from ssl4gie_tpu.metrics import classification as jm
+    from ssl4gie_tpu_torch.metrics import classification as tm
+
+    rng = np.random.default_rng(4)
+    logits = rng.normal(0, 3, (32, CLASSES)).astype(np.float32)
+    labels = rng.integers(0, CLASSES, 32).astype(np.int32)
+    preds = rng.integers(0, CLASSES, 32).astype(np.int32)
+    w = rng.uniform(0.5, 2.0, CLASSES).astype(np.float32) if weighted else None
+    ref = jm.weighted_cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                    None if w is None else jnp.asarray(w))
+    out = tm.weighted_cross_entropy(torch.from_numpy(logits),
+                                    torch.from_numpy(labels),
+                                    None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(out.item(), float(ref), rtol=1e-6)
+    tp, tl = torch.from_numpy(preds), torch.from_numpy(labels)
+    jp, jl = jnp.asarray(preds), jnp.asarray(labels)
+    for name in ("mean_f1", "mean_precision", "mean_recall"):
+        np.testing.assert_allclose(getattr(tm, name)(tp, tl, CLASSES).item(),
+                                   float(getattr(jm, name)(jp, jl, CLASSES)),
+                                   rtol=1e-6, err_msg=name)
+    np.testing.assert_allclose(tm.accuracy(tp, tl).item(),
+                               float(jm.accuracy(jp, jl)), rtol=1e-6)
+
+
 def test_adamw_lr_and_clip_match_optax():
     """`make_adamw` with a global-norm clip, `set_lr`/`get_lr` between two
     steps, against the JAX package's optax chain on the same arrays."""
