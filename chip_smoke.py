@@ -27,6 +27,18 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+import torch
+
+from ssl4gie_tpu_torch.core.train_state import make_adamw
+from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
+from ssl4gie_tpu_torch.data.augment import eval_batch, rotation_factors
+from ssl4gie_tpu_torch.kernels import _build
+from ssl4gie_tpu_torch.kernels import dense_attention as da
+from ssl4gie_tpu_torch.kernels import rotate as rot
+from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
+from ssl4gie_tpu_torch.models.vit import ViTClassifier
+
 SEED = 0
 B = 64                  # main-path batch (images per step)
 IMG = 224
@@ -39,7 +51,6 @@ LOGIT_TOL = 0.05    # bf16 compute vs f32: 5% of the largest logit
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     """Median device time of `fn` over `runs`, by CUDA events."""
-    import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -66,7 +77,6 @@ def card_line() -> str:
 def check_close(name, got, ref, rel_tol: float) -> float:
     """Max |got - ref|; raise unless every element is finite and within
     rel_tol * (|ref| + max|ref|)."""
-    import torch
     got, ref = got.float(), ref.float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -80,12 +90,7 @@ def check_close(name, got, ref, rel_tol: float) -> float:
 
 
 def kernel_phase(card: str) -> list[dict]:
-    import torch
-
-    from ssl4gie_tpu_torch.data.augment import rotation_factors
-    from ssl4gie_tpu_torch.kernels import dense_attention as da
-    from ssl4gie_tpu_torch.kernels import rotate as rot
-
+    """Each kernel against its plain version at the main path's shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     C = HEADS * HEAD_DIM
@@ -160,17 +165,6 @@ def kernel_phase(card: str) -> list[dict]:
 
 def main_path(card: str) -> dict:
     """The full-width finetune step, a few times; returns the launch counts."""
-    import numpy as np
-    import torch
-
-    from ssl4gie_tpu_torch.core.train_state import make_adamw
-    from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
-    from ssl4gie_tpu_torch.data.augment import eval_batch
-    from ssl4gie_tpu_torch.kernels import dense_attention as da
-    from ssl4gie_tpu_torch.kernels import rotate as rot
-    from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
-    from ssl4gie_tpu_torch.models.vit import ViTClassifier
-
     dev = torch.device("cuda")
     model = ViTClassifier(NUM_CLASSES, dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(SEED),
@@ -246,7 +240,6 @@ def main_path(card: str) -> dict:
 
 
 def main() -> None:
-    import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs only on a CUDA device")
@@ -255,7 +248,6 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
-    from ssl4gie_tpu_torch.kernels import _build
     t0 = time.perf_counter()
     path = _build.build()
     _build.library()

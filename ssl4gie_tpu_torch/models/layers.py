@@ -10,7 +10,9 @@ sequences, as in the JAX package.
 Attention routes a (B, N, 3C) qkv with FUSED_MIN_SEQ <= N <= MAX_FUSED_SEQ to
 `kernels.dense_attention.fused_qkv_attention` (the CUDA kernels on the card),
 the same range as the JAX package's Pallas dispatch; other lengths take the
-plain head-split attention, as there.
+plain head-split attention, as there. The kernels take bfloat16 and 64-wide
+heads: a float32 or other-width model on the card raises in that range
+rather than silently taking the plain path.
 """
 
 from __future__ import annotations

@@ -127,6 +127,24 @@ def test_state_dict_round_trip(out_token):
                                   np.asarray(params["lin_head"]["bias"]))
 
 
+def test_drop_path_keeps_whole_samples_with_rescale():
+    """timm DropPath semantics (the JAX package's `drop_path`): each sample
+    is kept with probability 1 - rate and rescaled by 1 / (1 - rate); the
+    Block asks for a generator when it needs one."""
+    from ssl4gie_tpu_torch.models.layers import Block, drop_path
+    out = drop_path(torch.ones(4096, 3, 2), 0.25,
+                    torch.Generator().manual_seed(0)).reshape(4096, -1)
+    assert bool((out == out[:, :1]).all())            # whole samples
+    kept = out[:, 0] > 0
+    assert bool(torch.allclose(out[kept], torch.full_like(out[kept], 1 / 0.75)))
+    assert abs(kept.float().mean().item() - 0.75) < 0.03
+    blk = Block(DIM, HEADS, drop_path_rate=0.1)
+    x = torch.zeros(1, 197, DIM)
+    with pytest.raises(ValueError):
+        blk.train()(x)
+    blk.eval()(x)                                      # no sampling in eval
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         ViTBackbone(img_size=256, depth=1, embed_dim=DIM, num_heads=HEADS)
