@@ -76,7 +76,7 @@ def build() -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
-        os.replace(tmp, out)   # atomic: a concurrent builder sees all or none
+        os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
