@@ -3,10 +3,11 @@
 All of `ssl4gie_tpu_torch/csrc/*.cu` is compiled by one `nvcc` call into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds rather than minutes), under `ssl4gie_tpu_torch/build/`, which
-git ignores. The library's name carries a hash of the sources and the flags,
-so it is rebuilt only when one of them changes. Each C entry point launches on
-the stream it is given and returns what `cudaGetLastError()` held after the
-launch; `check` turns a nonzero code into an exception.
+git ignores. The library's name carries a hash of the sources, the shared
+headers (`csrc/*.cuh`) and the flags, so it is rebuilt only when one of them
+changes. Each C entry point launches on the stream it is given and returns
+what `cudaGetLastError()` held after the launch; `launch` turns a nonzero
+code into an exception.
 
 Nothing here runs at import: the CPU path never builds or loads anything.
 """
@@ -34,6 +35,12 @@ SIGNATURES = {
     "ssl4gie_attn_fwd": (_P, _P, _P, _I, _I, _I, _F, _P),
     "ssl4gie_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "ssl4gie_shear_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "ssl4gie_window_attn_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "ssl4gie_window_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _P),
+    "ssl4gie_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "ssl4gie_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _P),
 }
 
 
@@ -53,7 +60,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libssl4gie_kernels_{h.hexdigest()[:16]}.so"

@@ -7,12 +7,19 @@ flax `dtype=bfloat16` does: LayerNorm statistics are taken in float32 (eps
 exact erf form under float32. Activations are NHWC images and (B, N, C) token
 sequences, as in the JAX package.
 
-Attention routes a (B, N, 3C) qkv with FUSED_MIN_SEQ <= N <= MAX_FUSED_SEQ to
-`kernels.dense_attention.fused_qkv_attention` (the CUDA kernels on the card),
-the same range as the JAX package's Pallas dispatch; other lengths take the
-plain head-split attention, as there. The kernels take bfloat16 and 64-wide
-heads: a float32 or other-width model on the card raises in that range
-rather than silently taking the plain path.
+Attention routes as the JAX package's Pallas dispatch does
+(`ssl4gie_tpu/models/layers.py:289-357`), with the same ranges:
+- a windowed block (ViTDet) -> `kernels.window_attention` on the
+  (B, GH, GW, 3C) grid;
+- no window, FUSED_MIN_SEQ <= N <= MAX_FUSED_SEQ -> the packed-QKV
+  `kernels.dense_attention`;
+- no window, N >= FLASH_MIN_SEQ with N % 256 == 0 (ViTDet's global blocks)
+  -> `kernels.flash_attention` through `default_attention`;
+- everything else -> plain head-split attention.
+On a CPU tensor every kernel route runs its plain version; on the card it
+launches the CUDA kernel. The kernels take bfloat16 and 64-wide heads: a
+float32 or other-width model on the card raises in those ranges rather than
+silently taking the plain path.
 """
 
 from __future__ import annotations
@@ -26,8 +33,12 @@ from torch import nn
 
 from ssl4gie_tpu_torch.kernels.dense_attention import (MAX_FUSED_SEQ,
                                                        fused_qkv_attention)
+from ssl4gie_tpu_torch.kernels.flash_attention import flash_attention_heads
+from ssl4gie_tpu_torch.kernels.window_attention import windowed_flash_attention
+from ssl4gie_tpu_torch.ops.resize import resize_bilinear_ac
 
 FUSED_MIN_SEQ = 160    # packed-QKV kernel range: dense tasks at N=197
+FLASH_MIN_SEQ = 1024   # blockwise kernel for long sequences (detection)
 TRUNC_STD = 0.87962566103423978   # std of N(0, 1) truncated to [-2, 2]
 
 
@@ -59,20 +70,56 @@ def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
     return pos
 
 
+def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid: int,
+                          dst_grid: int) -> torch.Tensor:
+    """Resize the grid part of a (1, 1 + N, D) position embedding (cls row
+    first) bilinearly with align_corners=True, as the reference does for
+    1024-px detection (14x14 -> 64x64). (The bicubic checkpoint-load variant
+    is not ported.)"""
+    d = pos_embed.shape[-1]
+    grid = resize_bilinear_ac(pos_embed[:, 1:].reshape(1, src_grid, src_grid,
+                                                       d), dst_grid, dst_grid)
+    return torch.cat([pos_embed[:, :1], grid.reshape(1, dst_grid * dst_grid,
+                                                     d)], dim=1)
+
+
 @torch.no_grad()
-def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
-    """flax `truncated_normal(std)`: N(0, 1) truncated to [-2, 2], scaled so
-    the result has standard deviation `std` (inverse-CDF sampling)."""
+def _trunc_standard_(t: torch.Tensor, generator: torch.Generator):
+    """N(0, 1) truncated to [-2, 2], in place (inverse-CDF sampling)."""
     lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
     t.uniform_(lo, hi, generator=generator).erfinv_()
-    return t.mul_(math.sqrt(2) * std / TRUNC_STD)
+    return t.mul_(math.sqrt(2))
 
 
-def init_linear(lin: nn.Linear, generator: torch.Generator,
-                std: float = 0.02) -> None:
-    """timm init: truncated-normal weight, zero bias."""
-    trunc_normal_(lin.weight, std, generator)
+@torch.no_grad()
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
+    """flax `truncated_normal(std)`: N(0, 1) truncated to [-2, 2], times
+    `std`. `std` is the standard deviation of the untruncated distribution;
+    the result's is `std * TRUNC_STD`."""
+    return _trunc_standard_(t, generator).mul_(std)
+
+
+@torch.no_grad()
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
+    """flax `lecun_normal()` (the default kernel init of `nn.Dense`,
+    `nn.Conv` and `nn.ConvTranspose`): the truncated draw times
+    sqrt(1 / fan_in) / TRUNC_STD, so the result's standard deviation is
+    sqrt(1 / fan_in)."""
+    return _trunc_standard_(t, generator).mul_(math.sqrt(1.0 / fan_in)
+                                               / TRUNC_STD)
+
+
+def init_linear(lin: nn.Linear, generator: torch.Generator) -> None:
+    """timm init (`TIMM_INIT`): truncated-normal(0.02) weight, zero bias."""
+    trunc_normal_(lin.weight, 0.02, generator)
     nn.init.zeros_(lin.bias)
+
+
+def init_lecun(mod: nn.Module, fan_in: int, generator: torch.Generator) -> None:
+    """flax default init of a Dense/Conv/ConvTranspose: lecun-normal weight
+    over `fan_in` inputs, zero bias."""
+    lecun_normal_(mod.weight, fan_in, generator)
+    nn.init.zeros_(mod.bias)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -91,6 +138,15 @@ def plain_attention(q, k, v, scale: float):
     attn = (q @ k.transpose(-2, -1)) * scale
     attn = torch.softmax(attn.to(torch.float32), dim=-1).to(q.dtype)
     return attn @ v
+
+
+def default_attention(q, k, v, scale: float):
+    """The flash kernel for long sequences (detection's 4,096 global tokens:
+    N >= FLASH_MIN_SEQ, N % 256 == 0, (B, H, N, Dh)), plain otherwise."""
+    n = q.shape[-2]
+    if n >= FLASH_MIN_SEQ and n % 256 == 0 and q.ndim == 4:
+        return flash_attention_heads(q, k, v, scale)
+    return plain_attention(q, k, v, scale)
 
 
 class Mlp(nn.Module):
@@ -112,11 +168,15 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention over (B, N, C), non-windowed."""
+    """Multi-head self-attention over (B, N, C), optionally in
+    non-overlapping `window_size` x `window_size` windows of the token grid
+    (ViTDet), which then needs the grid shape `grid_hw`."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, window_size: int | None = None,
+                 dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.window_size = window_size
         self.dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
@@ -125,17 +185,22 @@ class Attention(nn.Module):
         init_linear(self.qkv, generator)
         init_linear(self.proj, generator)
 
-    def forward(self, x):
+    def forward(self, x, grid_hw: tuple | None = None):
         B, N, C = x.shape
         H = self.num_heads
         Dh = C // H
         scale = Dh ** -0.5
         qkv = linear(x, self.qkv, self.dtype)
-        if FUSED_MIN_SEQ <= N <= MAX_FUSED_SEQ:
+        if self.window_size is not None:
+            gh, gw = grid_hw
+            out = windowed_flash_attention(qkv.reshape(B, gh, gw, 3 * C), H,
+                                           self.window_size, scale)
+            out = out.reshape(B, N, C)
+        elif FUSED_MIN_SEQ <= N <= MAX_FUSED_SEQ:
             out = fused_qkv_attention(qkv, H, scale)
         else:
             t = qkv.reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
-            out = plain_attention(t[0], t[1], t[2], scale)
+            out = default_attention(t[0], t[1], t[2], scale)
             out = out.transpose(1, 2).reshape(B, N, C)
         return linear(out, self.proj, self.dtype)
 
@@ -157,12 +222,13 @@ class Block(nn.Module):
     """Pre-norm transformer block (timm layout: norm1/attn/norm2/mlp)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, drop_path_rate: float = 0.0):
+                 dtype=torch.float32, drop_path_rate: float = 0.0,
+                 window_size: int | None = None):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, dtype=dtype)
+        self.attn = Attention(dim, num_heads, window_size, dtype=dtype)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
@@ -172,11 +238,12 @@ class Block(nn.Module):
         self.attn.reset_parameters(generator)
         self.mlp.reset_parameters(generator)
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x, generator: torch.Generator | None = None,
+                grid_hw: tuple | None = None):
         sd = self.drop_path_rate > 0 and self.training
         if sd and generator is None:
             raise ValueError("stochastic depth in training needs a generator")
-        h = self.attn(layer_norm(x, self.norm1, self.dtype))
+        h = self.attn(layer_norm(x, self.norm1, self.dtype), grid_hw)
         if sd:
             h = drop_path(h, self.drop_path_rate, generator)
         x = x + h

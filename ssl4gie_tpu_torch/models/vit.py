@@ -1,15 +1,23 @@
-"""ViT-B/16 backbone in pooled mode and the linear classifier (port of
-`ssl4gie_tpu/models/vit.py`).
+"""ViT-B/16 backbone in pooled and det modes and the linear classifier (port
+of `ssl4gie_tpu/models/vit.py`).
 
 Parameter names follow timm (`patch_embed.proj`, `cls_token`, `pos_embed`,
 `blocks.{i}.norm1/.attn.qkv/.attn.proj/.norm2/.mlp.fc1/.mlp.fc2`, `norm` or
 `fc_norm`), so reference checkpoints load with `load_state_dict`; the
 classifier puts them under `backbone.` beside `lin_head`.
 
-Ported so far: mode "pooled" with out_token cls | spatial | global_pool and
-pos_embed_type learned | sincos, at 224 px (the 14x14 + cls position grid
-the embedding is stored at). Other modes, image sizes (position-embedding
-interpolation), the conv stem and the probe BatchNorm raise.
+Ported so far:
+- mode "pooled" with out_token cls | spatial | global_pool and
+  pos_embed_type learned | sincos, at 224 px (the 14x14 + cls position grid
+  the embedding is stored at);
+- mode "det" (ViTDet, any img_size that is a multiple of 16 * DET_WINDOW):
+  no cls token and no `cls_token` parameter; the 14x14 position grid is
+  interpolated bilinearly to the patch grid and its cls row dropped; blocks
+  GLOBAL_ATTN_BLOCKS attend globally and the others in DET_WINDOW x
+  DET_WINDOW windows; the final norm is applied, then the tokens are
+  returned as a (B, GH, GW, C) map.
+Mode "dense", other pooled image sizes, the conv stem and the probe
+BatchNorm raise.
 """
 
 from __future__ import annotations
@@ -19,11 +27,13 @@ from torch import nn
 
 from ssl4gie_tpu_torch.models.layers import (Block, PatchEmbed,
                                              get_2d_sincos_pos_embed,
-                                             init_linear, layer_norm,
-                                             trunc_normal_)
+                                             init_lecun, interpolate_pos_embed,
+                                             layer_norm, trunc_normal_)
 
 BASE_GRID = 14         # position embedding stored at the pretraining grid
 OUT_TOKENS = ("cls", "spatial", "global_pool")
+GLOBAL_ATTN_BLOCKS = (2, 5, 8, 11)   # det mode: the rest are windowed
+DET_WINDOW = 16
 
 
 class ViTBackbone(nn.Module):
@@ -34,9 +44,11 @@ class ViTBackbone(nn.Module):
                  stem: str = "patch", dtype=torch.float32,
                  drop_path_rate: float = 0.0):
         super().__init__()
-        if mode != "pooled":
-            raise NotImplementedError(f"mode {mode!r}: only 'pooled' is ported")
-        if img_size // patch_size != BASE_GRID:
+        if mode not in ("pooled", "det"):
+            raise NotImplementedError(f"mode {mode!r}: only 'pooled' and "
+                                      "'det' are ported")
+        det = mode == "det"
+        if not det and img_size // patch_size != BASE_GRID:
             raise NotImplementedError(
                 f"img_size {img_size}: only the {BASE_GRID}x{BASE_GRID} grid "
                 "(224 px) is ported; position-embedding interpolation is not")
@@ -46,26 +58,32 @@ class ViTBackbone(nn.Module):
             raise ValueError(f"out_token {out_token!r} not in {OUT_TOKENS}")
         if pos_embed_type not in ("learned", "sincos"):
             raise ValueError(f"pos_embed_type {pos_embed_type!r}")
+        self.mode = mode
         self.out_token = out_token
         self.pos_embed_type = pos_embed_type
         self.dtype = dtype
         self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype=dtype)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        if not det:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, BASE_GRID * BASE_GRID + 1, embed_dim))
         # stochastic depth rates linspace(0, rate, depth), as timm
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, dtype=dtype,
-                  drop_path_rate=drop_path_rate * i / max(depth - 1, 1))
+                  drop_path_rate=drop_path_rate * i / max(depth - 1, 1),
+                  window_size=(DET_WINDOW if det and i not in
+                               GLOBAL_ATTN_BLOCKS else None))
             for i in range(depth))
         # the global_pool recipe has fc_norm and no final norm
         # (`Models/mae/models_vit.py:31`)
-        norm_name = "fc_norm" if out_token == "global_pool" else "norm"
+        norm_name = ("fc_norm" if out_token == "global_pool" and not det
+                     else "norm")
         self.add_module(norm_name, nn.LayerNorm(embed_dim, eps=1e-6))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.patch_embed.reset_parameters(generator)
-        nn.init.zeros_(self.cls_token)
+        if self.mode != "det":
+            nn.init.zeros_(self.cls_token)
         with torch.no_grad():
             if self.pos_embed_type == "sincos":
                 self.pos_embed.copy_(torch.from_numpy(get_2d_sincos_pos_embed(
@@ -77,12 +95,21 @@ class ViTBackbone(nn.Module):
         self.final_norm().reset_parameters()
 
     def final_norm(self) -> nn.LayerNorm:
-        return self.fc_norm if self.out_token == "global_pool" else self.norm
+        return self.fc_norm if hasattr(self, "fc_norm") else self.norm
 
     def forward(self, x, generator: torch.Generator | None = None):
-        """x: (B, 224, 224, 3) NHWC -> pooled features (B, C) in `dtype`."""
-        x, _ = self.patch_embed(x)
+        """x: (B, S, S, 3) NHWC -> pooled features (B, C), or in det mode
+        the normed (B, S/16, S/16, C) map, in `dtype`."""
+        x, (gh, gw) = self.patch_embed(x)
         B, N, C = x.shape
+        if self.mode == "det":
+            pe = interpolate_pos_embed(self.pos_embed.to(torch.float32),
+                                       BASE_GRID, gh)
+            x = x + pe[:, 1:].to(self.dtype)    # cls row dropped
+            for blk in self.blocks:
+                x = blk(x, generator, (gh, gw))
+            x = layer_norm(x, self.norm, self.dtype)
+            return x.reshape(B, gh, gw, C)
         cls = self.cls_token.to(self.dtype).expand(B, 1, C)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         for blk in self.blocks:
@@ -127,8 +154,7 @@ class ViTClassifier(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)
         # flax Dense default: lecun_normal (truncated, fan_in), zero bias
-        init_linear(self.lin_head, generator,
-                    std=self.lin_head.in_features ** -0.5)
+        init_lecun(self.lin_head, self.lin_head.in_features, generator)
 
     def forward(self, x, generator: torch.Generator | None = None):
         feat = self.backbone(x, generator).to(torch.float32)

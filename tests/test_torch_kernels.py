@@ -208,6 +208,110 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
         da.attention_fwd(qkv.bfloat16()[:, :, ::2], 2, SCALE)  # strided
 
 
+def _assert_close_on_card(got, ref, tol):
+    """Every element within tol * (|ref| + max|ref|), all finite."""
+    torch.cuda.synchronize()
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all())
+    bound = tol * (ref.abs() + ref.abs().max())
+    err = (got - ref).abs()
+    assert bool((err <= bound).all()), (err.max().item(), ref.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,grid,heads,window", [
+    (2, (32, 32), 12, 16),      # ViT-Det: 12 heads of 64, 16x16 windows
+    (1, (16, 48), 2, 16),       # a non-square grid, one window row
+    (2, (16, 16), 4, 8),        # 64-token windows
+])
+def test_window_attention_kernels_match_plain_on_card(cuda, batch, grid, heads,
+                                                      window):
+    """bf16 windowed kernels against the plain version (window partition +
+    f32 attention) on the card: output and dqkv within two bf16 ulps of the
+    element or of the largest element, log-sum-exp within 2^-16."""
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    C = heads * DH
+    qkv = torch.randn((batch, *grid, 3 * C), generator=gen,
+                      device=cuda).bfloat16()
+    dout = torch.randn((batch, *grid, C), generator=gen, device=cuda).bfloat16()
+    n0 = wa.window_attention_fwd.launches
+    out, lse = wa.window_attention_fwd(qkv, heads, window, SCALE)
+    out_p, lse_p = wa.windowed_attention_fwd_plain(qkv, heads, window, SCALE)
+    _assert_close_on_card(out, out_p, 2.0 ** -6)
+    _assert_close_on_card(lse, lse_p, 2.0 ** -16)
+    _assert_close_on_card(
+        wa.window_attention_bwd(qkv, out, lse, dout, heads, window, SCALE),
+        wa.windowed_attention_bwd_plain(qkv, dout, heads, window, SCALE),
+        2.0 ** -6)
+    assert wa.window_attention_fwd.launches == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,n,n_valid", [
+    (4, 1024, None), (3, 1024, 1000), (2, 256, 197), (2, 512, 3),
+    (2, 4096, None)])
+def test_flash_attention_kernels_match_plain_on_card(cuda, bh, n, n_valid):
+    """bf16 flash kernels against the plain version on the card, with and
+    without masked keys: o, dq, dk, dv within two bf16 ulps of the element or
+    of the largest element, log-sum-exp within 2^-16."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, dout = (torch.randn((bh, n, DH), generator=gen,
+                                 device=cuda).bfloat16() for _ in range(4))
+    n0 = fa.flash_fwd.launches
+    o, lse = fa.flash_fwd(q, k, v, SCALE, n_valid)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, SCALE, n_valid)
+    _assert_close_on_card(o, o_p, 2.0 ** -6)
+    _assert_close_on_card(lse, lse_p, 2.0 ** -16)
+    grads = fa.flash_bwd(q, k, v, o, lse, dout, SCALE, n_valid)
+    for got, ref in zip(grads, fa.flash_attention_bwd_plain(q, k, v, dout,
+                                                            SCALE, n_valid)):
+        _assert_close_on_card(got, ref, 2.0 ** -6)
+    assert fa.flash_fwd.launches == n0 + 1 and fa.flash_bwd.launches >= 1
+
+
+@pytest.mark.gpu
+def test_flash_attention_padded_low_lse_on_card(cuda):
+    """The padded-key backward with a row whose valid logits are all below
+    -87 (lse about -315) stays finite and agrees with the plain version.
+    The row's logits are spread (keys near -1 everywhere) rather than
+    dominated by one key: with one-hot probabilities, dS = p (dP - delta)
+    cancels and delta's bf16 rounding of O alone exceeds two ulps."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(3)
+    q, k, v, dout = (rng.normal(0, 1, (2, 256, DH)).astype(np.float32)
+                     for _ in range(4))
+    q[0, 0] = 40.0
+    k[0] = -1.0 + 0.01 * k[0]
+    q, k, v, dout = (torch.from_numpy(a).to(cuda).bfloat16()
+                     for a in (q, k, v, dout))
+    o, lse = fa.flash_fwd(q, k, v, SCALE, 197)
+    assert float(lse[0, 0]) < -87.0
+    grads = fa.flash_bwd(q, k, v, o, lse, dout, SCALE, 197)
+    for got, ref in zip(grads, fa.flash_attention_bwd_plain(q, k, v, dout,
+                                                            SCALE, 197)):
+        _assert_close_on_card(got, ref, 2.0 ** -6)
+
+
+@pytest.mark.gpu
+def test_window_and_flash_kernels_reject_what_they_do_not_take(cuda):
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    qkv = torch.zeros((1, 32, 32, 3 * 4 * DH), device=cuda)
+    with pytest.raises(TypeError):
+        wa.window_attention_fwd(qkv, 4, 16, SCALE)                  # f32
+    with pytest.raises(ValueError):
+        wa.window_attention_fwd(qkv.bfloat16(), 8, 16, SCALE)       # Dh 32
+    with pytest.raises(ValueError):
+        wa.window_attention_fwd(qkv.bfloat16(), 4, 32, SCALE)       # 1024 tok
+    q = torch.zeros((2, 256, DH), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q[:, :200], q[:, :200], q[:, :200], SCALE)     # N % 64
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, q, q, SCALE, 0)                             # n_valid
+
+
 @pytest.mark.gpu
 def test_shear_rotate_kernel_matches_plain_on_card(cuda):
     img, angle = _shear_case(5, B=4)

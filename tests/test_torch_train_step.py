@@ -186,15 +186,21 @@ def test_adamw_lr_and_clip_match_optax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port in a fresh interpreter leaves jax,
-    flax and optax out of sys.modules."""
+    """Importing every module of the port in a fresh interpreter, the
+    detection modules among them, leaves jax, flax and optax out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
         " pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 25, names\n"
+        "for m in ('kernels.window_attention', 'kernels.flash_attention',"
+        " 'ops.boxes', 'ops.nms', 'ops.resize', 'ops.roi_align',"
+        " 'models.vitdet_fpn', 'models.rpn', 'models.roi_heads',"
+        " 'models.faster_rcnn', 'tasks.detection'):\n"
+        "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
