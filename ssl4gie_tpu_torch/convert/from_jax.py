@@ -1,7 +1,8 @@
 """JAX param tree <-> this port's state_dict.
 
 The inverse of `ssl4gie_tpu/convert/torch_names.py:vit_torch_to_flax` for the
-classifier, and both directions for the ViT-B Faster R-CNN: flax Conv
+classifier, and both directions for the ViT-B Faster R-CNN and the MAE
+pretraining model: flax Conv
 kernels (kh, kw, I, O) become torch (O, I, kh, kw); flax ConvTranspose
 kernels (kh, kw, I, O) become torch (I, O, kh, kw) flipped in both spatial
 axes (flax's default `transpose_kernel=False` with SAME padding at k = s = 2
@@ -197,3 +198,37 @@ def faster_rcnn_state_dict_to_params(sd) -> dict:
                 and k.endswith(".norm1.weight"))
     return _to_flax(sd, _faster_rcnn_layers(depth),
                     {"backbone": {"pos_embed": sd["backbone.pos_embed"]}})
+
+
+# ------------------------------------------------------------------- MAE
+
+def _mae_layers(depth: int, decoder_depth: int):
+    """(flax path, torch module name, kind) of every layer of the MAE
+    model: the encoder as a ViT backbone's, then the decoder."""
+    layers = _backbone_layers(depth)
+    layers.append((("decoder_embed",), "decoder_embed", "dense"))
+    for src, dst, kind in _backbone_layers(decoder_depth)[1:-1]:
+        layers.append((("decoder_" + src[0],) + src[1:], "decoder_" + dst,
+                       kind))
+    return layers + [(("decoder_norm",), "decoder_norm", "ln"),
+                     (("decoder_pred",), "decoder_pred", "dense")]
+
+
+def mae_params_to_torch(params) -> dict[str, torch.Tensor]:
+    """params: the JAX `MAE` param tree as nested dicts of arrays. Returns
+    the port's `MAE` state_dict (float32 CPU tensors)."""
+    decoder_depth = sum(1 for k in params if k.startswith("decoder_blocks_"))
+    return _to_torch(params, _mae_layers(_depth(params), decoder_depth),
+                     {"cls_token": _tensor(params["cls_token"]),
+                      "mask_token": _tensor(params["mask_token"])})
+
+
+def mae_state_dict_to_params(sd) -> dict:
+    """The inverse of `mae_params_to_torch`: a port `MAE` state_dict -> the
+    JAX param tree (nested dicts of float32 numpy)."""
+    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    count = lambda pre: sum(1 for k in sd if k.startswith(pre)
+                            and k.endswith(".norm1.weight"))
+    return _to_flax(sd, _mae_layers(count("blocks."), count("decoder_blocks.")),
+                    {"cls_token": sd["cls_token"],
+                     "mask_token": sd["mask_token"]})

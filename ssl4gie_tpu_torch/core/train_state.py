@@ -7,7 +7,7 @@ moments, and `apply_gradients` clips (when asked) and steps.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import torch
 
@@ -15,11 +15,20 @@ import torch
 def make_adamw(params: Iterable[torch.nn.Parameter],
                learning_rate: float = 1e-4, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: float = 1e-2,
-               grad_clip: Optional[float] = None) -> torch.optim.AdamW:
-    """AdamW with decoupled weight decay on every parameter (no mask), as
-    optax.adamw in the JAX package and torch.optim.AdamW's defaults in the
-    reference. `grad_clip` is a global-norm bound applied by
-    `apply_gradients`; it is kept in each param group."""
+               grad_clip: Optional[float] = None,
+               decay_mask: Optional[Callable[[torch.Tensor], bool]] = None
+               ) -> torch.optim.AdamW:
+    """AdamW with decoupled weight decay, as optax.adamw in the JAX package
+    and torch.optim.AdamW's defaults in the reference: on every parameter,
+    or, given `decay_mask`, only on those it is true for (optax's
+    `adamw(..., mask=...)`: two param groups, the second with no decay).
+    `grad_clip` is a global-norm bound applied by `apply_gradients`; it is
+    kept in each param group."""
+    if decay_mask is not None:
+        params = list(params)
+        params = [{"params": [p for p in params if decay_mask(p)]},
+                  {"params": [p for p in params if not decay_mask(p)],
+                   "weight_decay": 0.0}]
     opt = torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2), eps=eps,
                             weight_decay=weight_decay)
     for group in opt.param_groups:

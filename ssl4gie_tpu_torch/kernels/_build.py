@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-All of `ssl4gie_tpu_torch/csrc/*.cu` is compiled by one `nvcc` call into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds rather than minutes), under `ssl4gie_tpu_torch/build/`, which
-git ignores. The library's name carries a hash of the sources, the shared
-headers (`csrc/*.cuh`) and the flags, so it is rebuilt only when one of them
+Each of `ssl4gie_tpu_torch/csrc/*.cu` is compiled by its own `nvcc`, all
+started together, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds rather
+than minutes), under `ssl4gie_tpu_torch/build/`, which git ignores. The
+library's name carries a hash of the sources, the shared headers
+(`csrc/*.cuh`) and the flags, so it is rebuilt only when one of them
 changes. Each C entry point launches on the stream it is given and returns
 what `cudaGetLastError()` held after the launch; `launch` turns a nonzero
 code into an exception.
@@ -26,14 +27,15 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point; pointers and the stream as c_void_p
 SIGNATURES = {
-    "ssl4gie_attn_fwd": (_P, _P, _P, _I, _I, _I, _F, _P),
-    "ssl4gie_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "ssl4gie_attn_fwd": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "ssl4gie_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "ssl4gie_shear_rotate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "ssl4gie_window_attn_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ssl4gie_window_attn_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -41,6 +43,8 @@ SIGNATURES = {
     "ssl4gie_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "ssl4gie_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _F, _P),
+    "ssl4gie_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ssl4gie_mlp_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -59,7 +63,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -67,26 +71,43 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists. The
-    compiler's output (ptxas register and spill report) is kept beside the
+    """Compile the sources unless a library of the same hash exists: one
+    `nvcc -c` per source, all running at once, then one link. The
+    compilers' output (ptxas register and spill report) is kept beside the
     library as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+        nvcc = _nvcc()
+        jobs = []
+        for src in sources():
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:          # wait for every compiler
+            text = proc.communicate()[0]
+            log.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{text[-8000:]}")
+        out.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = work / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
         os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

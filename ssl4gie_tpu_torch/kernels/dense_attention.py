@@ -8,8 +8,8 @@ backward recomputes the softmax from qkv and that log-sum-exp and returns a
 packed dqkv, so no head split or merge copies surround the kernels.
 
 On a CUDA tensor the forward and backward run the hand-written kernels of
-`csrc/dense_attention.cu` (bf16, Dh = 64; anything else raises). On a CPU
-tensor they run the plain PyTorch version below, which is also what the
+`csrc/dense_attention.cu` (bf16, Dh = 64 or 32; anything else raises). On a
+CPU tensor they run the plain PyTorch version below, which is also what the
 kernels are checked against on the card.
 """
 
@@ -20,7 +20,8 @@ import torch
 from ssl4gie_tpu_torch.kernels import _build
 
 MAX_FUSED_SEQ = 512
-HEAD_DIM = 64      # the one head width csrc/dense_attention.cu is built for
+HEAD_DIMS = (32, 64)   # the head widths csrc/dense_attention.cu is built for
+HEAD_DIM = 64          # the one head width of the window and flash kernels
 
 
 def _split(shape, num_heads: int):
@@ -76,13 +77,14 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int):
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be (B, N, 3C), got {tuple(qkv.shape)}")
     B, N, C, Dh = _split(qkv.shape, num_heads)
-    if Dh != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel is built for Dh={HEAD_DIM}, got {Dh}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel is built for Dh in {HEAD_DIMS}, "
+                         f"got {Dh}")
     if not 1 <= N <= MAX_FUSED_SEQ:
         raise ValueError(f"the CUDA kernel takes 1 <= N <= {MAX_FUSED_SEQ}, "
                          f"got {N}")
     _check_cuda("qkv", qkv, (B, N, 3 * C))
-    return B, N, C
+    return B, N, C, Dh
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -96,12 +98,12 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int, scale: float):
         return fused_qkv_attention_fwd_plain(qkv, num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    B, N, C = _check_qkv(qkv, num_heads)
+    B, N, C, Dh = _check_qkv(qkv, num_heads)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         _build.launch("ssl4gie_attn_fwd", qkv.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), B, N, num_heads, float(scale),
+                      lse.data_ptr(), B, N, num_heads, Dh, float(scale),
                       _stream(qkv))
     attention_fwd.launches += 1
     return out, lse
@@ -121,7 +123,7 @@ def attention_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
         return fused_qkv_attention_bwd_plain(qkv, dout, num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
-    B, N, C = _check_qkv(qkv, num_heads)
+    B, N, C, Dh = _check_qkv(qkv, num_heads)
     for name, t in (("out", out), ("lse", lse), ("dout", dout)):
         if t.device != qkv.device:
             raise ValueError(f"{name} and qkv must be on one device")
@@ -136,7 +138,7 @@ def attention_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     with torch.cuda.device(qkv.device):
         _build.launch("ssl4gie_attn_bwd", qkv.data_ptr(), out.data_ptr(),
                       lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                      dqkv.data_ptr(), B, N, num_heads, float(scale),
+                      dqkv.data_ptr(), B, N, num_heads, Dh, float(scale),
                       _stream(qkv))
     attention_bwd.launches += 1
     return dqkv

@@ -19,7 +19,9 @@ compute dtype and its predictor in float32.
 Randomness is injected: the train forward's samplers take uniform noise
 (`noise`, see `draw_noise`), drawn from a `torch.Generator` when not given.
 The RN50 detector (`arch="resnet50"`) and the batch-max emulation
-(`content_sizes`) raise until the dense slice.
+(`content_sizes`) raise until the dense slice. The weights are drawn on the
+CPU, then moved to `device`: the card when none is given (no card raises;
+`device="cpu"` builds on the CPU).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from torch import nn
 
 from ssl4gie_tpu_torch.data.augment import normalize
+from ssl4gie_tpu_torch.models.layers import default_device
 from ssl4gie_tpu_torch.models.roi_heads import (BoxHead, assign_proposals,
                                                 extract_roi_features,
                                                 postprocess_detections,
@@ -78,6 +81,7 @@ class FasterRCNN(nn.Module):
         if arch != "vit_b":
             raise NotImplementedError(f"arch {arch!r}: only 'vit_b' is ported; "
                                       "the RN50 detector waits for ResNet-50")
+        device = default_device(device)
         self.image_size = image_size
         self.dtype = dtype
         self.rpn_pre_nms_top_n = (rpn_pre_nms_top_n_train,
@@ -99,8 +103,7 @@ class FasterRCNN(nn.Module):
         self.roi_heads = BoxHead(256, num_classes, dtype=dtype)
         self.reset_parameters(generator if generator is not None
                               else torch.Generator().manual_seed(0))
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)

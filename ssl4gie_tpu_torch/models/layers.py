@@ -17,14 +17,24 @@ Attention routes as the JAX package's Pallas dispatch does
   -> `kernels.flash_attention` through `default_attention`;
 - everything else -> plain head-split attention.
 On a CPU tensor every kernel route runs its plain version; on the card it
-launches the CUDA kernel. The kernels take bfloat16 and 64-wide heads: a
-float32 or other-width model on the card raises in those ranges rather than
-silently taking the plain path.
+launches the CUDA kernel. The kernels take bfloat16 and 64-wide heads (the
+packed-QKV kernel also 32-wide ones): a float32 or other-width model on the
+card raises in those ranges rather than silently taking the plain path.
+
+The MLP routes as the JAX package's `Mlp` does: with `SSL4GIE_FUSED_MLP=1`
+in the environment (read once, into `FUSED_MLP`), a bfloat16 MLP over a
+token count that is a multiple of 128 goes through `kernels.fused_mlp`
+(tanh GELU); otherwise fc1 -> GELU -> fc2 as plain ops. The parameters are
+`fc1`/`fc2` either way.
+
+Linear layers take the timm init ("timm": truncated normal 0.02) or, for
+MAE, flax's xavier_uniform ("xavier"), chosen by `kernel_init`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -34,12 +44,30 @@ from torch import nn
 from ssl4gie_tpu_torch.kernels.dense_attention import (MAX_FUSED_SEQ,
                                                        fused_qkv_attention)
 from ssl4gie_tpu_torch.kernels.flash_attention import flash_attention_heads
+from ssl4gie_tpu_torch.kernels.fused_mlp import fused_mlp
 from ssl4gie_tpu_torch.kernels.window_attention import windowed_flash_attention
 from ssl4gie_tpu_torch.ops.resize import resize_bilinear_ac
 
 FUSED_MIN_SEQ = 160    # packed-QKV kernel range: dense tasks at N=197
 FLASH_MIN_SEQ = 1024   # blockwise kernel for long sequences (detection)
 TRUNC_STD = 0.87962566103423978   # std of N(0, 1) truncated to [-2, 2]
+KERNEL_INITS = ("timm", "xavier")
+FUSED_MLP_TOKENS = 128   # the fused route's token multiple (JAX `Mlp`)
+# opt-in fused fc1 + GELU + fc2 (`kernels.fused_mlp`), as the JAX package's
+# `_FUSED_MLP`; a module global so that a caller can scope it
+FUSED_MLP = os.environ.get("SSL4GIE_FUSED_MLP", "0") == "1"
+
+
+def default_device(device=None) -> torch.device:
+    """The device an entry point builds on: `device` when given, else the
+    card. Without a card it raises rather than carry on on the CPU, which
+    only an explicit `device="cpu"` asks for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card; pass "
+                           "device='cpu' to build on the CPU")
+    return torch.device("cuda")
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
@@ -109,9 +137,26 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
                                                / TRUNC_STD)
 
 
-def init_linear(lin: nn.Linear, generator: torch.Generator) -> None:
-    """timm init (`TIMM_INIT`): truncated-normal(0.02) weight, zero bias."""
-    trunc_normal_(lin.weight, 0.02, generator)
+@torch.no_grad()
+def xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator):
+    """flax `xavier_uniform()`: U[-b, b] with b = sqrt(6 / (fan_in +
+    fan_out)), in place."""
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    return t.uniform_(-bound, bound, generator=generator)
+
+
+def init_linear(lin: nn.Linear, generator: torch.Generator,
+                kernel_init: str = "timm") -> None:
+    """timm init (`TIMM_INIT`, truncated-normal(0.02) weight) or flax
+    xavier-uniform ("xavier", MAE's `kernel_init`); zero bias."""
+    if kernel_init == "xavier":
+        xavier_uniform_(lin.weight, lin.in_features, lin.out_features,
+                        generator)
+    elif kernel_init == "timm":
+        trunc_normal_(lin.weight, 0.02, generator)
+    else:
+        raise ValueError(f"kernel_init {kernel_init!r} not in {KERNEL_INITS}")
     nn.init.zeros_(lin.bias)
 
 
@@ -150,17 +195,26 @@ def default_attention(q, k, v, scale: float):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32,
+                 kernel_init: str = "timm"):
         super().__init__()
         self.dtype = dtype
+        self.kernel_init = kernel_init
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        init_linear(self.fc1, generator)
-        init_linear(self.fc2, generator)
+        init_linear(self.fc1, generator, self.kernel_init)
+        init_linear(self.fc2, generator, self.kernel_init)
 
     def forward(self, x):
+        tokens = x.numel() // x.shape[-1]
+        if (FUSED_MLP and self.dtype == torch.bfloat16
+                and tokens % FUSED_MLP_TOKENS == 0):
+            dt = self.dtype     # the weights as (in, out) views, no copy
+            return fused_mlp(x.to(dt), self.fc1.weight.to(dt).t(),
+                             self.fc1.bias.to(dt), self.fc2.weight.to(dt).t(),
+                             self.fc2.bias.to(dt), True)
         h = linear(x, self.fc1, self.dtype)
         # tanh GELU under bf16 compute, exact erf under f32 (JAX `Mlp`)
         approx = "tanh" if self.dtype == torch.bfloat16 else "none"
@@ -173,17 +227,18 @@ class Attention(nn.Module):
     (ViTDet), which then needs the grid shape `grid_hw`."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int | None = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, kernel_init: str = "timm"):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.dtype = dtype
+        self.kernel_init = kernel_init
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        init_linear(self.qkv, generator)
-        init_linear(self.proj, generator)
+        init_linear(self.qkv, generator, self.kernel_init)
+        init_linear(self.proj, generator, self.kernel_init)
 
     def forward(self, x, grid_hw: tuple | None = None):
         B, N, C = x.shape
@@ -223,14 +278,16 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype=torch.float32, drop_path_rate: float = 0.0,
-                 window_size: int | None = None):
+                 window_size: int | None = None, kernel_init: str = "timm"):
         super().__init__()
         self.dtype = dtype
         self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, window_size, dtype=dtype)
+        self.attn = Attention(dim, num_heads, window_size, dtype=dtype,
+                              kernel_init=kernel_init)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
+                       kernel_init=kernel_init)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for ln in (self.norm1, self.norm2):

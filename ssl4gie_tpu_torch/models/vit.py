@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ssl4gie_tpu_torch.models.layers import (Block, PatchEmbed,
+                                             default_device,
                                              get_2d_sincos_pos_embed,
                                              init_lecun, interpolate_pos_embed,
                                              layer_norm, trunc_normal_)
@@ -128,7 +129,8 @@ class ViTClassifier(nn.Module):
     the logits are float32 whatever the compute dtype.
 
     Weights are drawn from `generator` on the CPU (seed 0 when none is given),
-    then moved to `device`."""
+    then moved to `device`: the card when none is given (no card raises;
+    `device="cpu"` builds on the CPU)."""
 
     def __init__(self, num_classes: int, out_token: str = "cls",
                  pos_embed_type: str = "learned", img_size: int = 224,
@@ -140,6 +142,7 @@ class ViTClassifier(nn.Module):
         if probe_bn:
             raise NotImplementedError("probe_bn (linear-probe BatchNorm) is "
                                       "not ported")
+        device = default_device(device)
         self.backbone = ViTBackbone(img_size=img_size, embed_dim=embed_dim,
                                     depth=depth, num_heads=num_heads,
                                     out_token=out_token,
@@ -148,8 +151,7 @@ class ViTClassifier(nn.Module):
         self.lin_head = nn.Linear(embed_dim, num_classes)
         self.reset_parameters(generator if generator is not None
                               else torch.Generator().manual_seed(0))
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)

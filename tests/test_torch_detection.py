@@ -78,7 +78,7 @@ def _batch():
 def full():
     """Weights, batch, noise and the JAX package's losses, gradients,
     proposals, train step (accum 2) and eval at them."""
-    tmodel = FasterRCNN(image_size=SIZE, **KW)
+    tmodel = FasterRCNN(image_size=SIZE, device="cpu", **KW)
     sd0 = {k: v.clone() for k, v in tmodel.state_dict().items()}
     params = jax.tree_util.tree_map(J, faster_rcnn_state_dict_to_params(sd0))
     jmodel = JaxFasterRCNN(arch="vit_b", image_size=SIZE, **KW)
@@ -145,7 +145,7 @@ def tmodel_anchors(tmodel):
 
 
 def _port(full):
-    model = FasterRCNN(image_size=SIZE, **KW)
+    model = FasterRCNN(image_size=SIZE, device="cpu", **KW)
     model.load_state_dict(full["sd0"])
     return model
 
@@ -368,7 +368,7 @@ def test_param_count_and_converter_round_trip_match_jax():
     shapes = shapes["params"]
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(
         shapes))
-    model = FasterRCNN(image_size=SIZE, **KW)
+    model = FasterRCNN(image_size=SIZE, device="cpu", **KW)
     assert sum(p.numel() for p in model.parameters()) == n_jax
     rng = np.random.default_rng(3)
     tree = jax.tree_util.tree_map(
@@ -461,7 +461,7 @@ def test_unported_detector_options_raise():
     with pytest.raises(NotImplementedError):
         FasterRCNN(arch="resnet50", image_size=SIZE)
     model = FasterRCNN(image_size=SIZE, depth=1, embed_dim=64, num_heads=1,
-                       **KW)
+                       device="cpu", **KW)
     with pytest.raises(NotImplementedError):
         model(torch.zeros(1, SIZE, SIZE, 3),
               content_sizes=torch.tensor([[SIZE, SIZE]]))

@@ -66,6 +66,33 @@ def test_fused_qkv_attention_matches_pallas(qkv_np):
                                atol=2e-3)
 
 
+def test_fused_qkv_attention_dh32_matches_pallas(no_build):
+    """Dh = 32 (the MAE decoder's 512 / 16 heads, here 4 heads of 32 at
+    N = 197): the wrappers' forward and backward on CPU tensors against the
+    Pallas forward and custom VJP, f32, at the JAX test's 2e-4 and 2e-3."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from ssl4gie_tpu.kernels.dense_attention import fused_qkv_attention
+    heads, dh = 4, 32
+    scale = dh ** -0.5
+    rng = np.random.default_rng(5)
+    qkv = rng.normal(0, 1, (B, N, 3 * heads * dh)).astype(np.float32)
+    dout = rng.normal(0, 1, (B, N, heads * dh)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref, vjp = jax.vjp(lambda x: fused_qkv_attention(x, heads, scale),
+                           jnp.asarray(qkv))
+        (dref,) = vjp(jnp.asarray(dout))
+    out, lse = da.attention_fwd(torch.from_numpy(qkv), heads, scale)
+    dqkv = da.attention_bwd(torch.from_numpy(qkv), out, lse,
+                            torch.from_numpy(dout), heads, scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(dqkv.numpy(), np.asarray(dref), rtol=2e-3,
+                               atol=2e-3)
+
+
 def test_attention_wrappers_match_pallas_vjp(qkv_np, no_build):
     """The kernel wrappers on CPU tensors: forward and the explicit backward
     against the Pallas forward and custom VJP; no launch is counted and no
@@ -203,9 +230,33 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError):
         da.attention_fwd(qkv, H, SCALE)                  # f32
     with pytest.raises(ValueError):
-        da.attention_fwd(qkv.bfloat16(), 8, SCALE)       # Dh = 32
+        da.attention_fwd(qkv.bfloat16(), 16, SCALE)      # Dh = 16
     with pytest.raises(ValueError):
         da.attention_fwd(qkv.bfloat16()[:, :, ::2], 2, SCALE)  # strided
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n", [(4, 197), (3, 160), (2, 512), (2, 50)])
+def test_attention_dh32_kernels_match_plain_on_card(cuda, batch, n):
+    """The Dh = 32 instantiation (16 heads of 32, the MAE decoder's) against
+    the plain version on the card: output and dqkv within two bf16 ulps of
+    the element or of the largest element, log-sum-exp within 2^-16."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    heads, dh = 16, 32
+    scale = dh ** -0.5
+    qkv = torch.randn((batch, n, 3 * heads * dh), generator=gen,
+                      device=cuda).bfloat16()
+    dout = torch.randn((batch, n, heads * dh), generator=gen,
+                       device=cuda).bfloat16()
+    n0 = da.attention_bwd.launches
+    out, lse = da.attention_fwd(qkv, heads, scale)
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, heads, scale)
+    _assert_close_on_card(out, out_p, 2.0 ** -6)
+    _assert_close_on_card(lse, lse_p, 2.0 ** -16)
+    _assert_close_on_card(
+        da.attention_bwd(qkv, out, lse, dout, heads, scale),
+        da.fused_qkv_attention_bwd_plain(qkv, dout, heads, scale), 2.0 ** -6)
+    assert da.attention_bwd.launches == n0 + 1
 
 
 def _assert_close_on_card(got, ref, tol):

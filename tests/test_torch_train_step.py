@@ -85,7 +85,7 @@ def test_train_step_matches_jax(setup, accum_steps):
                                        _adam_mu(new_state.opt_state))
 
     tmodel = ViTClassifier(CLASSES, depth=DEPTH, embed_dim=DIM,
-                           num_heads=HEADS)
+                           num_heads=HEADS, device="cpu")
     tmodel.load_state_dict(vit_classifier_params_to_torch(params))
     opt = make_adamw(tmodel.parameters(), LR)
     task = TaskDefinition(name="classification", aug_mode="classification",
@@ -199,7 +199,8 @@ def test_port_imports_no_jax():
         "for m in ('kernels.window_attention', 'kernels.flash_attention',"
         " 'ops.boxes', 'ops.nms', 'ops.resize', 'ops.roi_align',"
         " 'models.vitdet_fpn', 'models.rpn', 'models.roi_heads',"
-        " 'models.faster_rcnn', 'tasks.detection'):\n"
+        " 'models.faster_rcnn', 'tasks.detection', 'kernels.fused_mlp',"
+        " 'ssl.mae', 'ssl.pretrain', 'data.ssl_augment'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

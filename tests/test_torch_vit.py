@@ -34,7 +34,7 @@ def _jax_classifier(out_token="cls", pos_embed_type="learned", seed=0):
 def _torch_classifier(params, out_token="cls", pos_embed_type="learned"):
     model = ViTClassifier(CLASSES, out_token=out_token,
                           pos_embed_type=pos_embed_type, depth=DEPTH,
-                          embed_dim=DIM, num_heads=HEADS)
+                          embed_dim=DIM, num_heads=HEADS, device="cpu")
     model.load_state_dict(vit_classifier_params_to_torch(
         jax.tree_util.tree_map(np.asarray, params)))
     return model.eval()
@@ -95,7 +95,7 @@ def test_classifier_logits_match_jax(out_token, pos_embed_type):
 def test_sincos_init_matches_jax():
     _, params = _jax_classifier(pos_embed_type="sincos")
     model = ViTClassifier(CLASSES, pos_embed_type="sincos", depth=DEPTH,
-                          embed_dim=DIM, num_heads=HEADS)
+                          embed_dim=DIM, num_heads=HEADS, device="cpu")
     np.testing.assert_array_equal(model.backbone.pos_embed.detach().numpy(),
                                   np.asarray(params["backbone"]["pos_embed"]))
 
