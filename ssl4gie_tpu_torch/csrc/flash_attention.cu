@@ -12,117 +12,32 @@
 // What bounds it on the card: at ViT-Det's global blocks (N = 4096, 12
 // heads of 64, B images) the scores of one head are 64 MB in float32, so
 // they must never reach device memory, and one head's K and V (512 KB each
-// in bf16) do not fit in shared memory the way the dense kernel stages them.
-// The work is 4096 x 4096 x 64 products per head: three in the forward,
-// seven in the backward, so it is bound by the matrix units and the
-// shared-memory traffic of the score tiles. The design, built from the
-// dense kernel's WMMA core (attention_core.cuh):
-// - one block of 4 warps per (64 query rows, head); keys stream through
-//   shared memory in tiles of kKT rows, and each warp walks a tile in
-//   chunks of 32 with its 16 rows;
-// - the forward is the dense kernel's two passes over the keys (row max and
-//   sum first, then the normalized bf16 probabilities times V), so the
-//   output accumulators, whose element layout WMMA hides, are never
-//   rescaled; it computes Q.K^T twice (the online-softmax alternative needs
-//   mma.sync fragments in registers: later work);
-// - the backward is two kernels and no atomics: `flash_bwd_dq` over query
+// in bf16) do not fit in shared memory. The work is 4096 x 4096 x 64
+// products per head, two in the forward and seven in the backward (five, and
+// the scores and dP recomputed by its second kernel), so the tensor cores
+// bound it; what keeps a kernel from them is the work around the products
+// (shared-memory traffic, the softmax's issue slots, waiting on copies).
+// - The forward is the shared online-softmax core, `attn_fwd` of
+//   attention_core.cuh, on DenseRows with q, k, v apart (row stride 64), in
+//   blocks of two warpgroups (128 query rows) that share each K/V tile:
+//   keys stream through a 3-stage cp.async ring in tiles of 64, Q.K^T is
+//   computed once per tile by wgmma into registers, the probabilities stay
+//   in registers as the A operand of P.V, and the loop stops at the last
+//   tile that holds a key < n_valid. Two warpgroups halve the K/V traffic
+//   per product against one, which is what the long key loop pays for.
+// - The backward is two kernels and no atomics: `flash_bwd_dq` over query
 //   tiles (it also writes delta = rowsum(dO * O)), then `flash_bwd_dkv` over
-//   key tiles with the queries streaming; in both, key columns >= n_valid
-//   get p = 0 before the exponent could overflow (a row with lse < -87 would
-//   otherwise give exp(-lse) = inf and inf * 0 = NaN, ADVICE r2), so padded
-//   keys also get zero dk and dv.
+//   key tiles with the queries streaming, both on the WMMA helpers of
+//   attention_core.cuh with keys in 128-row tiles; in both, key columns >=
+//   n_valid get p = 0 before the exponent could overflow (a row with lse <
+//   -87 would otherwise give exp(-lse) = inf and inf * 0 = NaN, ADVICE r2),
+//   so padded keys also get zero dk and dv.
 
 #include "attention_core.cuh"
 
 namespace {
 
-constexpr int kKT = 128;   // key (or query) rows per streamed tile
-
-// ---------------------------------------------------------------- forward
-// grid (N / kRows, BH). smem: K, V tiles (kKT rows), Q (kRows rows), per
-// warp a kTileF f32 area and a 16 x kLdP bf16 tile.
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, bf16* __restrict__ o,
-          float* __restrict__ lse, int N, int n_valid, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int bh = blockIdx.y, q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kKT * kLd;
-  bf16* Qs = Vs + kKT * kLd;
-  float* S = reinterpret_cast<float*>(Qs + kRows * kLd) + warp * kTileF;
-  bf16* P = reinterpret_cast<bf16*>(reinterpret_cast<float*>(Qs + kRows * kLd) +
-                                    kWarps * kTileF) + warp * 16 * kLdP;
-  const DenseRows rows{N};
-
-  stage(Qs, q, rows, bh, q0, kRows, N, kDh);
-  __syncthreads();
-  FragA qa[4];
-  load_rows(qa, Qs + warp * 16 * kLd);
-  const int r = lane & 15, half = lane >> 4;
-  const float* Srow = S + r * kLdS + half * 16;
-
-  float m = -1e30f, l = 0.f;
-  for (int t0 = 0; t0 < n_valid; t0 += kKT) {
-    __syncthreads();                       // the previous tile is consumed
-    stage(Ks, k, rows, bh, t0, kKT, n_valid, kDh);
-    __syncthreads();
-    const int tn = min(kKT, n_valid - t0);
-    for (int c0 = 0; c0 < tn; c0 += kChunk) {
-      scores(S, qa, Ks + c0 * kLd);
-      __syncwarp();
-      const int key0 = t0 + c0 + half * 16;
-      float cm = -1e30f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (key0 + j < n_valid) cm = fmaxf(cm, Srow[j] * scale);
-      const float mn = fmaxf(m, cm);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (key0 + j < n_valid) sum += expf(Srow[j] * scale - mn);
-      l = l * expf(m - mn) + sum;
-      m = mn;
-      __syncwarp();
-    }
-  }
-  {
-    const float mo = __shfl_xor_sync(kFull, m, 16);
-    const float lo = __shfl_xor_sync(kFull, l, 16);
-    const float mt = fmaxf(m, mo);
-    l = l * expf(m - mt) + lo * expf(mo - mt);
-    m = mt;
-  }
-  const float row_lse = m + logf(l);
-  const int qrow = q0 + warp * 16 + r;
-  if (half == 0 && qrow < N) lse[(size_t)bh * N + qrow] = row_lse;
-
-  FragC acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-  bf16* Prow = P + r * kLdP + half * 16;
-  for (int t0 = 0; t0 < n_valid; t0 += kKT) {
-    __syncthreads();
-    stage(Ks, k, rows, bh, t0, kKT, n_valid, kDh);
-    stage(Vs, v, rows, bh, t0, kKT, n_valid, kDh);
-    __syncthreads();
-    const int tn = min(kKT, n_valid - t0);
-    for (int c0 = 0; c0 < tn; c0 += kChunk) {
-      scores(S, qa, Ks + c0 * kLd);
-      __syncwarp();
-      const int key0 = t0 + c0 + half * 16;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        Prow[j] = __float2bfloat16(
-            key0 + j < n_valid ? expf(Srow[j] * scale - row_lse) : 0.f);
-      __syncwarp();
-      accumulate(acc, P, Vs + c0 * kLd);
-      __syncwarp();
-    }
-  }
-  write_rows(acc, S, 1.f, o, rows, bh, q0 + warp * 16, N, kDh);
-}
+constexpr int kKT = 128;   // key (or query) rows per streamed backward tile
 
 // ---------------------------------------------------------------- dq
 // grid (N / kRows, BH). smem: K, V tiles (kKT rows), Q, dO (kRows rows), per
@@ -277,9 +192,7 @@ flash_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   write_rows(dvf, S, 1.f, dv, rows, bh, k0 + warp * 16, N, kDh);
 }
 
-// Shared memory per block: 68, 77 and 83 KiB, whatever N.
-constexpr size_t kFwdSmem =
-    (2 * kKT + kRows) * kLd * 2 + kWarps * (kTileF * 4 + 16 * kLdP * 2);
+// Shared memory per backward block: 77 and 83 KiB, whatever N.
 constexpr size_t kDqSmem =
     (2 * kKT + 2 * kRows) * kLd * 2 + kWarps * (kTileF * 4 + 16 * kLdP * 2);
 constexpr size_t kDkvSmem = (2 * kRows + 2 * kKT) * kLd * 2 + 2 * kKT * 4 +
@@ -293,13 +206,8 @@ constexpr size_t kDkvSmem = (2 * kRows + 2 * kKT) * kLd * 2 + 2 * kKT * 4 +
 extern "C" int ssl4gie_flash_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int BH, int N,
                                  int n_valid, float scale, void* stream) {
-  cudaError_t err = allow_smem(flash_fwd, kFwdSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / kRows, BH);
-  flash_fwd<<<grid, kThreads, kFwdSmem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, N,
-      n_valid, scale);
-  return (int)cudaGetLastError();
+  return (int)launch_attn_fwd<kDh, 2>(q, k, v, kDh, o, kDh, lse, DenseRows{N},
+                                      BH, 1, N, n_valid, scale, stream);
 }
 
 extern "C" int ssl4gie_flash_bwd(const void* q, const void* k, const void* v,

@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "async_copy.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -104,22 +106,6 @@ __device__ __forceinline__ void gelu_and_grad(float h, int approx, float& g,
     g = 0.5f * h * (1.f + e);
     dg = 0.5f * (1.f + e) + h * expf(-0.5f * h * h) * kRsqrt2Pi;
   }
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-// (src must still be a mapped address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // One 128 x 128 tile of the (M, N) output. A is (M, K) row-major; B is

@@ -15,21 +15,29 @@
 //
 // What bounds it on the card: at ViT-Det 1024 px (64 x 64 grid, 16 windows
 // per image, 12 heads of 64) one (window, head) reads 96 KB of q, k, v and
-// does 256x256x64 products, three in the forward and seven in the backward,
-// as the dense kernel: matrix-unit issue and shared-memory traffic, not
-// device memory. 256 tokens need no key masking. The forward saves each
-// row's log-sum-exp (the TPU kernel recomputes it in the backward; either is
-// right), and the backward is the dense kernel's dq kernel then its dk/dv
-// kernel, so no atomics and gradients that match from run to run. Shared
-// memory at 256 tokens: 104, 113 and 120 KiB per block for the forward, dq
-// and dk/dv kernels.
+// does 256x256x64 products, two in the forward and seven in the backward:
+// the tensor cores and the work around them (shared-memory traffic, the
+// softmax, waiting on copies), not device memory. The forward is the shared
+// online-softmax core (`attn_fwd`, one warpgroup per 64 query rows, wgmma):
+// a window's 64-key tile is four grid rows of 16 tokens, each (16 x 64)
+// piece of a head contiguous in the grid, and cp.async brings it 16 B a
+// thread into a 3-stage ring, so a block holds 57 KiB of shared memory
+// whatever the window size (the whole window's K and V, 104 KiB at 256
+// tokens, before). `WindowRows` finds a window's grid origin once per block
+// and each row's offset from it by a multiply and a shift. 256 tokens need
+// no key masking. The forward saves each row's log-sum-exp (the TPU kernel
+// recomputes it in the backward; either is right), and the backward is the
+// dense kernel's dq kernel then its dk/dv kernel, so no atomics and
+// gradients that match from run to run; they hold 113 and 120 KiB of shared
+// memory at 256 tokens.
 
 #include "attention_core.cuh"
 
 namespace {
 
 WindowRows window_rows(int GH, int GW, int ws) {
-  return WindowRows{ws, GH / ws, GW / ws, GW};
+  return WindowRows{ws, GH / ws, GW / ws, GW,
+                    (65536u + (unsigned)ws - 1) / (unsigned)ws};
 }
 
 }  // namespace
@@ -42,8 +50,8 @@ extern "C" int ssl4gie_window_attn_fwd(const void* qkv, void* out, void* lse,
                                        int B, int GH, int GW, int ws, int H,
                                        float scale, void* stream) {
   const int seqs = B * (GH / ws) * (GW / ws);
-  return (int)launch_attn_fwd(qkv, out, lse, window_rows(GH, GW, ws), seqs,
-                              ws * ws, H, scale, stream);
+  return (int)launch_packed_fwd(qkv, out, lse, window_rows(GH, GW, ws), seqs,
+                                ws * ws, H, scale, stream);
 }
 
 extern "C" int ssl4gie_window_attn_bwd(const void* qkv, const void* out,

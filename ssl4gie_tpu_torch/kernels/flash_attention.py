@@ -80,7 +80,8 @@ def _check_qkv(q, k, v):
 
 def flash_fwd(q, k, v, scale: float, n_valid=None):
     """Forward: (BH, N, 64) each -> (o (BH, N, 64), lse (BH, N) f32).
-    Launches `flash_fwd` on CUDA tensors; the plain version on CPU tensors."""
+    Launches the online-softmax forward `attn_fwd` on CUDA tensors; the
+    plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale, n_valid)
     if q.device.type != "cuda":

@@ -200,11 +200,12 @@ def test_shear_rotate_fill_matches_pallas(fill, no_build):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch,n", [(4, 197), (3, 160), (2, 512), (1, 1)])
+@pytest.mark.parametrize("batch,n", [(4, 197), (3, 160), (2, 512), (1, 1),
+                                     (2, 193)])
 def test_attention_kernels_match_plain_on_card(cuda, batch, n):
     """bf16 kernels against the plain version on the card, across the routed
-    range of N (and N=1): two bf16 ulps of the element or of the largest
-    element."""
+    range of N (and N=1; N=193 ends in a 1-key partial tile of the forward):
+    two bf16 ulps of the element or of the largest element."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     H12, C12 = 12, 12 * DH
     qkv = torch.randn((batch, n, 3 * C12), generator=gen, device=cuda).bfloat16()
@@ -301,11 +302,12 @@ def test_window_attention_kernels_match_plain_on_card(cuda, batch, grid, heads,
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,n,n_valid", [
     (4, 1024, None), (3, 1024, 1000), (2, 256, 197), (2, 512, 3),
-    (2, 4096, None)])
+    (2, 4096, None), (1, 4096, 4000), (2, 256, 64)])
 def test_flash_attention_kernels_match_plain_on_card(cuda, bh, n, n_valid):
     """bf16 flash kernels against the plain version on the card, with and
-    without masked keys: o, dq, dk, dv within two bf16 ulps of the element or
-    of the largest element, log-sum-exp within 2^-16."""
+    without masked keys (n_valid = 64: exactly one valid key tile of the
+    forward, the rest never visited): o, dq, dk, dv within two bf16 ulps of
+    the element or of the largest element, log-sum-exp within 2^-16."""
     from ssl4gie_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=cuda).manual_seed(2)
     q, k, v, dout = (torch.randn((bh, n, DH), generator=gen,
@@ -343,6 +345,30 @@ def test_flash_attention_padded_low_lse_on_card(cuda):
     for got, ref in zip(grads, fa.flash_attention_bwd_plain(q, k, v, dout,
                                                             SCALE, 197)):
         _assert_close_on_card(got, ref, 2.0 ** -6)
+
+
+@pytest.mark.gpu
+def test_attention_forwards_repeat_bit_for_bit_on_card(cuda):
+    """The forward core adds no atomics and no order that changes from run to
+    run, so two forwards of the same inputs agree bit for bit, in all three
+    layouts (dense at both head widths, windowed, flash with masked keys)."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    rand = lambda *shape: torch.randn(shape, generator=gen,
+                                      device=cuda).bfloat16()
+    qkv64, qkv32, grid = rand(3, N, 3 * C), rand(2, N, 3 * 16 * 32), \
+        rand(1, 32, 32, 3 * C)
+    q, k, v = (rand(2, 1024, DH) for _ in range(3))
+    calls = [lambda: da.attention_fwd(qkv64, H, SCALE),
+             lambda: da.attention_fwd(qkv32, 16, 32 ** -0.5),
+             lambda: wa.window_attention_fwd(grid, H, 16, SCALE),
+             lambda: fa.flash_fwd(q, k, v, SCALE, 1000)]
+    for call in calls:
+        first, again = call(), call()
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
