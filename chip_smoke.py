@@ -10,12 +10,14 @@
    (`F.scaled_dot_product_attention` on contiguous (B, H, N, Dh) tensors;
    the head-split copies are not counted) and its bound (the larger of its
    FLOPs over 989 TFLOP/s and its bytes over 3.35 TB/s, each input read
-   once and each output written once). Times are CUDA-event medians.
+   once and each output written once). Times are CUDA-event medians; each
+   backward also prints its rate, counting the five products of the
+   function (S, dP, dV, dQ, dK) as the bound does.
    - classification: B=64 images, ViT-B/16 attention N=197 H=12 Dh=64,
      224x224x3 rotation;
    - detection: windowed attention on a (4, 64, 64, 3*768) grid with 16x16
-     windows, flash attention at (48, 4096, 64), and a masked flash case
-     (N=1024, n_valid=1000);
+     windows, flash attention at (48, 4096, 64), and masked flash cases
+     (N=1024, n_valid=1000 and 3);
    - MAE: the fused MLP forward and backward at the encoder's (12800
      tokens, 768 -> 3072) and the decoder's (50432 tokens, 512 -> 2048)
      shapes, also against the unfused cuBLAS sequence F.linear -> F.gelu
@@ -51,7 +53,7 @@
 
     python3 chip_smoke.py --profile DIR
 
-also profiles a few detection steps and a few MAE steps with
+also profiles a few classification, detection and MAE steps with
 `torch.profiler` (device time by kernel, the device's busy share, the NMS
 slot loop's host time) and writes the tables to DIR.
 
@@ -175,6 +177,11 @@ def result(name, source, replaces, err, ms, plain_ms, library_ms, flops,
             "library_ms": library_ms, **extra}
 
 
+def tflops(flops: float, ms: float) -> str:
+    """The rate of `flops` operations in `ms` milliseconds, as printed."""
+    return f"{flops / ms / 1e9:.1f} TFLOP/s"
+
+
 def attn_work(seqs: int, heads: int, n: int, dh: int, backward: bool):
     """FLOPs and bytes of packed-QKV attention over `seqs` sequences:
     forward 2 products (Q.K^T, P.V), backward 5 (S, dP, dV, dQ, dK) of
@@ -258,14 +265,15 @@ def kernel_phase(card: str) -> list[dict]:
                                                    retain_graph=True))
     del x, o
     lib_ms = sdpa_ms(q, k, v, scale, split_heads(dout, HEADS))
+    work = attn_work(B, HEADS, TOKENS, HEAD_DIM, True)
     results.append(result(
         "dense_attention_bwd", "dense_attention.cu",
         "ssl4gie_tpu/kernels/dense_attention.py:90", err, ms, plain_ms,
-        lib_ms, *attn_work(B, HEADS, TOKENS, HEAD_DIM, True)))
+        lib_ms, *work))
     print(f"[kernel] attention bwd  same shapes: max|err|={err:.3g} "
-          f"(tol {tol:.3g} rel) kernel {ms:.4f} ms, plain (autograd) "
-          f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms  [{card}]",
-          flush=True)
+          f"(tol {tol:.3g} rel) kernel {ms:.4f} ms ({tflops(work[0], ms)}), "
+          f"plain (autograd) {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms "
+          f"({tflops(work[0], lib_ms)})  [{card}]", flush=True)
 
     img = (torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
            .to(torch.bfloat16) / 255.0).contiguous()
@@ -341,14 +349,15 @@ def det_kernel_phase(card: str) -> list[dict]:
     del x, o
     lib_ms = sdpa_ms(q, k, v, scale,
                      split_heads(wa.partition(dout, DET_WINDOW), HEADS))
+    work = attn_work(n_win, HEADS, DET_WINDOW ** 2, HEAD_DIM, True)
     results.append(result(
         "window_attention_bwd", "window_attention.cu",
         "ssl4gie_tpu/kernels/window_attention.py:120", err, ms, plain_ms,
-        lib_ms, *attn_work(n_win, HEADS, DET_WINDOW ** 2, HEAD_DIM, True)))
+        lib_ms, *work))
     print(f"[kernel] window bwd  same shapes: max|err|={err:.3g} (tol "
-          f"{tol:.3g} rel) kernel {ms:.4f} ms, plain (autograd) "
-          f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms  [{card}]",
-          flush=True)
+          f"{tol:.3g} rel) kernel {ms:.4f} ms ({tflops(work[0], ms)}), plain "
+          f"(autograd) {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms "
+          f"({tflops(work[0], lib_ms)})  [{card}]", flush=True)
     del qkv, dout, out_k, lse_k, out_p, lse_p, dq_k, q, k, v
 
     q, k, v, do = (rand(DET_BH, DET_N, HEAD_DIM) for _ in range(4))
@@ -394,44 +403,54 @@ def det_kernel_phase(card: str) -> list[dict]:
         "ssl4gie_tpu/kernels/flash_attention.py:173", err, ms, plain_ms,
         lib_ms, 10 * flash_flops, flash_bytes(5, 3)))
     print(f"[kernel] flash bwd   same shapes: max|err|={err:.3g} (tol "
-          f"{tol:.3g} rel) kernel {ms:.4f} ms, plain (autograd) "
-          f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms  [{card}]",
-          flush=True)
+          f"{tol:.3g} rel) kernel {ms:.4f} ms "
+          f"({tflops(10 * flash_flops, ms)}), plain (autograd) "
+          f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms "
+          f"({tflops(10 * flash_flops, lib_ms)})  [{card}]", flush=True)
     del q, k, v, do, o_k, lse_k
 
-    # masked keys: N = 1024 with n_valid = 1000
+    # masked keys: N = 1024 with n_valid = 1000 (a partial last key tile)
+    # and 3 (one key tile; dk/dv blocks whose keys are all masked)
     q, k, v, do = (rand(DET_BH, 1024, HEAD_DIM) for _ in range(4))
-    o_k, lse_k = fa.flash_fwd(q, k, v, scale, 1000)
-    torch.cuda.synchronize()
-    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, 1000)
-    err = check_close("flash_fwd masked", o_k, o_p, tol)
-    check_close("flash_fwd masked lse", lse_k, lse_p, 2.0 ** -16)
-    grads_k = fa.flash_bwd(q, k, v, o_k, lse_k, do, scale, 1000)
-    torch.cuda.synchronize()
-    grads_p = fa.flash_attention_bwd_plain(q, k, v, do, scale, 1000)
-    err = max([err] + [check_close(f"flash_bwd masked d{n}", g, r, tol)
-                       for n, g, r in zip("qkv", grads_k, grads_p)])
-    print(f"[kernel] flash masked BH={DET_BH} N=1024 n_valid=1000: fwd and "
-          f"bwd max|err|={err:.3g} (tol {tol:.3g} rel)  [{card}]", flush=True)
+    for n_valid in (1000, 3):
+        o_k, lse_k = fa.flash_fwd(q, k, v, scale, n_valid)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, n_valid)
+        err = check_close("flash_fwd masked", o_k, o_p, tol)
+        check_close("flash_fwd masked lse", lse_k, lse_p, 2.0 ** -16)
+        grads_k = fa.flash_bwd(q, k, v, o_k, lse_k, do, scale, n_valid)
+        torch.cuda.synchronize()
+        grads_p = fa.flash_attention_bwd_plain(q, k, v, do, scale, n_valid)
+        err = max([err] + [check_close(f"flash_bwd masked d{n}", g, r, tol)
+                           for n, g, r in zip("qkv", grads_k, grads_p)])
+        print(f"[kernel] flash masked BH={DET_BH} N=1024 n_valid={n_valid}: "
+              f"fwd and bwd max|err|={err:.3g} (tol {tol:.3g} rel)  [{card}]",
+              flush=True)
     return results
 
 
-def main_path(card: str) -> dict:
-    """The full-width finetune step, a few times; returns the launch counts."""
+def cls_setup():
+    """The full-width ViT-B/16 classifier (random weights from SEED), its
+    optimizer, the full step, a synthetic uint8 batch and its labels on the
+    card, and the augmentation's generator."""
     dev = torch.device("cuda")
     model = ViTClassifier(NUM_CLASSES, dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(SEED),
                           device=dev)
-    depth = len(model.backbone.blocks)
-    optimizer = make_adamw(model.parameters(), LR)
     task = TaskDefinition(name="classification", aug_mode="classification",
                           target_key="label", loss_fn=weighted_cross_entropy)
-    full_step = make_full_step(task)
     rng = np.random.default_rng(SEED)
     img_u8 = torch.from_numpy(
         rng.integers(0, 256, size=(B, IMG, IMG, 3), dtype=np.uint8)).to(dev)
     labels = torch.from_numpy(rng.integers(0, NUM_CLASSES, size=B)).to(dev)
-    aug_gen = torch.Generator().manual_seed(SEED)
+    return (model, make_adamw(model.parameters(), LR), make_full_step(task),
+            img_u8, labels, torch.Generator().manual_seed(SEED))
+
+
+def main_path(card: str) -> dict:
+    """The full-width finetune step, a few times; returns the launch counts."""
+    model, optimizer, full_step, img_u8, labels, aug_gen = cls_setup()
+    depth = len(model.backbone.blocks)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -605,14 +624,15 @@ def mae_kernel_phase(card: str) -> list[dict]:
                                                    retain_graph=True))
     del x, o
     lib_ms = sdpa_ms(q, k, v, scale, split_heads(dout, heads))
+    work = attn_work(MAE_B, heads, TOKENS, dh, True)
     results.append(result(
         "dense_attention_bwd_dh32", "dense_attention.cu",
         "ssl4gie_tpu/kernels/dense_attention.py:90", err, ms, plain_ms,
-        lib_ms, *attn_work(MAE_B, heads, TOKENS, dh, True)))
+        lib_ms, *work))
     print(f"[kernel] attention bwd  same shapes: max|err|={err:.3g} (tol "
-          f"{tol:.3g} rel) kernel {ms:.4f} ms, plain (autograd) "
-          f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms  [{card}]",
-          flush=True)
+          f"{tol:.3g} rel) kernel {ms:.4f} ms ({tflops(work[0], ms)}), plain "
+          f"(autograd) {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms "
+          f"({tflops(work[0], lib_ms)})  [{card}]", flush=True)
     return results
 
 
@@ -902,6 +922,14 @@ def profile_steps(card: str, step, n_steps: int, out_dir: str, name: str):
     return events, wall
 
 
+def profile_cls(card: str, out_dir: str) -> None:
+    """torch.profiler over TIMED_STEPS classification steps."""
+    model, optimizer, full_step, img_u8, labels, aug_gen = cls_setup()
+    profile_steps(card, lambda: full_step(model, optimizer, img_u8, labels,
+                                          aug_gen),
+                  TIMED_STEPS, out_dir, "cls_profile.txt")
+
+
 def profile_mae(card: str, out_dir: str) -> None:
     """torch.profiler over MAE_TIMED_STEPS MAE steps, fused MLP on."""
     model, optimizer, full_step, img_u8, gen = mae_setup()
@@ -953,8 +981,8 @@ def profile_det(card: str, out_dir: str) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile the detection and MAE steps; "
-                             "the tables go to DIR")
+                        help="also profile the classification, detection "
+                             "and MAE steps; the tables go to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -992,6 +1020,7 @@ def main() -> None:
     for r in results:
         r["launches"] = launches[r["name"]]
     if args.profile:
+        profile_cls(card, args.profile)
         profile_det(card, args.profile)
         profile_mae(card, args.profile)
     print(card)

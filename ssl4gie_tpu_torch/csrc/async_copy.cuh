@@ -1,7 +1,7 @@
 // cp.async helpers shared by the kernels that stream tiles into shared
-// memory (attention_core.cuh's forward, fused_mlp.cu's GEMM): 16-byte copies
-// from global to shared memory that pass through no registers, grouped by
-// commit and waited on by count.
+// memory (attention_core.cuh's forward and backward, fused_mlp.cu's GEMM):
+// 16- and 4-byte copies from global to shared memory that pass through no
+// registers, grouped by commit and waited on by count.
 
 #pragma once
 
@@ -19,6 +19,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
                    "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes from global to shared memory (through L1); zeros if !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+                   "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,7 +1,7 @@
 // Shared core of the attention kernels (dense_attention.cu,
 // window_attention.cu, flash_attention.cu) on Hopper's tensor cores
-// (sm_90a): one online-softmax forward for every layout, and the packed-QKV
-// dq / dk-dv backward kernels for sequences of at most 512 rows.
+// (sm_90a): one online-softmax forward and one backward (a dq kernel and a
+// dk/dv kernel) for every layout.
 //
 // The head width Dh is a template parameter `D` of every helper and kernel
 // (a multiple of 16). The packed-QKV kernels are instantiated for D = 64
@@ -53,69 +53,61 @@
 // faster at the window and dense shapes (NVIDIA H100 80GB HBM3, 700 W;
 // PERF.md, section 6).
 //
-// The backward: WMMA 16x16x16 products (bf16 in, f32 accumulate) between a
-// warp's 16 rows and staged D-wide row slices, the softmax elementwise in
-// f32 through a per-warp tile in shared memory. One block of 4 warps per
-// (64-row tile, head, sequence); the head's whole K and V (or Q and dO for
-// the dK/dV kernel) are staged once into shared memory, rows zero-padded to
-// whole 32-row chunks and padded to D + 8 values; each warp owns 16 rows and
-// walks the other sequence in chunks of 32. Keys >= N are masked by index.
-// It is two kernels instead of atomics (run-to-run nondeterministic):
-// `attn_bwd_dq` walks query rows, computes delta = rowsum(dO * O) and dq;
-// `attn_bwd_dkv` walks key rows and recomputes P from the saved log-sum-exp.
+// The backward does 10 N^2 D FLOPs (five products) per (sequence, head), so
+// the tensor cores bound it too. It is the same machinery twice, with every
+// product a wgmma and no score, probability, dP or dS in shared memory:
+// - `attn_bwd_dq` walks query rows, 64 G a block: Q and dO of its rows sit
+//   in shared memory, K and V stream through the forward's 3-stage ring.
+//   Per key tile S = Q.K^T and dP = dO.V^T (both operands from shared
+//   memory); P = exp2(fma(S, scale log2 e, -lse log2 e)) from the forward's
+//   saved log-sum-exp; dS = P (dP - delta) rounded to bf16 pairs as the
+//   register A operand of dQ += dS.K (K read MN-major, as the forward reads
+//   V). delta = rowsum(dO * O) is computed in its prologue with 16-byte
+//   loads and written for the second kernel.
+// - `attn_bwd_dkv` walks key rows, 64 G a block: K and V of its rows sit in
+//   shared memory, Q and dO stream through the ring with each tile's lse and
+//   delta beside them. Per query tile S^T = K.Q^T and dP^T = V.dO^T; P^T
+//   from each column's lse; dV += bf16(P^T).dO and dK += bf16(dS^T).Q with
+//   the A operands in registers (the accumulator layout of S^T is the A
+//   layout, as in the forward).
+// - keys at or beyond n_valid get p = 0 before the exponent (with k zero,
+//   exp(-lse) overflows for a row whose lse < -87, and inf * 0 is NaN), so
+//   their dk and dv are zero; the dq loop stops at the last tile that holds
+//   a valid key; query rows at or beyond N read zeros and get p = 0 (lse =
+//   +inf in the dq kernel, by index in the dk/dv kernel).
+// - the scale is applied to dQ and dK at the end; P and dS are rounded to
+//   bf16 as the A operands, as the TPU kernels round them.
+// Two kernels rather than one with atomics on dQ keep the gradients bitwise
+// repeatable, at the price of seven products where five would do: S and dP
+// are computed in both kernels, and so is the exponent. G is the forward's:
+// 1 for the packed layouts (2 took 5-14% longer at Dh = 64 and the same at
+// 32), 2 for the flash layout (1 within the spread of the calls; NVIDIA
+// H100 80GB HBM3, 700 W; PERF.md, section 6).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 #include "async_copy.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kDh = 64;               // default head width (flash kernels)
-// bf16 row of a staged D-wide slice (72 at D = 64, 40 at D = 32)
-template <int D> constexpr int kLdRow = D + 8;
-// f32 output staging row (68 at D = 64, 36 at D = 32)
-template <int D> constexpr int kLdOut = D + 4;
-constexpr int kLd = kLdRow<kDh>;
-constexpr int kChunk = 32;            // keys (or queries) per inner step
-constexpr int kLdS = kChunk + 4;      // f32 score tile row (16 x 36)
-constexpr int kLdP = kChunk + 8;      // bf16 probability tile row (16 x 40)
-// per-warp f32 area: two score tiles, also the output staging area
-constexpr int kTileF = 2 * 16 * kLdS;
-static_assert(kTileF >= 16 * kLdOut<kDh>,
-              "output staging must fit two score tiles");
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;    // rows a block owns
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-// B = X^T for X stored row-major [n][k] (scores against staged rows)
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-// B = X for X stored row-major [k][n]
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-inline int pad_rows(int n) { return (n + kChunk - 1) / kChunk * kChunk; }
 
 // One sequence per image of a (B, N, width) tensor. Every Rows functor
-// splits rows(seq, r) into base(seq), once per block, and offset(r).
+// gives rows(seq, r) as base(seq), taken once per block, plus offset(r).
 struct DenseRows {
   int N;
   __device__ __forceinline__ size_t base(int seq) const {
     return (size_t)seq * N;
   }
   __device__ __forceinline__ int offset(int r) const { return r; }
-  __device__ __forceinline__ size_t operator()(int seq, int r) const {
-    return base(seq) + offset(r);
-  }
 };
 
 // Window seq = (b * nh + wy) * nw + wx of a (B, GH, GW, width) grid; row r
@@ -134,103 +126,7 @@ struct WindowRows {
     const int ry = (int)(((unsigned)r * ws_inv) >> 16);
     return ry * GW + r - ry * ws;
   }
-  __device__ __forceinline__ size_t operator()(int seq, int r) const {
-    return base(seq) + offset(r);
-  }
 };
-
-// Rows [first, first + count) of sequence `seq` of a D-wide column slice
-// starting at `src` (row stride `stride` elements) into shared memory with
-// row length kLdRow<D>; rows >= n_valid become zeros. 16-byte pieces, D / 8
-// per row.
-template <int D = kDh, class Rows>
-__device__ __forceinline__ void stage(bf16* dst, const bf16* src, Rows rows,
-                                      int seq, int first, int count,
-                                      int n_valid, int stride) {
-  constexpr int kPieces = D / 8;
-  for (int idx = threadIdx.x; idx < count * kPieces; idx += blockDim.x) {
-    const int r = idx / kPieces, c = (idx % kPieces) * 8;
-    const int g = first + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (g < n_valid)
-      v = *reinterpret_cast<const uint4*>(src + rows(seq, g) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdRow<D> + c) = v;
-  }
-}
-
-template <int D = kDh>
-__device__ __forceinline__ void load_rows(FragA (&a)[D / 16], const bf16* rows) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], rows + kk * 16, kLdRow<D>);
-}
-
-// S (16 x kChunk f32, row length kLdS) = A (16 x D) . X^T for the kChunk
-// staged rows X starting at `x`.
-template <int D = kDh>
-__device__ __forceinline__ void scores(float* S, const FragA (&a)[D / 16],
-                                       const bf16* x) {
-#pragma unroll
-  for (int n = 0; n < kChunk / 16; ++n) {
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragBt b;
-      wmma::load_matrix_sync(b, x + n * 16 * kLdRow<D> + kk * 16, kLdRow<D>);
-      wmma::mma_sync(c, a[kk], b, c);
-    }
-    wmma::store_matrix_sync(S + n * 16, c, kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += P (16 x kChunk bf16, row length kLdP) . X (kChunk staged rows x D)
-template <int D = kDh>
-__device__ __forceinline__ void accumulate(FragC (&acc)[D / 16], const bf16* P,
-                                           const bf16* x) {
-#pragma unroll
-  for (int kk = 0; kk < kChunk / 16; ++kk) {
-    FragA pa;
-    wmma::load_matrix_sync(pa, P + kk * 16, kLdP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragB b;
-      wmma::load_matrix_sync(b, x + kk * 16 * kLdRow<D> + n * 16, kLdRow<D>);
-      wmma::mma_sync(acc[n], pa, b, acc[n]);
-    }
-  }
-}
-
-// Write the warp's 16 x D accumulators times `mul` as bf16 into rows
-// [row0, row0 + 16) (those < n_valid) of sequence `seq` of `dst` (row stride
-// `stride`), via the warp's kTileF f32 area T. Lane: row lane & 15, columns
-// (lane >> 4) * D / 2 + [0, D / 2).
-template <int D = kDh, class Rows>
-__device__ __forceinline__ void write_rows(FragC (&acc)[D / 16], float* T,
-                                           float mul, bf16* dst, Rows rows,
-                                           int seq, int row0, int n_valid,
-                                           int stride) {
-  static_assert(kTileF >= 16 * kLdOut<D>,
-                "output staging must fit two score tiles");
-  constexpr int kLdO = kLdOut<D>, kHalf = D / 2;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(T + n * 16, acc[n], kLdO, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31, r = lane & 15, c0 = (lane >> 4) * kHalf;
-  if (row0 + r < n_valid) {
-    bf16* d = dst + rows(seq, row0 + r) * stride + c0;
-    const float* t = T + r * kLdO + c0;
-#pragma unroll
-    for (int c = 0; c < kHalf; c += 8) {
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(t[c + e] * mul);
-      *reinterpret_cast<uint4*>(d + c) = *reinterpret_cast<const uint4*>(v);
-    }
-  }
-  __syncwarp();
-}
 
 // ---------------------------------------------------------------- forward
 constexpr int kKeys = 64;         // keys per streamed K/V tile
@@ -280,6 +176,9 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait1() {   // all but the last group
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // keep the compiler from touching an accumulator across an async wgmma
 template <int N>
@@ -361,6 +260,69 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[NO][4],
   else wgmma_rs_n32(d, a, b);
 }
 
+// cp.async rows [first, first + R) of a sequence's D-wide column slice at
+// src (row stride ld) into the swizzled tile at dst, by T threads; rows >=
+// limit become zeros (a row that meets p = 0 must not hold a NaN).
+template <int D, int R, int T, class Rows>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
+                                          int ld, Rows rows, int first,
+                                          int limit) {
+  constexpr int kChunks = Swz<D>::kChunks;
+  static_assert(R * kChunks % T == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < R * kChunks / T; ++i) {
+    const int idx = threadIdx.x + i * T;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool ok = first + r < limit;
+    cp_async16(dst + Swz<D>::offset(r, c),
+               src + (size_t)(ok ? rows.offset(first + r) : 0) * ld + c * 8,
+               ok);
+  }
+}
+
+// A 64 x 64 accumulator as bf16 A fragments, 16 columns a step: the
+// accumulator layout of S is the register A layout of the next product
+__device__ __forceinline__ void pack_a(const float (&x)[8][4],
+                                       unsigned (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// The warp's 16 x D accumulator rows times `mul`, as bf16, into rows
+// [row0, row0 + 16) (those < limit) of the D-wide slice at dst (row stride
+// ld): staged in the warp's 16 swizzled rows at `stage`, which no wgmma
+// reads any more, then stored 16 B a lane.
+template <int D, class Rows>
+__device__ __forceinline__ void store_rows(unsigned char* stage,
+                                           const float (&acc)[D / 8][4],
+                                           float mul, bf16* dst, int ld,
+                                           Rows rows, int row0, int limit) {
+  using S = Swz<D>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(stage + S::offset(g + 8 * hf, n) +
+                                         c2 * 2) =
+          __floats2bfloat162_rn(acc[n][2 * hf] * mul,
+                                acc[n][2 * hf + 1] * mul);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * S::kChunks; i += 32) {
+    const int r = i / S::kChunks, c = i % S::kChunks;
+    if (row0 + r < limit)
+      *reinterpret_cast<uint4*>(dst + (size_t)rows.offset(row0 + r) * ld +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(stage + S::offset(r, c));
+  }
+}
+
 // Shared memory of a forward block of G warpgroups: Q (64 G rows), then
 // kStages stages of a K and a V tile (kKeys rows each), in the swizzled
 // layout, plus 1 KiB for the alignment of the first tile. At D = 64: 57 KiB
@@ -384,7 +346,7 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
          float scale) {
   using S = Swz<D>;
   constexpr int NS = kKeys / 8, NO = D / 8, KS = D / 16;
-  constexpr int kRowsF = 64 * G, kThreadsF = 128 * G, kChunks = S::kChunks;
+  constexpr int kRowsF = 64 * G, kThreadsF = 128 * G;
   constexpr int kTileBytes = kKeys * S::kRowBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -404,29 +366,14 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (n_valid + kKeys - 1) / kKeys;
 
   // K and V rows of key tile t into stage t % kStages; keys >= n_valid are
-  // zeros (their V rows meet p = 0, which must not meet a NaN)
+  // zeros
   auto load_tile = [&](int t) {
     unsigned char* Kd = ring + (t % kStages) * 2 * kTileBytes;
-    unsigned char* Vd = Kd + kTileBytes;
-#pragma unroll
-    for (int i = 0; i < kKeys * kChunks / kThreadsF; ++i) {
-      const int idx = tid + i * kThreadsF;
-      const int r = idx / kChunks, c = idx % kChunks;
-      const int key = t * kKeys + r;
-      const bool ok = key < n_valid;
-      const size_t off = (size_t)(ok ? rows.offset(key) : 0) * ld_in + c * 8;
-      cp_async16(Kd + S::offset(r, c), k + off, ok);
-      cp_async16(Vd + S::offset(r, c), v + off, ok);
-    }
+    load_rows<D, kKeys, kThreadsF>(Kd, k, ld_in, rows, t * kKeys, n_valid);
+    load_rows<D, kKeys, kThreadsF>(Kd + kTileBytes, v, ld_in, rows,
+                                   t * kKeys, n_valid);
   };
-#pragma unroll
-  for (int i = 0; i < kRowsF * kChunks / kThreadsF; ++i) {
-    const int idx = tid + i * kThreadsF;
-    const int r = idx / kChunks, c = idx % kChunks;
-    const bool ok = q0 + r < N;
-    cp_async16(Qs + S::offset(r, c),
-               q + (size_t)(ok ? rows.offset(q0 + r) : 0) * ld_in + c * 8, ok);
-  }
+  load_rows<D, kRowsF, kThreadsF>(Qs, q, ld_in, rows, q0, N);
   load_tile(0);                  // with Q: commit group 0
   cp_async_commit();
 #pragma unroll
@@ -446,7 +393,7 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NS; ++j)
     sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  const float sl2 = scale * 1.4426950408889634f;    // scale * log2(e)
+  const float sl2 = scale * kLog2e;    // scale * log2(e)
   const unsigned long long dq = S::desc(Qg);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -506,13 +453,7 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // bf16(P) as A fragments: 16 keys per step, the S layout unchanged
     unsigned pa[NS / 2][4];
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-      pa[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-    }
+    pack_a(sc, pa);
     // acc += bf16(P) . V, 16 keys (two 8-row atoms of V) per step
     wg_hold(acc);
     wg_fence();
@@ -526,196 +467,371 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();      // only empty groups can be left
   __syncthreads();         // every wgmma read of Q is done
 
-  // o = acc / l, staged as bf16 in the warp's own 16 Q rows, then 16 B a lane
-  unsigned char* Qw = Qs + (wg * 64 + wr) * S::kRowBytes;
+  // o = acc / l, staged as bf16 in the warp's own 16 Q rows, then 16 B a
+  // lane; each row's log-sum-exp in natural log
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float sum = l[hf];
     sum += __shfl_xor_sync(kFull, sum, 1);
     sum += __shfl_xor_sync(kFull, sum, 2);
     const float inv = 1.f / sum;
-    const int r = g + 8 * hf;
-    const int qrow = q0 + wg * 64 + wr + r;
+    const int qrow = q0 + wg * 64 + wr + g + 8 * hf;
     if (c2 == 0 && qrow < N)
       lse[((size_t)seq * H + h) * N + qrow] = m[hf] * scale + logf(sum);
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(Qw + S::offset(r, n) + c2 * 2) =
-          __floats2bfloat162_rn(acc[n][2 * hf] * inv, acc[n][2 * hf + 1] * inv);
+    for (int n = 0; n < NO; ++n) {
+      acc[n][2 * hf] *= inv;
+      acc[n][2 * hf + 1] *= inv;
+    }
   }
-  __syncwarp();
+  store_rows<D>(Qs + (wg * 64 + wr) * S::kRowBytes, acc, 1.f, o, ld_out, rows,
+                q0 + wg * 64 + wr, N);
+}
+
+// ---------------------------------------------------------------- backward
+// s + the f32 sum of the products of 8 bf16 pairs
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float s) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int r = i / kChunks, c = i % kChunks;
-    const int qrow = q0 + wg * 64 + wr + r;
-    if (qrow < N)
-      *reinterpret_cast<uint4*>(o + (size_t)rows.offset(qrow) * ld_out +
-                                c * 8) =
-          *reinterpret_cast<const uint4*>(Qw + S::offset(r, c));
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
   }
+  return s;
+}
+
+// Shared memory of a backward block of G warpgroups: its own 64 G rows of
+// two operands (Q and dO, or K and V), kStages stages of two streamed
+// 64-row tiles (K and V, or Q and dO) in the swizzled layout, for the dk/dv
+// kernel (`stats`) each stage's 64 lse and 64 delta values, and 1 KiB for
+// the alignment of the first tile. Whatever N: at D = 64, dq 65 KiB and
+// dk/dv 66.5 KiB (G = 1), 81 and 82.5 KiB (G = 2); at D = 32, 33 and 34.5
+// KiB (G = 1).
+template <int D, int G>
+constexpr size_t bwd_smem(bool stats) {
+  return (size_t)(2 * 64 * G + kStages * 2 * kKeys) * 2 * D +
+         (stats ? kStages * 2 * kKeys * 4 : 0) + 1024;
 }
 
 // ---------------------------------------------------------------- dq
-// grid (ceil(N / kRows), H, sequences). smem: K, V (NP rows), Q, dO (kRows
-// rows), per warp a kTileF f32 area (two score tiles) and one bf16 tile.
-// Also writes delta per row.
-template <int D, class Rows>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dq(const bf16* __restrict__ qkv, const bf16* __restrict__ o,
-            const float* __restrict__ lse, const bf16* __restrict__ dout,
-            float* __restrict__ delta, bf16* __restrict__ dqkv, Rows rows,
-            int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int L = kLdRow<D>, K = D / 16;
-  const int NP = (N + kChunk - 1) / kChunk * kChunk;
-  const int h = blockIdx.y, seq = blockIdx.z, q0 = blockIdx.x * kRows;
-  const int C = H * D, C3 = 3 * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + NP * L;
-  bf16* Qs = Vs + NP * L;
-  bf16* Gs = Qs + kRows * L;
-  float* S = reinterpret_cast<float*>(Gs + kRows * L) + warp * kTileF;
-  float* dP = S + 16 * kLdS;
-  bf16* P = reinterpret_cast<bf16*>(reinterpret_cast<float*>(Gs + kRows * L) +
-                                    kWarps * kTileF) + warp * 16 * kLdP;
+// grid (ceil(N / (64 G)), H, sequences), 128 G threads: warpgroup wg owns
+// query rows [64 wg, 64 wg + 64) of the block, warp w of it rows 16 w.. of
+// those. q, k, v as in attn_fwd (row stride ld_in); o (the forward's
+// output) and dout at head 0's columns (row stride ld_out); dq (row stride
+// ld_dq). lse and delta are (sequences, H, N); delta is written here.
+template <int D, int G, class Rows>
+__global__ void __launch_bounds__(G * 128)
+attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, int ld_in, const bf16* __restrict__ o,
+            const bf16* __restrict__ dout, int ld_out,
+            const float* __restrict__ lse, float* __restrict__ delta,
+            bf16* __restrict__ dq, int ld_dq, Rows rows, int N, int n_valid,
+            float scale) {
+  using S = Swz<D>;
+  constexpr int NS = kKeys / 8, NO = D / 8, KS = D / 16;
+  constexpr int kRowsB = 64 * G, kT = 128 * G;
+  constexpr int kTileBytes = kKeys * S::kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~(size_t)1023);
+  unsigned char* Qs = smem;                               // kRowsB rows
+  unsigned char* Gs = Qs + kRowsB * S::kRowBytes;         // dO, kRowsB rows
+  unsigned char* ring = Gs + kRowsB * S::kRowBytes;       // K, V per stage
+  const int h = blockIdx.y, H = gridDim.y, seq = blockIdx.z;
+  const int q0 = blockIdx.x * kRowsB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = (warp & 3) * 16;   // warpgroup, row in it
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const size_t base = rows.base(seq);
+  q += base * ld_in + h * D;
+  k += base * ld_in + h * D;
+  v += base * ld_in + h * D;
+  o += base * ld_out + h * D;
+  dout += base * ld_out + h * D;
+  dq += base * ld_dq + h * D;
+  const size_t stat = ((size_t)seq * H + h) * N;
+  const int n_tiles = (n_valid + kKeys - 1) / kKeys;
 
-  stage<D>(Ks, qkv + C + h * D, rows, seq, 0, NP, N, C3);
-  stage<D>(Vs, qkv + 2 * C + h * D, rows, seq, 0, NP, N, C3);
-  stage<D>(Qs, qkv + h * D, rows, seq, q0, kRows, N, C3);
-  stage<D>(Gs, dout + h * D, rows, seq, q0, kRows, N, C);
-  __syncthreads();
-
-  const int r = lane & 15, half = lane >> 4;
-  const int qrow = q0 + warp * 16 + r;
-  const size_t stat = ((size_t)seq * H + h) * N + qrow;
-  // delta = rowsum(dO * O) over the row's D columns, split between halves
-  float dl = 0.f, row_lse = CUDART_INF_F;      // rows >= N get p = 0
-  if (qrow < N) {
-    const bf16* orow = o + rows(seq, qrow) * C + h * D + half * (D / 2);
-    const bf16* grow = Gs + (warp * 16 + r) * L + half * (D / 2);
+  // K and V rows of key tile t into stage t % kStages; keys >= n_valid are
+  // zeros
+  auto load_tile = [&](int t) {
+    unsigned char* Kd = ring + (t % kStages) * 2 * kTileBytes;
+    load_rows<D, kKeys, kT>(Kd, k, ld_in, rows, t * kKeys, n_valid);
+    load_rows<D, kKeys, kT>(Kd + kTileBytes, v, ld_in, rows, t * kKeys,
+                            n_valid);
+  };
+  load_rows<D, kRowsB, kT>(Qs, q, ld_in, rows, q0, N);
+  load_rows<D, kRowsB, kT>(Gs, dout, ld_out, rows, q0, N);
+  load_tile(0);                  // with Q and dO: commit group 0
+  cp_async_commit();
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c)
-      dl += __bfloat162float(orow[c]) * __bfloat162float(grow[c]);
-    row_lse = lse[stat];
+  for (int s = 1; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
   }
-  dl += __shfl_xor_sync(kFull, dl, 16);
-  if (half == 0 && qrow < N) delta[stat] = dl;
 
-  FragA qa[K], ga[K];
-  load_rows<D>(qa, Qs + warp * 16 * L);
-  load_rows<D>(ga, Gs + warp * 16 * L);
-  FragC acc[K];
+  // while the copies fly, for rows g and g + 8 of the warp: delta =
+  // rowsum(dO * O), the quad's four lanes on a row's 16-byte chunks, and
+  // -lse * log2(e); rows >= N get p = 0 (lse = +inf)
+  float dl[2], nl[2];
 #pragma unroll
-  for (int n = 0; n < K; ++n) wmma::fill_fragment(acc[n], 0.f);
-  const float* Srow = S + r * kLdS + half * 16;
-  const float* Drow = dP + r * kLdS + half * 16;
-  bf16* Prow = P + r * kLdP + half * 16;
-  for (int c0 = 0; c0 < NP; c0 += kChunk) {
-    scores<D>(S, qa, Ks + c0 * L);         // q . k
-    scores<D>(dP, ga, Vs + c0 * L);        // dP = dO . v
-    __syncwarp();
-    const int key0 = c0 + half * 16;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = key0 + j < N ? expf(Srow[j] * scale - row_lse) : 0.f;
-      Prow[j] = __float2bfloat16(p * (Drow[j] - dl));   // dS
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + wg * 64 + wr + g + 8 * hf;
+    float sum = 0.f;
+    if (row < N) {
+      const size_t off = (size_t)rows.offset(row) * ld_out;
+      for (int c = lane & 3; c < S::kChunks; c += 4)
+        sum = dot8(*reinterpret_cast<const uint4*>(o + off + c * 8),
+                   *reinterpret_cast<const uint4*>(dout + off + c * 8), sum);
     }
-    __syncwarp();
-    accumulate<D>(acc, P, Ks + c0 * L);    // dq += dS . K
-    __syncwarp();
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    dl[hf] = sum;
+    nl[hf] = row < N ? -lse[stat + row] * kLog2e : -CUDART_INF_F;
+    if (c2 == 0 && row < N) delta[stat + row] = sum;
   }
-  write_rows<D>(acc, S, scale, dqkv + h * D, rows, seq, q0 + warp * 16, N, C3);
+
+  const float sl2 = scale * kLog2e;
+  const unsigned long long dqd = S::desc(Qs + wg * 64 * S::kRowBytes);
+  const unsigned long long dgd = S::desc(Gs + wg * 64 * S::kRowBytes);
+  float acc[NO][4], sc[NS][4], dp[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();   // tile t (and Q, dO) have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                // tile t - 1 is no longer read
+    if (t + kStages - 1 < n_tiles) load_tile(t + kStages - 1);
+    cp_async_commit();
+    const unsigned char* Ks = ring + (t % kStages) * 2 * kTileBytes;
+    const unsigned long long dk = S::desc(Ks), dv = S::desc(Ks + kTileBytes);
+
+    // S = Q.K^T, then dP = dO.V^T as a second group, so that the exponent
+    // runs while dP is multiplied
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(sc, dqd + 2 * kk, dk + 2 * kk, kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(dp, dgd + 2 * kk, dv + 2 * kk, kk);
+    wg_commit();
+    wg_wait1();
+    wg_hold(sc);
+    if ((t + 1) * kKeys > n_valid) {       // the tile that holds the last key
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (t * kKeys + j * 8 + c2 + e >= n_valid)
+            sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[j][e] = exp2_approx(fmaf(sc[j][e], sl2, nl[e >> 1]));
+    wg_wait0();
+    wg_hold(dp);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = sc[j][e] * (dp[j][e] - dl[e >> 1]);      // dS
+    unsigned da[NS / 2][4];
+    pack_a(dp, da);
+    // dQ += bf16(dS).K, K read MN-major, 16 keys (two 8-row atoms) a step
+    wg_hold(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk)
+      wgmma_pv(acc, da[kk], dk + kk * (2 * S::kAtom >> 4));
+    wg_commit();
+    wg_wait0();
+    wg_hold(acc);
+  }
+  cp_async_wait<0>();      // only empty groups can be left
+  __syncthreads();         // every wgmma read of Q is done
+  store_rows<D>(Qs + (wg * 64 + wr) * S::kRowBytes, acc, scale, dq, ld_dq,
+                rows, q0 + wg * 64 + wr, N);
 }
 
 // ---------------------------------------------------------------- dk, dv
-// grid (ceil(N / kRows), H, sequences) over KEY rows. smem: Q, dO (NP rows),
-// the block's K and V rows, lse and delta (NP floats), per warp a kTileF f32
-// area (two score tiles) and two bf16 tiles.
-template <int D, class Rows>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_dkv(const bf16* __restrict__ qkv, const float* __restrict__ lse,
-             const bf16* __restrict__ dout, const float* __restrict__ delta,
-             bf16* __restrict__ dqkv, Rows rows, int N, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int L = kLdRow<D>, K = D / 16;
-  const int NP = (N + kChunk - 1) / kChunk * kChunk;
-  const int h = blockIdx.y, seq = blockIdx.z, k0 = blockIdx.x * kRows;
-  const int C = H * D, C3 = 3 * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + NP * L;
-  bf16* Ks = Gs + NP * L;
-  bf16* Vs = Ks + kRows * L;
-  float* lse_s = reinterpret_cast<float*>(Vs + kRows * L);
-  float* delta_s = lse_s + NP;
-  float* S = delta_s + NP + warp * kTileF;
-  float* dP = S + 16 * kLdS;
-  bf16* P = reinterpret_cast<bf16*>(delta_s + NP + kWarps * kTileF) +
-            warp * 2 * 16 * kLdP;
-  bf16* DS = P + 16 * kLdP;
+// grid (ceil(N / (64 G)), H, sequences) over KEY rows, 128 G threads:
+// warpgroup wg owns key rows [64 wg, 64 wg + 64) of the block. q, k, v,
+// dout as in attn_bwd_dq; dk and dv (row stride ld_dkv); lse and delta
+// (sequences, H, N), delta from attn_bwd_dq.
+template <int D, int G, class Rows>
+__global__ void __launch_bounds__(G * 128)
+attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, int ld_in,
+             const bf16* __restrict__ dout, int ld_out,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dk, bf16* __restrict__ dv, int ld_dkv,
+             Rows rows, int N, int n_valid, float scale) {
+  using S = Swz<D>;
+  constexpr int NS = kKeys / 8, NO = D / 8, KS = D / 16;
+  constexpr int kRowsB = 64 * G, kT = 128 * G;
+  constexpr int kTileBytes = kKeys * S::kRowBytes;
+  static_assert(kT >= 2 * kKeys, "a thread per lse and delta value");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~(size_t)1023);
+  unsigned char* Ks = smem;                               // kRowsB rows
+  unsigned char* Vs = Ks + kRowsB * S::kRowBytes;         // kRowsB rows
+  unsigned char* ring = Vs + kRowsB * S::kRowBytes;       // Q, dO per stage
+  // per stage the tile's lse, then its delta
+  float* stats = reinterpret_cast<float*>(ring + kStages * 2 * kTileBytes);
+  const int h = blockIdx.y, H = gridDim.y, seq = blockIdx.z;
+  const int k0 = blockIdx.x * kRowsB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const size_t base = rows.base(seq);
+  q += base * ld_in + h * D;
+  k += base * ld_in + h * D;
+  v += base * ld_in + h * D;
+  dout += base * ld_out + h * D;
+  dk += base * ld_dkv + h * D;
+  dv += base * ld_dkv + h * D;
+  const size_t stat = ((size_t)seq * H + h) * N;
+  lse += stat;
+  delta += stat;
+  // a block whose keys are all masked has zero gradients and streams nothing
+  const int n_tiles = k0 < n_valid ? (N + kKeys - 1) / kKeys : 0;
 
-  stage<D>(Qs, qkv + h * D, rows, seq, 0, NP, N, C3);
-  stage<D>(Gs, dout + h * D, rows, seq, 0, NP, N, C);
-  stage<D>(Ks, qkv + C + h * D, rows, seq, k0, kRows, N, C3);
-  stage<D>(Vs, qkv + 2 * C + h * D, rows, seq, k0, kRows, N, C3);
-  const size_t r0 = ((size_t)seq * H + h) * N;
-  for (int i = threadIdx.x; i < NP; i += blockDim.x) {
-    lse_s[i] = i < N ? lse[r0 + i] : CUDART_INF_F;    // queries >= N: p = 0
-    delta_s[i] = i < N ? delta[r0 + i] : 0.f;
-  }
-  __syncthreads();
-
-  FragA ka[K], va[K];
-  load_rows<D>(ka, Ks + warp * 16 * L);
-  load_rows<D>(va, Vs + warp * 16 * L);
-  FragC dk[K], dv[K];
-#pragma unroll
-  for (int n = 0; n < K; ++n) {
-    wmma::fill_fragment(dk[n], 0.f);
-    wmma::fill_fragment(dv[n], 0.f);
-  }
-  const int r = lane & 15, half = lane >> 4;
-  const float* Srow = S + r * kLdS + half * 16;
-  const float* Drow = dP + r * kLdS + half * 16;
-  bf16* Prow = P + r * kLdP + half * 16;
-  bf16* DSrow = DS + r * kLdP + half * 16;
-  for (int c0 = 0; c0 < NP; c0 += kChunk) {
-    scores<D>(S, ka, Qs + c0 * L);         // (k . q)^T
-    scores<D>(dP, va, Gs + c0 * L);        // dP^T = v . dO
-    __syncwarp();
-    const int qi = c0 + half * 16;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float p = expf(Srow[j] * scale - lse_s[qi + j]);
-      Prow[j] = __float2bfloat16(p);
-      DSrow[j] = __float2bfloat16(p * (Drow[j] - delta_s[qi + j]));
+  // Q and dO rows of query tile t, its lse and delta, into stage
+  // t % kStages; queries >= N are zeros
+  auto load_tile = [&](int t) {
+    unsigned char* Qd = ring + (t % kStages) * 2 * kTileBytes;
+    load_rows<D, kKeys, kT>(Qd, q, ld_in, rows, t * kKeys, N);
+    load_rows<D, kKeys, kT>(Qd + kTileBytes, dout, ld_out, rows, t * kKeys,
+                            N);
+    if (tid < 2 * kKeys) {
+      const int i = t * kKeys + tid % kKeys;
+      cp_async4(stats + (t % kStages) * 2 * kKeys + tid,
+                (tid < kKeys ? lse : delta) + (i < N ? i : 0), i < N);
     }
-    __syncwarp();
-    accumulate<D>(dv, P, Gs + c0 * L);     // dv += P^T . dO
-    accumulate<D>(dk, DS, Qs + c0 * L);    // dk += dS^T . Q
-    __syncwarp();
+  };
+  load_rows<D, kRowsB, kT>(Ks, k, ld_in, rows, k0, n_valid);
+  load_rows<D, kRowsB, kT>(Vs, v, ld_in, rows, k0, n_valid);
+  if (n_tiles > 0) load_tile(0);  // with K and V: commit group 0
+  cp_async_commit();
+#pragma unroll
+  for (int s = 1; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
   }
-  write_rows<D>(dk, S, scale, dqkv + C + h * D, rows, seq, k0 + warp * 16, N,
-                C3);
-  write_rows<D>(dv, S, 1.f, dqkv + 2 * C + h * D, rows, seq, k0 + warp * 16,
-                N, C3);
-}
 
-// Shared memory per backward block. At D = 64 and N = 197: 104 and 111
-// KiB, so two blocks fit on one SM (228 KiB); at N = 256: 113 and 120 KiB;
-// at N = 512: 185 and 194 KiB. At D = 32 and N = 197: 68 and 75 KiB, so
-// three blocks fit.
-template <int D>
-size_t dq_smem(int N) {
-  return (2 * (size_t)pad_rows(N) + 2 * kRows) * kLdRow<D> * 2 +
-         kWarps * ((size_t)kTileF * 4 + 16 * kLdP * 2);
-}
-template <int D>
-size_t dkv_smem(int N) {
-  return (2 * (size_t)pad_rows(N) + 2 * kRows) * kLdRow<D> * 2 +
-         2 * (size_t)pad_rows(N) * 4 +
-         kWarps * ((size_t)kTileF * 4 + 2 * 16 * kLdP * 2);
+  const float sl2 = scale * kLog2e;
+  const int key = k0 + wg * 64 + wr + g;            // rows key and key + 8
+  const unsigned long long dkd = S::desc(Ks + wg * 64 * S::kRowBytes);
+  const unsigned long long dvd = S::desc(Vs + wg * 64 * S::kRowBytes);
+  float dka[NO][4], dva[NO][4], st[NS][4], dpt[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();   // tile t (and K, V) have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                // tile t - 1 is no longer read
+    if (t + kStages - 1 < n_tiles) load_tile(t + kStages - 1);
+    cp_async_commit();
+    const unsigned char* Qt = ring + (t % kStages) * 2 * kTileBytes;
+    const unsigned long long dqt = S::desc(Qt), dgt = S::desc(Qt + kTileBytes);
+    const float* ls = stats + (t % kStages) * 2 * kKeys;   // lse, delta
+
+    // S^T = K.Q^T, then dP^T = V.dO^T as a second group
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(st, dkd + 2 * kk, dqt + 2 * kk, kk);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_ss_n64(dpt, dvd + 2 * kk, dgt + 2 * kk, kk);
+    wg_commit();
+    wg_wait1();
+    wg_hold(st);
+    if (k0 + kRowsB > n_valid) {           // keys >= n_valid: p = 0
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (key + 8 * hf >= n_valid)
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+            st[j][2 * hf] = st[j][2 * hf + 1] = -CUDART_INF_F;
+    }
+    if ((t + 1) * kKeys > N) {             // queries >= N: p = 0
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (t * kKeys + j * 8 + c2 + e >= N)
+            st[j][e] = st[j][e + 2] = -CUDART_INF_F;
+    }
+    // P^T from each query column's lse: columns 8 j + c2 and + 1
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(ls + j * 8 + c2);
+      const float n0 = -l.x * kLog2e, n1 = -l.y * kLog2e;
+      st[j][0] = exp2_approx(fmaf(st[j][0], sl2, n0));
+      st[j][1] = exp2_approx(fmaf(st[j][1], sl2, n1));
+      st[j][2] = exp2_approx(fmaf(st[j][2], sl2, n0));
+      st[j][3] = exp2_approx(fmaf(st[j][3], sl2, n1));
+    }
+    unsigned pa[NS / 2][4];
+    pack_a(st, pa);                                   // bf16(P^T)
+    wg_wait0();
+    wg_hold(dpt);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(ls + kKeys + j * 8 +
+                                                        c2);
+      dpt[j][0] = st[j][0] * (dpt[j][0] - d.x);
+      dpt[j][1] = st[j][1] * (dpt[j][1] - d.y);
+      dpt[j][2] = st[j][2] * (dpt[j][2] - d.x);
+      dpt[j][3] = st[j][3] * (dpt[j][3] - d.y);
+    }
+    unsigned da[NS / 2][4];
+    pack_a(dpt, da);                                  // bf16(dS^T)
+    // dV += bf16(P^T).dO and dK += bf16(dS^T).Q, dO and Q read MN-major
+    wg_hold(dva);
+    wg_hold(dka);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk)
+      wgmma_pv(dva, pa[kk], dgt + kk * (2 * S::kAtom >> 4));
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk)
+      wgmma_pv(dka, da[kk], dqt + kk * (2 * S::kAtom >> 4));
+    wg_commit();
+    wg_wait0();
+    wg_hold(dva);
+    wg_hold(dka);
+  }
+  cp_async_wait<0>();      // only empty groups can be left
+  __syncthreads();         // every wgmma read of K and V is done
+  // keys in [n_valid, N) store their zero gradients
+  const int row0 = k0 + wg * 64 + wr;
+  store_rows<D>(Ks + (wg * 64 + wr) * S::kRowBytes, dka, scale, dk, ld_dkv,
+                rows, row0, N);
+  store_rows<D>(Vs + (wg * 64 + wr) * S::kRowBytes, dva, 1.f, dv, ld_dkv,
+                rows, row0, N);
 }
 
 // Set the dynamic shared-memory cap a kernel needs (above the 48 KB default).
@@ -756,27 +872,50 @@ cudaError_t launch_packed_fwd(const void* qkv, void* out, void* lse,
                                rows, seqs, H, N, N, scale, stream);
 }
 
-// The packed-QKV backward: dq (and delta), then dk and dv.
-template <int D = kDh, class Rows>
-cudaError_t launch_attn_bwd(const void* qkv, const void* out, const void* lse,
-                            const void* dout, void* delta, void* dqkv,
-                            Rows rows, int seqs, int N, int H, float scale,
+// The backward over `seqs` sequences of N rows placed by `rows`, H heads D
+// wide: dq (and delta), then dk and dv, each by blocks of G warpgroups (see
+// the kernels for the pointers and strides; dq, dk and dv share ld_grad).
+template <int D, int G, class Rows>
+cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
+                            int ld_in, const void* o, const void* dout,
+                            int ld_out, const void* lse, void* delta, void* dq,
+                            void* dk, void* dv, int ld_grad, Rows rows,
+                            int seqs, int H, int N, int n_valid, float scale,
                             void* stream) {
-  cudaError_t err = allow_smem(attn_bwd_dq<D, Rows>, dq_smem<D>(N));
+  constexpr size_t dq_smem = bwd_smem<D, G>(false);
+  constexpr size_t dkv_smem = bwd_smem<D, G>(true);
+  cudaError_t err = allow_smem(attn_bwd_dq<D, G, Rows>, dq_smem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(attn_bwd_dkv<D, Rows>, dkv_smem<D>(N));
+  err = allow_smem(attn_bwd_dkv<D, G, Rows>, dkv_smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + kRows - 1) / kRows, H, seqs);
+  dim3 grid((N + 64 * G - 1) / (64 * G), H, seqs);
   cudaStream_t s = (cudaStream_t)stream;
-  attn_bwd_dq<D, Rows><<<grid, kThreads, dq_smem<D>(N), s>>>(
-      (const bf16*)qkv, (const bf16*)out, (const float*)lse,
-      (const bf16*)dout, (float*)delta, (bf16*)dqkv, rows, N, H, scale);
+  attn_bwd_dq<D, G, Rows><<<grid, 128 * G, dq_smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld_in, (const bf16*)o,
+      (const bf16*)dout, ld_out, (const float*)lse, (float*)delta, (bf16*)dq,
+      ld_grad, rows, N, n_valid, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv<D, Rows><<<grid, kThreads, dkv_smem<D>(N), s>>>(
-      (const bf16*)qkv, (const float*)lse, (const bf16*)dout,
-      (const float*)delta, (bf16*)dqkv, rows, N, H, scale);
+  attn_bwd_dkv<D, G, Rows><<<grid, 128 * G, dkv_smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld_in, (const bf16*)dout,
+      ld_out, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+      ld_grad, rows, N, n_valid, scale);
   return cudaGetLastError();
+}
+
+// The packed-QKV backward: qkv (tokens, 3C), out and dout (tokens, C) ->
+// dqkv (tokens, 3C), no key mask, one warpgroup per block, as the forward.
+template <int D = kDh, class Rows>
+cudaError_t launch_packed_bwd(const void* qkv, const void* out,
+                              const void* lse, const void* dout, void* delta,
+                              void* dqkv, Rows rows, int seqs, int N, int H,
+                              float scale, void* stream) {
+  const int C = H * D;
+  const bf16* x = (const bf16*)qkv;
+  bf16* dx = (bf16*)dqkv;
+  return launch_attn_bwd<D, 1>(x, x + C, x + 2 * C, 3 * C, out, dout, C, lse,
+                               delta, dx, dx + C, dx + 2 * C, 3 * C, rows,
+                               seqs, H, N, N, scale, stream);
 }
 
 }  // namespace

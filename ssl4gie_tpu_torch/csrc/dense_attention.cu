@@ -15,24 +15,25 @@
 // What bounds it on the card: at ViT-B 224 (N=197, Dh=64) one (image, head)
 // reads 75 KB of q, k, v and does 197x197x64 products: two in the forward
 // (Q.K^T and P.V, once each, in the online-softmax core `attn_fwd`) and
-// seven in the backward (scores and dP recomputed by both kernels). So it
-// is bound by the tensor cores and the work around them (shared-memory
-// traffic, the softmax, occupancy), not by device memory. At Dh = 32 the
-// products halve but the softmax work per score does not, so the softmax
-// weighs more. N = 197 ends in a partial 64-key tile, whose keys >= N are
-// zero-filled and masked to -inf. The TPU's 16-row padding and its analytic
-// softmax-denominator fix are not needed (keys >= N are masked by index);
-// the scale multiplies the f32 scores (the TPU scales q in bf16 first: one
-// rounding fewer). The forward is wgmma on one warpgroup per 64 query rows;
-// the backward is still WMMA (a later redesign).
+// seven in the backward (S and dP computed by both of its kernels,
+// `attn_bwd_dq` and `attn_bwd_dkv`). So it is bound by the tensor cores and
+// the work around them (shared-memory traffic, the softmax, occupancy), not
+// by device memory. At Dh = 32 the products halve but the softmax work per
+// score does not, so the softmax weighs more. N = 197 ends in a partial
+// 64-row tile, whose rows >= N are zero-filled and masked by index. The
+// TPU's 16-row padding and its analytic softmax-denominator fix are not
+// needed; the scale multiplies the f32 scores (the TPU scales q in bf16
+// first: one rounding fewer). Every product of both directions is wgmma on
+// one warpgroup per 64 rows, with K/V (or Q/dO) streamed through a cp.async
+// ring, so shared memory per block does not grow with N.
 
 #include "attention_core.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError() (cudaErrorInvalidValue for a head width the kernels are
 // not built for). The Python wrapper checks the shapes, the dtype (bf16),
-// Dh in {32, 64} and N <= 512 (the backward's shared memory, at most 194
-// KiB) before calling.
+// Dh in {32, 64} and N <= 512 (the range the model routes here, as the JAX
+// kernel's) before calling.
 extern "C" int ssl4gie_attn_fwd(const void* qkv, void* out, void* lse, int B,
                                 int N, int H, int Dh, float scale,
                                 void* stream) {
@@ -52,11 +53,11 @@ extern "C" int ssl4gie_attn_bwd(const void* qkv, const void* out,
                                 float scale, void* stream) {
   const DenseRows rows{N};
   if (Dh == 64)
-    return (int)launch_attn_bwd<64>(qkv, out, lse, dout, delta, dqkv, rows, B,
-                                    N, H, scale, stream);
+    return (int)launch_packed_bwd<64>(qkv, out, lse, dout, delta, dqkv, rows,
+                                      B, N, H, scale, stream);
   if (Dh == 32)
-    return (int)launch_attn_bwd<32>(qkv, out, lse, dout, delta, dqkv, rows, B,
-                                    N, H, scale, stream);
+    return (int)launch_packed_bwd<32>(qkv, out, lse, dout, delta, dqkv, rows,
+                                      B, N, H, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,19 +17,18 @@
 // per image, 12 heads of 64) one (window, head) reads 96 KB of q, k, v and
 // does 256x256x64 products, two in the forward and seven in the backward:
 // the tensor cores and the work around them (shared-memory traffic, the
-// softmax, waiting on copies), not device memory. The forward is the shared
-// online-softmax core (`attn_fwd`, one warpgroup per 64 query rows, wgmma):
-// a window's 64-key tile is four grid rows of 16 tokens, each (16 x 64)
-// piece of a head contiguous in the grid, and cp.async brings it 16 B a
-// thread into a 3-stage ring, so a block holds 57 KiB of shared memory
-// whatever the window size (the whole window's K and V, 104 KiB at 256
-// tokens, before). `WindowRows` finds a window's grid origin once per block
-// and each row's offset from it by a multiply and a shift. 256 tokens need
-// no key masking. The forward saves each row's log-sum-exp (the TPU kernel
-// recomputes it in the backward; either is right), and the backward is the
-// dense kernel's dq kernel then its dk/dv kernel, so no atomics and
-// gradients that match from run to run; they hold 113 and 120 KiB of shared
-// memory at 256 tokens.
+// softmax, waiting on copies), not device memory. Both directions are the
+// shared core of attention_core.cuh on one warpgroup per 64 rows, with
+// wgmma for every product: a window's 64-row tile is four grid rows of 16
+// tokens, each (16 x 64) piece of a head contiguous in the grid, and
+// cp.async brings it 16 B a thread into a 3-stage ring, so shared memory
+// per block does not depend on the window size (the forward 57 KiB, the
+// backward's two kernels 65 and 66.5 KiB). `WindowRows` finds a window's
+// grid origin once per block and each row's offset from it by a multiply
+// and a shift. 256 tokens need no key masking. The forward saves each row's
+// log-sum-exp (the TPU kernel recomputes it in the backward; either is
+// right), and the backward is the dq kernel then the dk/dv kernel, so no
+// atomics and gradients that match from run to run.
 
 #include "attention_core.cuh"
 
@@ -60,7 +59,7 @@ extern "C" int ssl4gie_window_attn_bwd(const void* qkv, const void* out,
                                        int GW, int ws, int H, float scale,
                                        void* stream) {
   const int seqs = B * (GH / ws) * (GW / ws);
-  return (int)launch_attn_bwd(qkv, out, lse, dout, delta, dqkv,
-                              window_rows(GH, GW, ws), seqs, ws * ws, H, scale,
-                              stream);
+  return (int)launch_packed_bwd(qkv, out, lse, dout, delta, dqkv,
+                                window_rows(GH, GW, ws), seqs, ws * ws, H,
+                                scale, stream);
 }

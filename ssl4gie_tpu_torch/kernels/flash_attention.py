@@ -103,9 +103,9 @@ flash_fwd.launches = 0
 
 def flash_bwd(q, k, v, o, lse, dout, scale: float, n_valid=None):
     """Backward: (q, k, v, the forward's o and lse, dO) -> (dq, dk, dv).
-    Launches `flash_bwd_dq` then `flash_bwd_dkv` on CUDA tensors; on CPU
-    tensors the gradient of the plain version (which needs neither o nor
-    lse)."""
+    Launches the backward core's `attn_bwd_dq` then `attn_bwd_dkv` on CUDA
+    tensors; on CPU tensors the gradient of the plain version (which needs
+    neither o nor lse)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, scale, n_valid)
     if q.device.type != "cuda":

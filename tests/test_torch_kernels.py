@@ -302,12 +302,15 @@ def test_window_attention_kernels_match_plain_on_card(cuda, batch, grid, heads,
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,n,n_valid", [
     (4, 1024, None), (3, 1024, 1000), (2, 256, 197), (2, 512, 3),
-    (2, 4096, None), (1, 4096, 4000), (2, 256, 64)])
+    (2, 4096, None), (1, 4096, 4000), (2, 256, 64), (2, 256, 3),
+    (2, 256, 200)])
 def test_flash_attention_kernels_match_plain_on_card(cuda, bh, n, n_valid):
     """bf16 flash kernels against the plain version on the card, with and
     without masked keys (n_valid = 64: exactly one valid key tile of the
-    forward, the rest never visited): o, dq, dk, dv within two bf16 ulps of
-    the element or of the largest element, log-sum-exp within 2^-16."""
+    forward, the rest never visited; n_valid = 3 and 200 at N = 256: a
+    partial last key tile, and dk/dv blocks whose keys are all masked): o,
+    dq, dk, dv within two bf16 ulps of the element or of the largest
+    element, log-sum-exp within 2^-16."""
     from ssl4gie_tpu_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=cuda).manual_seed(2)
     q, k, v, dout = (torch.randn((bh, n, DH), generator=gen,
@@ -348,10 +351,12 @@ def test_flash_attention_padded_low_lse_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_attention_forwards_repeat_bit_for_bit_on_card(cuda):
-    """The forward core adds no atomics and no order that changes from run to
-    run, so two forwards of the same inputs agree bit for bit, in all three
-    layouts (dense at both head widths, windowed, flash with masked keys)."""
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_attention_forwards_repeat_bit_for_bit_on_card(cuda, direction):
+    """The forward and backward cores add no atomics and no order that
+    changes from run to run, so two runs on the same inputs agree bit for
+    bit, in all three layouts (dense at both head widths, windowed, flash
+    with masked keys)."""
     from ssl4gie_tpu_torch.kernels import flash_attention as fa
     from ssl4gie_tpu_torch.kernels import window_attention as wa
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -360,10 +365,20 @@ def test_attention_forwards_repeat_bit_for_bit_on_card(cuda):
     qkv64, qkv32, grid = rand(3, N, 3 * C), rand(2, N, 3 * 16 * 32), \
         rand(1, 32, 32, 3 * C)
     q, k, v = (rand(2, 1024, DH) for _ in range(3))
-    calls = [lambda: da.attention_fwd(qkv64, H, SCALE),
-             lambda: da.attention_fwd(qkv32, 16, 32 ** -0.5),
-             lambda: wa.window_attention_fwd(grid, H, 16, SCALE),
-             lambda: fa.flash_fwd(q, k, v, SCALE, 1000)]
+    fwds = [lambda: da.attention_fwd(qkv64, H, SCALE),
+            lambda: da.attention_fwd(qkv32, 16, 32 ** -0.5),
+            lambda: wa.window_attention_fwd(grid, H, 16, SCALE),
+            lambda: fa.flash_fwd(q, k, v, SCALE, 1000)]
+    calls = fwds
+    if direction == "backward":
+        (o64, l64), (o32, l32), (ow, lw), (of, lf) = (f() for f in fwds)
+        d64, d32, dw, df = (rand(*t.shape) for t in (o64, o32, ow, of))
+        calls = [lambda: (da.attention_bwd(qkv64, o64, l64, d64, H, SCALE),),
+                 lambda: (da.attention_bwd(qkv32, o32, l32, d32, 16,
+                                           32 ** -0.5),),
+                 lambda: (wa.window_attention_bwd(grid, ow, lw, dw, H, 16,
+                                                  SCALE),),
+                 lambda: fa.flash_bwd(q, k, v, of, lf, df, SCALE, 1000)]
     for call in calls:
         first, again = call(), call()
         torch.cuda.synchronize()
