@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from `ssl4gie_tpu_torch/csrc/` (first use).
+1. Builds the CUDA kernels from `ssl4gie_tpu_torch/csrc/` (first use) and
+   prints each kernel's registers and spills (ptxas) and the fused MLP's
+   shared memory per block.
 2. Kernel phases: each kernel against its plain PyTorch version on the card
    at its path's shapes, with its time, the plain version's, the one
    PyTorch call that computes the same function where there is one
@@ -21,8 +23,11 @@
    - MAE: the fused MLP forward and backward at the encoder's (12800
      tokens, 768 -> 3072) and the decoder's (50432 tokens, 512 -> 2048)
      shapes, also against the unfused cuBLAS sequence F.linear -> F.gelu
-     (tanh) -> F.linear and its backward (`unfused_ms`), and the dense
-     attention at Dh=32, (256, 197, 3*512), 16 heads.
+     (tanh) -> F.linear and its backward (`unfused_ms`), each also timed
+     over 20 calls back to back (`b2b_ms`: the host's launch time hidden),
+     the forward's two products alone at their N tile and at the other N
+     tile that divides C (`products_b2b_ms`); and the dense attention at
+     Dh=32, (256, 197, 3*512), 16 heads.
 3. Classification path: the ViT-B/16 224 px finetune step at full width
    (uint8 batch -> on-device augmentation -> forward/backward -> AdamW), a few
    steps from random weights made from a seed. The kernels' launch counters
@@ -64,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +140,23 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_b2b(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Device time of `fn` per call over `runs` calls issued back to back
+    between two CUDA events: the host's time to launch is hidden where it is
+    shorter than the device's (cuda_ms counts it from the first event)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
 
 
 def card_line() -> str:
@@ -525,6 +548,25 @@ def mlp_case(gen, m: int, c: int, hd: int):
             rand(c, hd, std=hd ** -0.5), rand(c, std=0.02), rand(m, c))
 
 
+MLP_MODES = ("(a) x.W1^T + b1", "(b) gelu(h).W2^T + b2")
+
+
+def mlp_n_tile(n: int) -> int:
+    """The forward's N tile for output width n (`csrc/fused_mlp.cu`)."""
+    return next(bn for bn in (256, 192, 128) if n % bn == 0)
+
+
+def mlp_product(mode: int, bn: int, a, b, bias, out, m: int, n: int,
+                k: int):
+    """One product of the fused MLP's GEMM core alone, with N tile bn
+    (`ssl4gie_mlp_gemm`, forward modes): out = a.b^T + bias (mode 0) or
+    gelu(a).b^T + bias (mode 1), tanh GELU. Not counted: a measurement."""
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: _build.launch(
+        "ssl4gie_mlp_gemm", mode, bn, a.data_ptr(), b.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), m, n, k, 1, stream)
+
+
 def mae_kernel_phase(card: str) -> list[dict]:
     """The fused MLP at the MAE encoder's and decoder's shapes and the dense
     attention at the decoder's Dh = 32, against their plain versions."""
@@ -543,20 +585,49 @@ def mae_kernel_phase(card: str) -> list[dict]:
                   check_close(f"mlp_fwd {where} h", h_k, h_p, tol))
         del y_p, h_p
         ms = cuda_ms(lambda: fm.mlp_fwd(*args))
+        b2b_ms = cuda_ms_b2b(lambda: fm.mlp_fwd(*args))
         plain_ms = cuda_ms(lambda: fm.mlp_fwd_plain(*args))
         unfused = lambda x_, w1_, b1_, w2_, b2_: F.linear(F.gelu(
             F.linear(x_, w1_, b1_), approximate="tanh"), w2_, b2_)
         unfused_ms = cuda_ms(lambda: unfused(x, w1, b1, w2, b2))
+        unfused_b2b_ms = cuda_ms_b2b(lambda: unfused(x, w1, b1, w2, b2))
         w_bytes = (2 * c * hd + c + hd) * 2
+        # each product alone: (a) and (b) at the N tiles the entry point
+        # picks, and (b) at the other tile that divides C
+        bn_a, bn_b = mlp_n_tile(hd), mlp_n_tile(c)
+        alt_b = 192 if c % 192 == 0 and bn_b != 192 else 128
+        h_v, y_v = torch.empty_like(h_k), torch.empty_like(y_k)
+        products = {}
+        for mode, bn, a, b, bias, out, n, k in (
+                (0, bn_a, x, w1, b1, h_v, hd, c),
+                (1, bn_b, h_k, w2, b2, y_v, c, hd),
+                (1, alt_b, h_k, w2, b2, y_v, c, hd)):
+            run = mlp_product(mode, bn, a, b, bias, out, m, n, k)
+            run()
+            torch.cuda.synchronize()
+            check_close(f"mlp product {mode} N tile {bn} {where}", out,
+                        h_k if mode == 0 else y_k, tol)
+            products[f"{'ab'[mode]}_n{bn}"] = cuda_ms_b2b(run)
+        del h_v, y_v
         results.append(result(
             f"fused_mlp_fwd_{where}", "fused_mlp.cu",
             "ssl4gie_tpu/kernels/fused_mlp.py:75", err, ms, plain_ms, None,
             4 * m * c * hd, (2 * m * c + m * hd) * 2 + w_bytes,
-            unfused_ms=unfused_ms))
+            unfused_ms=unfused_ms, b2b_ms=b2b_ms,
+            unfused_b2b_ms=unfused_b2b_ms, products_b2b_ms=products))
+        half = 2 * m * c * hd
         print(f"[kernel] fused MLP fwd {where} ({m} x {c} -> {hd}) bf16: "
-              f"max|err|={err:.3g} (tol {tol:.3g} rel) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, unfused cuBLAS {unfused_ms:.4f} ms, "
+              f"max|err|={err:.3g} (tol {tol:.3g} rel) kernel {ms:.4f} ms "
+              f"({tflops(2 * half, ms)}; back to back {b2b_ms:.4f} ms, "
+              f"{tflops(2 * half, b2b_ms)}), plain {plain_ms:.4f} ms, unfused "
+              f"cuBLAS {unfused_ms:.4f} ms ({tflops(2 * half, unfused_ms)}; "
+              f"back to back {unfused_b2b_ms:.4f} ms), "
               f"bound {results[-1]['bound_ms']:.4f} ms  [{card}]", flush=True)
+        print(f"[kernel] fused MLP fwd {where} products alone, back to "
+              f"back: " + ", ".join(
+            f"{MLP_MODES['ab'.index(key[0])]} N tile {key[3:]}: {t:.4f} ms "
+            f"({tflops(half, t)})" for key, t in products.items()),
+            flush=True)
 
         dh_k, g_k = fm.mlp_bwd(h_k, dy, w2.t())
         torch.cuda.synchronize()
@@ -565,6 +636,7 @@ def mae_kernel_phase(card: str) -> list[dict]:
                   check_close(f"mlp_bwd {where} g", g_k, g_p, tol))
         del dh_p, g_p, dh_k, g_k
         ms = cuda_ms(lambda: fm.mlp_bwd(h_k, dy, w2.t()))
+        b2b_ms = cuda_ms_b2b(lambda: fm.mlp_bwd(h_k, dy, w2.t()))
         plain_ms = cuda_ms(lambda: fm.mlp_bwd_plain(h_k, dy, w2.t()))
         # whole backwards: the fused one (kernel #9 + the four GEMMs and the
         # two sums) and autograd of the unfused cuBLAS sequence
@@ -581,9 +653,12 @@ def mae_kernel_phase(card: str) -> list[dict]:
             f"fused_mlp_bwd_{where}", "fused_mlp.cu",
             "ssl4gie_tpu/kernels/fused_mlp.py:115", err, ms, plain_ms, None,
             2 * m * c * hd, (m * hd + m * c + 2 * m * hd) * 2 + c * hd * 2,
-            unfused_ms=unfused_ms, fused_bwd_ms=fused_bwd_ms))
+            unfused_ms=unfused_ms, fused_bwd_ms=fused_bwd_ms, b2b_ms=b2b_ms))
         print(f"[kernel] fused MLP bwd {where}: max|err|={err:.3g} (tol "
-              f"{tol:.3g} rel) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{tol:.3g} rel) kernel {ms:.4f} ms ({tflops(2 * m * c * hd, ms)}"
+              f", {results[-1]['bound_ms'] / ms:.3f} of the bound; back to "
+              f"back {b2b_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, "
               f"bound {results[-1]['bound_ms']:.4f} ms; whole backward: "
               f"fused {fused_bwd_ms:.4f} ms, unfused cuBLAS autograd "
               f"{unfused_ms:.4f} ms  [{card}]", flush=True)
@@ -997,9 +1072,21 @@ def main() -> None:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path.name}",
           flush=True)
+    kernel = ""
     for line in path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+            mlp = re.search(r"mlp_gemmILi(\d)ELi(\d+)E", kernel)
+            kernel = (f"mlp_gemm<mode {mlp[1]}, N tile {mlp[2]}>" if mlp
+                      else kernel[:60])
+        elif any(w in line for w in ("registers", "spill", "wgmma",
+                                     "setmaxnreg")):
+            print(f"  ptxas: {kernel}: {line.strip()}")
+    lib = _build.library()
+    print("  fused MLP GEMM shared memory per block: " + ", ".join(
+        f"mode {mode} N tile {bn}: {lib.ssl4gie_mlp_smem(mode, bn)} B"
+        for mode, bn in ((0, 256), (0, 192), (0, 128), (1, 256), (1, 192),
+                         (1, 128), (2, 128))))
 
     phases = [("kernels (classification shapes)", kernel_phase),
               ("kernels (detection shapes)", det_kernel_phase),

@@ -22,8 +22,9 @@ def make_adamw(params: Iterable[torch.nn.Parameter],
     and torch.optim.AdamW's defaults in the reference: on every parameter,
     or, given `decay_mask`, only on those it is true for (optax's
     `adamw(..., mask=...)`: two param groups, the second with no decay).
-    `grad_clip` is a global-norm bound applied by `apply_gradients`; it is
-    kept in each param group."""
+    `grad_clip` is a global-norm bound applied by `apply_gradients` to the
+    gradients of all groups together, as optax's `clip_by_global_norm`
+    before `adamw`; it is kept in each param group."""
     if decay_mask is not None:
         params = list(params)
         params = [{"params": [p for p in params if decay_mask(p)]},
@@ -48,9 +49,11 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer) -> None:
-    """Clip each group's gradients to its global norm `grad_clip` (if set),
-    then take one optimizer step."""
-    for group in optimizer.param_groups:
-        if group.get("grad_clip") is not None:
-            torch.nn.utils.clip_grad_norm_(group["params"], group["grad_clip"])
+    """Clip the gradients of every param group by one global norm to
+    `grad_clip` (if set), then take one optimizer step."""
+    bound = optimizer.param_groups[0].get("grad_clip")
+    if bound is not None:
+        torch.nn.utils.clip_grad_norm_(
+            [p for group in optimizer.param_groups for p in group["params"]],
+            bound)
     optimizer.step()

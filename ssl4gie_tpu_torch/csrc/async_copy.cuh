@@ -1,7 +1,8 @@
-// cp.async helpers shared by the kernels that stream tiles into shared
-// memory (attention_core.cuh's forward and backward, fused_mlp.cu's GEMM):
-// 16- and 4-byte copies from global to shared memory that pass through no
-// registers, grouped by commit and waited on by count.
+// cp.async helpers of the kernels that stream tiles into shared memory
+// (attention_core.cuh's forward and backward): 16- and 4-byte copies from
+// global to shared memory that pass through no registers, grouped by commit
+// and waited on by count; and the shared-memory address of a pointer, which
+// the wgmma and TMA helpers use too.
 
 #pragma once
 

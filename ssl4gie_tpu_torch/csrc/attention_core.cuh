@@ -91,14 +91,13 @@
 #include <math_constants.h>
 
 #include "async_copy.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kDh = 64;               // default head width (flash kernels)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
 
 // One sequence per image of a (B, N, width) tensor. Every Rows functor
 // gives rows(seq, r) as base(seq), taken once per block, plus offset(r).
@@ -136,57 +135,6 @@ __device__ __forceinline__ float exp2_approx(float x) {   // exp2(-inf) = 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Tiles of D-wide bf16 rows (2 D bytes) in the swizzled layout wgmma reads:
-// the 16-byte chunk c of row r sits at chunk c ^ ((r / R) % (D / 8)), R = 1
-// at D = 64 (the 128-byte swizzle) and 2 at D = 32 (the 64-byte swizzle);
-// an atom is 8 rows (1 KiB or 512 B) and every tile starts 1 KiB-aligned.
-template <int D>
-struct Swz {
-  static constexpr int kRowBytes = 2 * D, kAtom = 8 * kRowBytes;
-  static constexpr int kChunks = D / 8;
-  static constexpr unsigned long long kMode = D == 64 ? 1ull : 2ull;
-  __device__ __forceinline__ static int offset(int r, int c) {   // bytes
-    const int phase = (r >> (D == 64 ? 0 : 1)) & (kChunks - 1);
-    return r * kRowBytes + ((c ^ phase) << 4);
-  }
-  // Descriptor of the tile at `p`: address / 16, the stride between 8-row
-  // groups (one atom) in both offset fields (the leading one is not read:
-  // an operand never spans two atoms across), the swizzle mode. Adding
-  // b / 16 to it moves the start b bytes on: a k-step of 16 columns is +2,
-  // 16 rows of an MN-major operand are + 2 atoms / 16.
-  __device__ __forceinline__ static unsigned long long desc(const void* p) {
-    const unsigned long long a = (smem_u32(p) & 0x3FFFF) >> 4;
-    const unsigned long long atom = kAtom >> 4;
-    return a | (atom << 16) | (atom << 32) | (kMode << 62);
-  }
-};
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait1() {   // all but the last group
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-// keep the compiler from touching an accumulator across an async wgmma
-template <int N>
-__device__ __forceinline__ void wg_hold(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
 // The accumulator of a warpgroup's 64 x n product: warp w holds rows

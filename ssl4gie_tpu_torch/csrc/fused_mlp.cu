@@ -9,8 +9,9 @@
 // g = gelu(h) (M, H), from which the caller's plain GEMMs make dx, dW1, dW2.
 // Both weights are read in nn.Linear layout, W1 as fc1.weight (H, C) and W2
 // as fc2.weight (C, H), so no transpose is ever copied: x.W1 and g.W2 are
-// products whose two operands are both contiguous along the summed axis,
-// and dy.W2^T reads fc2.weight row-major along its output axis.
+// products whose two operands are both contiguous along the summed axis
+// (K-major), and dy.W2^T reads fc2.weight along its output axis (an
+// MN-major B, which wgmma reads transposed).
 //
 // What bounds it on the card: at the MAE ViT-B shapes (M = 12,800 tokens at
 // C = 768, H = 3072; M = 50,432 at C = 512, H = 2048) the forward is 121 and
@@ -21,256 +22,149 @@
 // VMEM (9 MB for ViT-B); a Hopper block has 227 KB of shared memory, so
 // that does not carry over. What the TPU kernel keeps out of device memory
 // is kept out here too: g = gelu(h) never reaches device memory in the
-// forward (the GELU is applied in f32 to each h tile as it is staged into
-// shared memory for the second product), and the backward reads h once, in
-// the epilogue of dy.W2^T, and writes dh and g there.
+// forward (the GELU is applied in registers to the A operand of the second
+// product), and the backward reads h once, in the epilogue of dy.W2^T, and
+// writes dh and g there.
 //
-// The design: one tiled WMMA GEMM (16x16x16 bf16 products, f32 accumulate)
-// with a mode for the prologue and epilogue. A block of 8 warps owns a
-// 128 x 128 output tile; each warp a 64 x 32 piece (4 x 2 accumulator
-// fragments). The summed axis is walked in 64-wide steps through a ring of
-// kStages shared-memory stages filled by cp.async, kStages - 1 steps ahead
-// of the products (one barrier per step); in the forward's second product
-// each thread applies the GELU in place to the pieces of h it copied, once
-// they have landed. Rows >= M are zero-filled on load and not stored, so
-// the token count needs no tile multiple; the widths must be multiples of
-// 128.
-// The forward is two launches, (a) h = x.W1^T + b1 stored bf16 and (b)
-// y = gelu(h).W2^T + b2. A fully fused tile (hidden axis streamed, y
-// accumulated on chip), wgmma and TMA are later work.
+// The design is the warp-specialised persistent GEMM of gemm_core.cuh (TMA
+// producer, two wgmma consumer warpgroups, TMA stores): the forward is two
+// launches, (a) h = x.W1^T + b1 stored bf16 and (b) y = gelu(h).W2^T + b2,
+// and the backward one. The N tile of each product is the widest of 256,
+// 192 and 128 that divides its N (the output width: H for (a), C for (b)),
+// and 128 in the backward, whose two consumers take alternate tiles, each
+// with its own h tile and staging. A fully fused tile (hidden axis streamed, y accumulated on
+// chip) does not fit a block's registers at C = 768 without a cluster.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include "async_copy.cuh"
+#include "gemm_core.cuh"
 
 namespace {
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library links without -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-constexpr int kBM = 128, kBN = 128, kBK = 64;   // block tile, summed step
-constexpr int kThreads = 256;                   // 8 warps: 2 rows x 4 columns
-constexpr int kWM = 64, kWN = 32;               // warp tile
-constexpr int kFM = kWM / 16, kFN = kWN / 16;   // 4 x 2 accumulator fragments
-constexpr int kLdK = kBK + 8;       // bf16 row of an [rows][kBK] tile (72)
-constexpr int kLdN = kBN + 8;       // bf16 row of a [kBK][kBN] tile (136)
-constexpr int kTileA = kBM * kLdK;  // elements per A buffer
-constexpr int kTileB = kBN * kLdK;  // elements per B buffer (either layout)
-static_assert(kTileB >= kBK * kLdN, "a [kBK][kBN] tile must fit a B buffer");
-constexpr int kStages = 3;          // cp.async ring depth
-constexpr int kLdE = 20;            // f32 row of a warp's 16 x 16 epilogue tile
-constexpr int kSmem = kStages * (kTileA + kTileB) * 2;   // 108 KB, dynamic
-// 16-byte pieces each thread copies per step, of A and of B
-constexpr int kPieces = kBM * kBK / 8 / kThreads;
-constexpr int kRowPieces = kBK / 8;         // per row of A or an (N, K) B
-constexpr int kColPieces = kBN / 8;         // per row of a (K, N) B
-static_assert(kBN * kBK / 8 / kThreads == kPieces, "even B copies");
-static_assert(kThreads / 32 * 16 * kLdE * 4 <= kSmem, "epilogue tiles fit");
-
-// prologue / epilogue of the GEMM
-enum Mode {
-  kBias = 0,      // out = A.B^T + bias                       (forward (a))
-  kGeluBias = 1,  // out = gelu(A).B^T + bias                 (forward (b))
-  kDgelu = 2,     // acc = A.B; out = acc * gelu'(h), out2 = gelu(h)  (backward)
-};
-
-constexpr float kSqrt2OverPi = 0.7978845608028654f;
-constexpr float kRsqrt2 = 0.7071067811865476f;
-constexpr float kRsqrt2Pi = 0.3989422804014327f;
-
-// as `_gelu_f32` / `_dgelu_f32` of the JAX kernel: tanh form when `approx`,
-// else the exact erf form
-__device__ __forceinline__ float gelu(float h, int approx) {
-  if (approx)
-    return 0.5f * h * (1.f + tanhf(kSqrt2OverPi * (h + 0.044715f * h * h * h)));
-  return 0.5f * h * (1.f + erff(h * kRsqrt2));
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-// gelu(h) and gelu'(h) from one tanh (or erf)
-__device__ __forceinline__ void gelu_and_grad(float h, int approx, float& g,
-                                              float& dg) {
-  if (approx) {
-    const float t = tanhf(kSqrt2OverPi * (h + 0.044715f * h * h * h));
-    const float dt = (1.f - t * t) * kSqrt2OverPi * (1.f + 3.f * 0.044715f * h * h);
-    g = 0.5f * h * (1.f + t);
-    dg = 0.5f * (1.f + t) + 0.5f * h * dt;
-  } else {
-    const float e = erff(h * kRsqrt2);
-    g = 0.5f * h * (1.f + e);
-    dg = 0.5f * (1.f + e) + h * expf(-0.5f * h * h) * kRsqrt2Pi;
-  }
+// A row-major (rows, cols) bf16 matrix as 64-column (128-byte) boxes of
+// box_rows rows in the 128-byte swizzle; rows past the end read as zeros
+// and are not written.
+bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols,
+                int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One 128 x 128 tile of the (M, N) output. A is (M, K) row-major; B is
-// (N, K) row-major (nn.Linear weight, modes kBias and kGeluBias) or (K, N)
-// row-major (mode kDgelu). K is a multiple of kBK, N of kBN.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads, 2)
-mlp_gemm(const bf16* __restrict__ A, const bf16* __restrict__ B,
-         const bf16* __restrict__ bias, const bf16* __restrict__ hin,
-         bf16* __restrict__ out, bf16* __restrict__ out2, int M, int N, int K,
-         int approx) {
-  constexpr bool kNK = kMode != kDgelu;     // B in nn.Linear layout (N, K)
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);   // kStages [kBM][kLdK] buffers
-  bf16* Bs = As + kStages * kTileA;           // kStages B buffers
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * kWM, wn = (warp & 3) * kWN;
-
-  // Each thread copies kPieces 16-byte pieces of A and of B per step: A
-  // (and an (N, K) B) as 128 rows x kRowPieces, a (K, N) B as kBK rows x
-  // kColPieces.
-  auto fetch = [&](int t) {
-    const int k0 = t * kBK;
-    bf16* as = As + (t % kStages) * kTileA;
-    bf16* bs = Bs + (t % kStages) * kTileB;
-#pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kRowPieces, c = (idx % kRowPieces) * 8;
-      const int row = m0 + r;
-      cp_async16(as + r * kLdK + c,
-                 A + (size_t)(row < M ? row : M - 1) * K + k0 + c, row < M);
-      if (kNK) {
-        cp_async16(bs + r * kLdK + c, B + (size_t)(n0 + r) * K + k0 + c, true);
-      } else {
-        const int rk = idx / kColPieces, cn = (idx % kColPieces) * 8;
-        cp_async16(bs + rk * kLdN + cn, B + (size_t)(k0 + rk) * N + n0 + cn,
-                   true);
-      }
-    }
-  };
-  // g = gelu(h) in f32, rounded once, over this thread's own pieces of A
-  auto gelu_tile = [&](int t) {
-    bf16* as = As + (t % kStages) * kTileA;
-#pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      const int idx = tid + i * kThreads;
-      uint4* p = reinterpret_cast<uint4*>(as + (idx / kRowPieces) * kLdK +
-                                          (idx % kRowPieces) * 8);
-      uint4 v = *p;
-      bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16(gelu(__bfloat162float(e[j]), approx));
-      *p = v;
-    }
-  };
-
-  FragC acc[kFM][kFN];
-#pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int steps = K / kBK;
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < steps) fetch(t);
-    cp_async_commit();
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 0;
   }
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait<kStages - 2>();            // this thread's step t landed
-    if (kMode == kGeluBias) gelu_tile(t);
-    __syncthreads();   // step t visible to all; step t - 1's stage is free
-    if (t + kStages - 1 < steps) fetch(t + kStages - 1);
-    cp_async_commit();
-    const bf16* as = As + (t % kStages) * kTileA;
-    const bf16* bs = Bs + (t % kStages) * kTileB;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA a[kFM];
-#pragma unroll
-      for (int i = 0; i < kFM; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm + i * 16) * kLdK + kk, kLdK);
-#pragma unroll
-      for (int j = 0; j < kFN; ++j) {
-        if (kNK) {
-          FragBt b;
-          wmma::load_matrix_sync(b, bs + (wn + j * 16) * kLdK + kk, kLdK);
-#pragma unroll
-          for (int i = 0; i < kFM; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-        } else {
-          FragB b;
-          wmma::load_matrix_sync(b, bs + kk * kLdN + wn + j * 16, kLdN);
-#pragma unroll
-          for (int i = 0; i < kFM; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();     // the ring is free for the epilogue tiles
-
-  // Epilogue, one 16 x 16 fragment at a time through the warp's f32 tile in
-  // the (now free) shared memory: lane -> row lane / 2, 8 columns.
-  float* E = reinterpret_cast<float*>(smem) + warp * 16 * kLdE;
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < kFM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      wmma::store_matrix_sync(E, acc[i][j], kLdE, wmma::mem_row_major);
-      __syncwarp();
-      const int row = m0 + wm + i * 16 + er, col = n0 + wn + j * 16 + ec;
-      if (row < M) {
-        const float* e = E + er * kLdE + ec;
-        const size_t o = (size_t)row * N + col;
-        __align__(16) bf16 r1[8];
-        if (kMode != kDgelu) {
-          const uint4 bv = *reinterpret_cast<const uint4*>(bias + col);
-          const bf16* b = reinterpret_cast<const bf16*>(&bv);
-#pragma unroll
-          for (int c = 0; c < 8; ++c)
-            r1[c] = __float2bfloat16(e[c] + __bfloat162float(b[c]));
-        } else {
-          const uint4 hv = *reinterpret_cast<const uint4*>(hin + o);
-          const bf16* hh = reinterpret_cast<const bf16*>(&hv);
-          __align__(16) bf16 r2[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            float g, dg;
-            gelu_and_grad(__bfloat162float(hh[c]), approx, g, dg);
-            r1[c] = __float2bfloat16(e[c] * dg);
-            r2[c] = __float2bfloat16(g);
-          }
-          *reinterpret_cast<uint4*>(out2 + o) = *reinterpret_cast<const uint4*>(r2);
-        }
-        *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(r1);
-      }
-      __syncwarp();
-    }
-  }
+  return n;
 }
 
-template <int kMode>
+// One product on the GEMM core: out (M, N) from A (M, K) and B ((N, K), or
+// (K, N) in kDgelu); the kDgelu epilogue also reads h and writes out2
+// (both (M, N)).
+template <int kMode, int BN>
 cudaError_t launch_gemm(const void* A, const void* B, const void* bias,
                         const void* hin, void* out, void* out2, int M, int N,
                         int K, int approx, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_gemm<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  using G = GemmShape<kMode, BN>;
+  CUtensorMap mA, mB, mOut, mOut2, mH;
+  const bool ok =
+      tensor_map(&mA, A, M, K, kBM) &&
+      (kMode == kDgelu ? tensor_map(&mB, B, K, N, 64)
+                       : tensor_map(&mB, B, N, K, BN)) &&
+      tensor_map(&mOut, out, M, N, G::kPing ? kBM : 64) &&
+      (kMode == kDgelu ? tensor_map(&mOut2, out2, M, N, kBM) &&
+                             tensor_map(&mH, hin, M, N, kBM)
+                       : true);
+  if (!ok) return cudaErrorInvalidValue;
+  if (kMode != kDgelu) mOut2 = mH = mOut;       // not read
+  const int sms = sm_count();
+  if (!sms) return cudaErrorNoDevice;
+  // the shared-memory limit, once per instantiation and device
+  static bool attributed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  mlp_gemm<kMode><<<grid, kThreads, kSmem, stream>>>(
-      (const bf16*)A, (const bf16*)B, (const bf16*)bias, (const bf16*)hin,
-      (bf16*)out, (bf16*)out2, M, N, K, approx);
+  if (dev >= 64 || !attributed[dev]) {
+    err = cudaFuncSetAttribute(mlp_gemm<kMode, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) attributed[dev] = true;
+  }
+  GemmArgs args;
+  args.bias = static_cast<const bf16*>(bias);
+  args.K = K;
+  args.tiles_n = N / BN;
+  args.tiles = (M + kBM - 1) / kBM * args.tiles_n;
+  args.approx = approx;
+  const int grid = args.tiles < sms ? args.tiles : sms;
+  mlp_gemm<kMode, BN><<<grid, kGemmThreads, G::kSmem, stream>>>(
+      mA, mB, mOut, mOut2, mH, args);
   return cudaGetLastError();
+}
+
+// the forward's products, with the widest N tile that divides N
+template <int kMode>
+cudaError_t launch_fwd(const void* A, const void* B, const void* bias,
+                       void* out, int M, int N, int K, int approx,
+                       cudaStream_t s) {
+  if (N % 256 == 0)
+    return launch_gemm<kMode, 256>(A, B, bias, nullptr, out, nullptr, M, N, K,
+                                   approx, s);
+  if (N % 192 == 0)
+    return launch_gemm<kMode, 192>(A, B, bias, nullptr, out, nullptr, M, N, K,
+                                   approx, s);
+  return launch_gemm<kMode, 128>(A, B, bias, nullptr, out, nullptr, M, N, K,
+                                 approx, s);
 }
 
 }  // namespace
 
 // Every entry point returns a cudaError_t value: what the launches left in
-// cudaGetLastError(). The Python wrapper checks the shapes, the dtype
-// (bf16), contiguity, 16-byte alignment, C % 128 == 0 and H % 128 == 0
-// before calling.
+// cudaGetLastError(), or cudaErrorInvalidValue if a tensor map could not be
+// made. The Python wrapper checks the shapes, the dtype (bf16), contiguity,
+// 16-byte alignment, C % 128 == 0 and H % 128 == 0 before calling.
 
 // Forward: x (M, C), w1 = fc1.weight (H, C), b1 (H), w2 = fc2.weight (C, H),
 // b2 (C) -> h (M, H), y (M, C).
@@ -278,17 +172,49 @@ extern "C" int ssl4gie_mlp_fwd(const void* x, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* h, void* y,
                                int M, int C, int H, int approx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_gemm<kBias>(x, w1, b1, nullptr, h, nullptr, M, H, C,
-                                       approx, s);
+  cudaError_t err = launch_fwd<kBias>(x, w1, b1, h, M, H, C, approx, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_gemm<kGeluBias>(h, w2, b2, nullptr, y, nullptr, M, C, H,
-                                     approx, s);
+  return (int)launch_fwd<kGeluBias>(h, w2, b2, y, M, C, H, approx, s);
 }
 
 // Backward: h (M, H), dy (M, C), w2 = fc2.weight (C, H) -> dh, g (M, H).
 extern "C" int ssl4gie_mlp_bwd(const void* h, const void* dy, const void* w2,
                                void* dh, void* g, int M, int C, int H,
                                int approx, void* stream) {
-  return (int)launch_gemm<kDgelu>(dy, w2, nullptr, h, dh, g, M, H, C, approx,
-                                  (cudaStream_t)stream);
+  return (int)launch_gemm<kDgelu, 128>(dy, w2, nullptr, h, dh, g, M, H, C,
+                                       approx, (cudaStream_t)stream);
+}
+
+// One forward product alone, with its N tile named (for measuring tile
+// choices; ssl4gie_mlp_fwd picks its own): mode 0 = (a) out = A.B^T + bias,
+// 1 = (b) out = gelu(A).B^T + bias; A (M, K), B (N, K), bias (N), out
+// (M, N); bn 256, 192 or 128. cudaErrorInvalidValue for any other mode or
+// tile, or an N that the tile does not divide.
+extern "C" int ssl4gie_mlp_gemm(int mode, int bn, const void* A,
+                                const void* B, const void* bias, void* out,
+                                int M, int N, int K, int approx,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bn <= 0 || N % bn) return (int)cudaErrorInvalidValue;
+#define MLP_GEMM(MODE, BN)                                                  \
+  if (mode == MODE && bn == BN)                                             \
+    return (int)launch_gemm<MODE, BN>(A, B, bias, nullptr, out, nullptr, M, \
+                                      N, K, approx, s);
+  MLP_GEMM(kBias, 256) MLP_GEMM(kBias, 192) MLP_GEMM(kBias, 128)
+  MLP_GEMM(kGeluBias, 256) MLP_GEMM(kGeluBias, 192) MLP_GEMM(kGeluBias, 128)
+#undef MLP_GEMM
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a block of the GEMM core in mode (0, 1: as
+// ssl4gie_mlp_gemm; 2: the backward) at N tile bn, in bytes; 0 for a pair
+// that is not built.
+extern "C" int ssl4gie_mlp_smem(int mode, int bn) {
+#define MLP_SMEM(MODE, BN) \
+  if (mode == MODE && bn == BN) return GemmShape<MODE, BN>::kSmem;
+  MLP_SMEM(kBias, 256) MLP_SMEM(kBias, 192) MLP_SMEM(kBias, 128)
+  MLP_SMEM(kGeluBias, 256) MLP_SMEM(kGeluBias, 192) MLP_SMEM(kGeluBias, 128)
+  MLP_SMEM(kDgelu, 128)
+#undef MLP_SMEM
+  return 0;
 }

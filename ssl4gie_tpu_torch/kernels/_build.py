@@ -8,7 +8,9 @@ library's name carries a hash of the sources, the shared headers
 (`csrc/*.cuh`) and the flags, so it is rebuilt only when one of them
 changes. Each C entry point launches on the stream it is given and returns
 what `cudaGetLastError()` held after the launch; `launch` turns a nonzero
-code into an exception.
+code into an exception. The link needs no `-lcuda`: the one driver call,
+the TMA tensor-map encoder of `csrc/fused_mlp.cu`, is reached through the
+runtime's `cudaGetDriverEntryPoint`.
 
 Nothing here runs at import: the CPU path never builds or loads anything.
 """
@@ -45,6 +47,8 @@ SIGNATURES = {
                           _F, _P),
     "ssl4gie_mlp_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ssl4gie_mlp_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ssl4gie_mlp_gemm": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ssl4gie_mlp_smem": (_I, _I),
 }
 
 

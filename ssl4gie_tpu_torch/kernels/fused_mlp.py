@@ -8,10 +8,12 @@ weights, so no transpose is copied: the kernels read the weights in their
 (out, in) layout.
 
 On CUDA tensors the forward launches `ssl4gie_mlp_fwd` (#8: h = x.w1 + b1
-stored bf16, then y = gelu(h).w2 + b2 with the GELU applied to h as it is
-staged, so g = gelu(h) never reaches device memory) and the backward
+stored bf16, then y = gelu(h).w2 + b2 with the GELU applied in registers to
+the A operand, so g = gelu(h) never reaches device memory) and the backward
 `ssl4gie_mlp_bwd` (#9: one read of h gives dh = gelu'(h) * (dy.w2^T) and
-g = gelu(h)); dx, dw1, dw2 are then plain GEMMs and db1, db2 float32 sums,
+g = gelu(h)), both on the warp-specialised TMA + wgmma GEMM core of
+`csrc/gemm_core.cuh`; dx, dw1, dw2 are then plain GEMMs and db1, db2 float32
+sums,
 as the JAX package leaves them to XLA. The kernels take bfloat16 and widths C
 and H that are multiples of 128; anything else raises. On CPU tensors the
 plain PyTorch version below runs, differentiated by autograd: the same

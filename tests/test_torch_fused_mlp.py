@@ -217,6 +217,9 @@ def _assert_close_on_card(got, ref, tol=TWO_ULPS):
     (12800, 768, 3072),       # MAE encoder
     (50432, 512, 2048),       # MAE decoder
     (300, 128, 512),          # a ragged token count
+    (12608, 384, 1536),       # ViT-S widths (B = 64); N tile 192 in (b)
+    (256, 768, 3072),         # fewer output tiles than SMs
+    (1000, 640, 2560),        # N tile 128 in (b): 640 % 256, 640 % 192
 ])
 @pytest.mark.parametrize("approximate", [True, False])
 def test_fused_mlp_kernels_match_plain_on_card(cuda, m, c, hd, approximate):
@@ -259,3 +262,18 @@ def test_fused_mlp_kernel_rejects_what_it_does_not_take(cuda):
     x64, w1_64, b1_64, w2_64, b2_64, _ = _card_case(cuda, 128, 64, 256, 3)
     with pytest.raises(ValueError):
         fm.mlp_fwd(x64, w1_64.t(), b1_64, w2_64.t(), b2_64)    # C = 64
+
+
+@pytest.mark.gpu
+def test_fused_mlp_kernels_repeat_bitwise_on_card(cuda):
+    """No atomics and no split-K: two forwards and two backwards of the
+    same inputs give the same bits, at the MAE encoder's shape."""
+    x, w1, b1, w2, b2, dy = _card_case(cuda, 12800, 768, 3072, 4)
+    runs = []
+    for _ in range(2):
+        y, h = fm.mlp_fwd(x, w1.t(), b1, w2.t(), b2)
+        dh, g = fm.mlp_bwd(h, dy, w2.t())
+        runs.append((y, h, dh, g))
+    torch.cuda.synchronize()
+    for first, second, name in zip(*runs, ("y", "h", "dh", "g")):
+        assert torch.equal(first, second), name

@@ -185,6 +185,47 @@ def test_adamw_lr_and_clip_match_optax():
                                    rtol=1e-6, atol=1e-6, err_msg=k)
 
 
+def test_adamw_clip_with_decay_mask_matches_optax():
+    """`make_adamw(grad_clip=, decay_mask=)`: two param groups, clipped by
+    one global norm over both, as the JAX `make_adamw(grad_clip=, mask=)`
+    puts one `clip_by_global_norm` before adamw. The groups' gradient norms
+    differ (about 4 and 40), so clipping each group by its own norm would
+    not match."""
+    import optax
+
+    from ssl4gie_tpu_torch.core.train_state import apply_gradients
+
+    rng = np.random.default_rng(4)
+    params = {"w": rng.normal(0, 1, (8, 5)).astype(np.float32),
+              "b": rng.normal(0, 1, (5,)).astype(np.float32)}
+    scales = {"w": 0.6, "b": 18.0}
+    grads = [{k: rng.normal(0, scales[k], v.shape).astype(np.float32)
+              for k, v in params.items()} for _ in range(2)]
+    lr, wd = 1e-2, 0.05
+
+    tx = jax_make_adamw(lr, weight_decay=wd, grad_clip=1.0,
+                        mask={"w": True, "b": False})
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    state = tx.init(jp)
+    for g in grads:
+        upd, state = tx.update(jax.tree_util.tree_map(jnp.asarray, g), state,
+                               jp)
+        jp = optax.apply_updates(jp, upd)
+
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = make_adamw(tp.values(), lr, weight_decay=wd, grad_clip=1.0,
+                     decay_mask=lambda p: p.ndim > 1)
+    assert [len(g["params"]) for g in opt.param_groups] == [1, 1]
+    for g in grads:
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        apply_gradients(opt)
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter, the
     detection modules among them, leaves jax, flax and optax out of
