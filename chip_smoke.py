@@ -27,7 +27,13 @@
      over 20 calls back to back (`b2b_ms`: the host's launch time hidden),
      the forward's two products alone at their N tile and at the other N
      tile that divides C (`products_b2b_ms`); and the dense attention at
-     Dh=32, (256, 197, 3*512), 16 heads.
+     Dh=32, (256, 197, 3*512), 16 heads;
+   - A/B variants (the kernels of the JAX package's kernel harnesses):
+     every configuration that a harness leg launches (#10 packed-QKV v2 at
+     G 2 and 4, Nb 256 and 208, and #11 save-P at G 2, Nb 208, at the
+     classification shapes; #12 window v2 at G 1, 2, 4 at the detection
+     grid), beside #1/#2 and #4/#5 timed in the same phase; #11's bound
+     counts its own work (four backward products, P's n x n bytes).
 3. Classification path: the ViT-B/16 224 px finetune step at full width
    (uint8 batch -> on-device augmentation -> forward/backward -> AdamW), a few
    steps from random weights made from a seed. The kernels' launch counters
@@ -52,7 +58,15 @@
    bf16 forward with the fused MLP must give the loss of the same forward
    without it within 1%; the bf16 prediction on the card must agree with a
    float32 CPU run of the same weights on a small input (B=2).
-6. Prints the card's name and power limit, one JSON line of per-kernel
+6. Kernel A/B harnesses: every leg of the ported harnesses
+   (`ssl4gie_tpu_torch/benchmarks/bench_attention_kernel.py` at B=128,
+   L=12; `bench_window_kernel.py` at B=2, L=8) for a few steps. One layer
+   of each kernel leg, at the leg's configuration and on the harness's own
+   input, must agree with its kernels' plain versions (output and gradient,
+   2^-6); each kernel leg's counters must grow by exactly L forwards and L
+   backwards per step (the plain leg's by none); the losses must be
+   finite; each leg prints its median ms/step.
+7. Prints the card's name and power limit, one JSON line of per-kernel
    results, then the last line
    `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
@@ -68,6 +82,7 @@ Any failure raises (nonzero exit, no result). There is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import statistics
@@ -79,12 +94,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ssl4gie_tpu_torch.benchmarks import bench_attention_kernel as bak
+from ssl4gie_tpu_torch.benchmarks import bench_window_kernel as bwk
 from ssl4gie_tpu_torch.core.train_state import make_adamw
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
 from ssl4gie_tpu_torch.data.augment import (eval_batch, normalize,
                                             rotation_factors)
 from ssl4gie_tpu_torch.data.ssl_augment import mae_augment, sample_mae_params
 from ssl4gie_tpu_torch.kernels import _build
+from ssl4gie_tpu_torch.kernels import attention_variants as av
 from ssl4gie_tpu_torch.kernels import dense_attention as da
 from ssl4gie_tpu_torch.kernels import flash_attention as fa
 from ssl4gie_tpu_torch.kernels import fused_mlp as fm
@@ -121,6 +139,7 @@ MAE_DEC_HEADS, MAE_DEC_DIM = 16, 512
 MAE_WARMUP_STEPS, MAE_TIMED_STEPS = 1, 3
 MAE_LOSS_TOL = 0.01     # fused vs unfused MLP forward: 1% of the loss
 MAE_REF_B = 2
+HARNESS_WARMUP_STEPS, HARNESS_TIMED_STEPS = 1, 5
 # the card's published peaks (H100 SXM, dense bf16 tensor cores; HBM3)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -216,6 +235,20 @@ def attn_work(seqs: int, heads: int, n: int, dh: int, backward: bool):
     if backward:
         return flops, tok * (3 * c + c + c + 3 * c) * 2 + lse
     return flops, tok * (3 * c + c) * 2 + lse
+
+
+def save_p_work(seqs: int, heads: int, n: int, dh: int, backward: bool):
+    """FLOPs and bytes of save-P attention (#11) over `seqs` sequences:
+    forward 2 products (Q.K^T, P.V), backward 4 (dP, dV, dQ, dK) of
+    2 n^2 dh each per head; bytes: forward qkv in, out and P (heads x n x n
+    bf16 a sequence, whatever the layout pads it to) out; backward qkv, P
+    and dO in, dqkv out."""
+    tok, c = seqs * n, heads * dh
+    p = seqs * heads * n * n * 2
+    flops = (8 if backward else 4) * seqs * heads * n * n * dh
+    if backward:
+        return flops, tok * (3 * c + c + 3 * c) * 2 + p
+    return flops, tok * (3 * c + c) * 2 + p
 
 
 def sdpa_ms(q, k, v, scale, dout=None) -> float:
@@ -449,6 +482,169 @@ def det_kernel_phase(card: str) -> list[dict]:
         print(f"[kernel] flash masked BH={DET_BH} N=1024 n_valid={n_valid}: "
               f"fwd and bwd max|err|={err:.3g} (tol {tol:.3g} rel)  [{card}]",
               flush=True)
+    return results
+
+
+def entry_name(fn, config) -> str:
+    """A variant kernel's JSON name: its wrapper at one configuration, G or
+    (G, Nb), e.g. attention_v2_fwd_g2_nb256."""
+    config = config if isinstance(config, tuple) else (config,)
+    return fn.__name__ + "".join(f"_{k}{v}" for k, v in zip(("g", "nb"),
+                                                             config))
+
+
+def variant_configs() -> list:
+    """Every (wrapper, configuration) of a variant kernel that a leg of the
+    two kernel A/B harnesses launches, in the harnesses' leg order."""
+    return list(dict.fromkeys(
+        (fn, config) for mod in (bak, bwk) for leg in mod.LEGS.values()
+        for fn, config in leg.kernels if config is not None))
+
+
+def variant_kernel_phase(card: str) -> list[dict]:
+    """Every configuration of #10 and #11 that the harness legs launch at
+    the classification shapes and of #12 at the detection grid, against
+    their plain versions on the same inputs, beside #1/#2 and #4/#5
+    (`current`) and SDPA timed in this phase."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    C = HEADS * HEAD_DIM
+    scale = HEAD_DIM ** -0.5
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    tol = 2.0 ** -6          # two bf16 ulps, as the production kernels
+    src = "benchmarks/bench_attention_kernel.py"
+    configs = variant_configs()
+    results, b2b_of = [], {}
+
+    def timed(fn):
+        """Per call and back to back (the host's launch time hidden)."""
+        return cuda_ms(fn), cuda_ms_b2b(fn)
+
+    def hold(fn, config, case):
+        """One configuration against the plain version's outputs (the lse
+        at 2^-16 relative, the rest at tol), then timed."""
+        call, refs, source, replaces, plain_ms, lib_ms, work, current = case
+        name = entry_name(fn, config)
+        got = call(config)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        err = max(check_close(f"{name} output {i}", g, r,
+                              2.0 ** -16 if g.dtype == torch.float32 else tol)
+                  for i, (g, r) in enumerate(zip(got, refs)))
+        del got
+        ms, b2b = timed(lambda: call(config))
+        G, nb = config if isinstance(config, tuple) else (config, None)
+        extra = {"G": G, **({"Nb": nb} if nb else {})}
+        r = result(name, source, replaces, err, ms, plain_ms, lib_ms, *work,
+                   b2b_ms=b2b, current_ms=current[0],
+                   current_b2b_ms=current[1], **extra)
+        results.append(r)
+        b2b_of[name] = b2b
+        print(f"[kernel] {name}: max|err|={err:.3g} (tol {tol:.3g} rel) "
+              f"kernel {ms:.4f} ms, back to back {b2b:.4f} ms "
+              f"({tflops(work[0], b2b)}); current {current[0]:.4f} / "
+              f"{current[1]:.4f} ms; plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  [{card}]", flush=True)
+
+    qkv, dout = rand(B, TOKENS, 3 * C), rand(B, TOKENS, C)
+    q, k, v = heads_of(qkv, HEADS)
+    sdpa_f = sdpa_ms(q, k, v, scale)
+    sdpa_b = sdpa_ms(q, k, v, scale, split_heads(dout, HEADS))
+    del q, k, v
+    out_c, lse_c = da.attention_fwd(qkv, HEADS, scale)
+    cur_f = timed(lambda: da.attention_fwd(qkv, HEADS, scale))
+    cur_b = timed(lambda: da.attention_bwd(qkv, out_c, lse_c, dout, HEADS,
+                                           scale))
+    del out_c, lse_c
+    # the backward kernels take the plain forward's outputs
+    out_p, lse_p = av.packed_attention_v2_fwd_plain(qkv, HEADS, scale)
+    dq_p = av.packed_attention_v2_bwd_plain(qkv, dout, HEADS, scale)
+    nb_p = av.SAVE_P_ROWS[0]
+    outs_p, p_p = av.packed_attention_save_p_fwd_plain(qkv, HEADS, scale,
+                                                       nb_p)
+    dqs_p = av.packed_attention_save_p_bwd_plain(qkv, p_p, dout, HEADS, scale)
+    dense = {
+        av.attention_v2_fwd: (
+            lambda c: av.attention_v2_fwd(qkv, HEADS, scale, *c),
+            (out_p, lse_p), "attention_variants.cu", f"{src}:67",
+            cuda_ms(lambda: av.packed_attention_v2_fwd_plain(qkv, HEADS,
+                                                           scale)),
+            sdpa_f, attn_work(B, HEADS, TOKENS, HEAD_DIM, False), cur_f),
+        av.attention_v2_bwd: (
+            lambda c: av.attention_v2_bwd(qkv, out_p, lse_p, dout, HEADS,
+                                          scale, *c),
+            (dq_p,), "attention_variants.cu", f"{src}:88",
+            cuda_ms(lambda: av.packed_attention_v2_bwd_plain(qkv, dout, HEADS,
+                                                           scale)),
+            sdpa_b, attn_work(B, HEADS, TOKENS, HEAD_DIM, True), cur_b),
+        av.attention_save_p_fwd: (
+            lambda c: av.attention_save_p_fwd(qkv, HEADS, scale, *c),
+            (outs_p, p_p), "attention_variants.cu", f"{src}:182",
+            cuda_ms(lambda: av.packed_attention_save_p_fwd_plain(
+                qkv, HEADS, scale, nb_p)),
+            sdpa_f, save_p_work(B, HEADS, TOKENS, HEAD_DIM, False), cur_f),
+        av.attention_save_p_bwd: (    # P's width is the configuration's Nb
+            lambda c: av.attention_save_p_bwd(qkv, p_p, dout, HEADS, scale,
+                                              c[0]),
+            (dqs_p,), "attention_variants.cu", f"{src}:206",
+            cuda_ms(lambda: av.packed_attention_save_p_bwd_plain(
+                qkv, p_p, dout, HEADS, scale)),
+            sdpa_b, save_p_work(B, HEADS, TOKENS, HEAD_DIM, True), cur_b),
+    }
+    for fn, config in configs:
+        if fn in dense:
+            hold(fn, config, dense[fn])
+    p_mb = p_p.numel() * 2 / 1e6
+    p_ms = p_mb * 1e6 / PEAK_BYTES * 1e3
+    savep = [b2b_of[entry_name(fn, c)] for fn, c in configs
+             if fn in (av.attention_save_p_fwd, av.attention_save_p_bwd)]
+    print(f"[kernel] save-P: P is {p_mb:.1f} MB, {p_ms:.4f} ms each way at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s; back to back, forward + backward "
+          f"{sum(savep):.4f} ms against #1/#2's {cur_f[1] + cur_b[1]:.4f} "
+          f"ms; backward {savep[-1]:.4f} against #2's {cur_b[1]:.4f} ms  "
+          f"[{card}]", flush=True)
+    del qkv, dout, out_p, lse_p, dq_p, outs_p, p_p, dqs_p, dense
+
+    wsrc = "benchmarks/bench_window_kernel.py"
+    args = (HEADS, DET_WINDOW, scale)
+    qkv = rand(DET_B, DET_GRID, DET_GRID, 3 * C)
+    dout = rand(DET_B, DET_GRID, DET_GRID, C)
+    q, k, v = heads_of(wa.partition(qkv, DET_WINDOW), HEADS)
+    sdpa_f = sdpa_ms(q, k, v, scale)
+    sdpa_b = sdpa_ms(q, k, v, scale,
+                     split_heads(wa.partition(dout, DET_WINDOW), HEADS))
+    del q, k, v
+    out_c, lse_c = wa.window_attention_fwd(qkv, *args)
+    cur_f = timed(lambda: wa.window_attention_fwd(qkv, *args))
+    cur_b = timed(lambda: wa.window_attention_bwd(qkv, out_c, lse_c, dout,
+                                                  *args))
+    del out_c, lse_c
+    n_win = DET_B * (DET_GRID // DET_WINDOW) ** 2
+    out_p, lse_p = av.window_attention_v2_fwd_plain(qkv, *args)
+    dq_p = av.window_attention_v2_bwd_plain(qkv, dout, *args)
+    window = {
+        av.window_v2_fwd: (
+            lambda G: av.window_v2_fwd(qkv, *args, G), (out_p, lse_p),
+            "window_attention_v2.cu", f"{wsrc}:58",
+            cuda_ms(lambda: av.window_attention_v2_fwd_plain(qkv, *args)),
+            sdpa_f, attn_work(n_win, HEADS, DET_WINDOW ** 2, HEAD_DIM, False),
+            cur_f),
+        av.window_v2_bwd: (
+            lambda G: av.window_v2_bwd(qkv, out_p, lse_p, dout, *args, G),
+            (dq_p,), "window_attention_v2.cu", f"{wsrc}:84",
+            cuda_ms(lambda: av.window_attention_v2_bwd_plain(qkv, dout,
+                                                           *args)),
+            sdpa_b, attn_work(n_win, HEADS, DET_WINDOW ** 2, HEAD_DIM, True),
+            cur_b),
+    }
+    for fn, config in configs:
+        if fn in window:
+            hold(fn, config, window[fn])
+    missing = {entry_name(fn, c) for fn, c in configs} - set(b2b_of)
+    if missing:
+        raise AssertionError(f"harness configurations not held: {missing}")
     return results
 
 
@@ -962,6 +1158,77 @@ def det_path(card: str) -> dict:
     return launches
 
 
+# harness -> (module, B, L): the harnesses' full sizes
+HARNESSES = {"attention": (bak, 128, 12), "window": (bwk, 2, 8)}
+
+
+def hold_leg(what: str, leg, x0: torch.Tensor, dout: torch.Tensor) -> float:
+    """One layer of a harness leg on the card (through its autograd path,
+    at the leg's configuration) against its kernels' plain versions on the
+    same input: the output and the gradient within 2^-6."""
+    x = x0.detach().requires_grad_(True)
+    out = leg.layer(x)
+    (g,) = torch.autograd.grad(out, x, dout)
+    ref_out, ref_g = leg.plain(x0, dout)
+    return max(check_close(f"{what} forward", out, ref_out, 2.0 ** -6),
+               check_close(f"{what} gradient", g, ref_g, 2.0 ** -6))
+
+
+def harness_path(card: str) -> dict:
+    """Every leg of both kernel A/B harnesses at full size: one layer of
+    each kernel leg against the plain versions on the harness's own input,
+    then a few timed steps. Returns the variants' launch counts by JSON
+    name."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    watched = {fn for mod, _, _ in HARNESSES.values()
+               for leg in mod.LEGS.values() for fn, _ in leg.kernels}
+    names = lambda counts: {fn.__name__: n for fn, n in counts.items()}
+    launches, ms = collections.Counter(), {}
+    for name, (mod, batch, depth) in HARNESSES.items():
+        x0 = mod.make_x0(batch, dev)
+        dout = torch.randn(x0.shape[:-1] + (x0.shape[-1] // 3,),
+                           generator=gen, device=dev).to(x0.dtype)
+        for leg_name, leg in mod.LEGS.items():
+            if leg.plain is not None:
+                err = hold_leg(f"{name} {leg_name}", leg, x0, dout)
+                print(f"[harness] {name} {leg_name}: one layer at B={batch} "
+                      f"against the plain versions, max|err|={err:.3g} "
+                      f"(tol {2.0 ** -6:.3g} rel)", flush=True)
+            before = {fn: fn.launches for fn in watched}
+            res = mod.bench(leg_name, x0, depth, HARNESS_TIMED_STEPS, card,
+                            warmup=HARNESS_WARMUP_STEPS)
+            moved = {fn: fn.launches - before[fn] for fn in watched
+                     if fn.launches != before[fn]}
+            want = {fn: depth * res["steps_run"] for fn, _ in leg.kernels}
+            print(f"[harness] {name} {leg_name}: launches {names(moved)} "
+                  f"(expected {names(want)}), losses {res['losses']}",
+                  flush=True)
+            if moved != want:
+                raise AssertionError(
+                    f"the {name} harness's {leg_name} leg did not run "
+                    f"through its kernels: {names(moved)} != {names(want)}")
+            if not np.isfinite(res["losses"]).all():
+                raise AssertionError(f"non-finite {name} {leg_name} loss: "
+                                     f"{res['losses']}")
+            for fn, config in leg.kernels:
+                if config is not None:
+                    launches[entry_name(fn, config)] += moved[fn]
+            ms[f"{name}.{leg_name}"] = res["ms_step"]
+        del x0, dout
+    ratio = lambda a, b: ms[a] / ms[b]
+    print(f"[harness] ms/step ratios: v2/fused "
+          f"{ratio('attention.v2', 'attention.fused'):.3f}, v3/v2 "
+          f"{ratio('attention.v3', 'attention.v2'):.3f}, v4/fused "
+          f"{ratio('attention.v4', 'attention.fused'):.3f}, window v2 G1 / G2 "
+          f"/ G4 vs current {ratio('window.v2', 'window.current'):.3f} / "
+          f"{ratio('window.v2g2', 'window.current'):.3f} / "
+          f"{ratio('window.v2g4', 'window.current'):.3f}  [{card}]",
+          flush=True)
+    print(f"[harness] {json.dumps(ms)}", flush=True)
+    return dict(launches)
+
+
 def profile_steps(card: str, step, n_steps: int, out_dir: str, name: str):
     """torch.profiler over `n_steps` calls of `step` (after one warm-up
     call): writes the table of device time by kernel to out_dir/name, prints
@@ -1077,8 +1344,11 @@ def main() -> None:
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
             mlp = re.search(r"mlp_gemmILi(\d)ELi(\d+)E", kernel)
+            res = re.search(
+                r"(res_[a-z_]+?)ILi(\d+)E(Lb1E)?.*?(Dense|Window)Rows", kernel)
             kernel = (f"mlp_gemm<mode {mlp[1]}, N tile {mlp[2]}>" if mlp
-                      else kernel[:60])
+                      else f"{res[1]}<{res[2]}{', save-P' * bool(res[3])}, "
+                           f"{res[4]}Rows>" if res else kernel[:60])
         elif any(w in line for w in ("registers", "spill", "wgmma",
                                      "setmaxnreg")):
             print(f"  ptxas: {kernel}: {line.strip()}")
@@ -1091,9 +1361,11 @@ def main() -> None:
     phases = [("kernels (classification shapes)", kernel_phase),
               ("kernels (detection shapes)", det_kernel_phase),
               ("kernels (MAE shapes)", mae_kernel_phase),
+              ("kernels (A/B variants)", variant_kernel_phase),
               ("classification path", main_path),
               ("detection path", det_path),
-              ("MAE path", mae_path)]
+              ("MAE path", mae_path),
+              ("kernel A/B harnesses", harness_path)]
     results, launches = [], {}
     for name, phase in phases:
         t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 // Shared core of the attention kernels (dense_attention.cu,
-// window_attention.cu, flash_attention.cu) on Hopper's tensor cores
+// window_attention.cu, flash_attention.cu; attention_resident.cuh builds
+// on its helpers) on Hopper's tensor cores
 // (sm_90a): one online-softmax forward and one backward (a dq kernel and a
 // dk/dv kernel) for every layout.
 //
@@ -127,6 +128,12 @@ struct WindowRows {
   }
 };
 
+// The windows of ws x ws tokens of a (B, GH, GW, width) grid
+inline WindowRows window_rows(int GH, int GW, int ws) {
+  return WindowRows{ws, GH / ws, GW / ws, GW,
+                    (65536u + (unsigned)ws - 1) / (unsigned)ws};
+}
+
 // ---------------------------------------------------------------- forward
 constexpr int kKeys = 64;         // keys per streamed K/V tile
 constexpr int kStages = 3;        // K/V tiles in flight (the cp.async ring)
@@ -209,17 +216,18 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[NO][4],
 }
 
 // cp.async rows [first, first + R) of a sequence's D-wide column slice at
-// src (row stride ld) into the swizzled tile at dst, by T threads; rows >=
-// limit become zeros (a row that meets p = 0 must not hold a NaN).
+// src (row stride ld) into the swizzled tile at dst, by the T threads
+// numbered tid = 0..T-1 (threadIdx.x without tid); rows >= limit become
+// zeros (a row that meets p = 0 must not hold a NaN).
 template <int D, int R, int T, class Rows>
 __device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
                                           int ld, Rows rows, int first,
-                                          int limit) {
+                                          int limit, int tid) {
   constexpr int kChunks = Swz<D>::kChunks;
   static_assert(R * kChunks % T == 0, "whole copies per thread");
 #pragma unroll
   for (int i = 0; i < R * kChunks / T; ++i) {
-    const int idx = threadIdx.x + i * T;
+    const int idx = tid + i * T;
     const int r = idx / kChunks, c = idx % kChunks;
     const bool ok = first + r < limit;
     cp_async16(dst + Swz<D>::offset(r, c),
@@ -228,12 +236,21 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
   }
 }
 
-// A 64 x 64 accumulator as bf16 A fragments, 16 columns a step: the
-// accumulator layout of S is the register A layout of the next product
-__device__ __forceinline__ void pack_a(const float (&x)[8][4],
-                                       unsigned (&a)[4][4]) {
+template <int D, int R, int T, class Rows>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
+                                          int ld, Rows rows, int first,
+                                          int limit) {
+  load_rows<D, R, T>(dst, src, ld, rows, first, limit, (int)threadIdx.x);
+}
+
+// An accumulator of NJ 8-column groups as bf16 A fragments, 16 columns a
+// step: the accumulator layout of S is the register A layout of the next
+// product
+template <int NJ>
+__device__ __forceinline__ void pack_a(const float (&x)[NJ][4],
+                                       unsigned (&a)[NJ / 2][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NJ / 2; ++kk) {
     a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
     a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
     a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);

@@ -1,0 +1,1036 @@
+// Resident-sequence attention core for short sequences (N <= NK <= 256,
+// head width 64) on Hopper's tensor cores (sm_90a): the kernels of the A/B
+// variants in attention_variants.cu (#10 packed-QKV v2, #11 save-P) and
+// window_attention_v2.cu (#12 window v2).
+//
+// The streaming core of attention_core.cuh walks 64-key tiles through a
+// cp.async ring, and each 64-row query block re-reads all of K and V. Here
+// one block holds a whole sequence's operands for one head in shared memory
+// and serves every 64-row tile of that sequence from them, then the next of
+// its G sequences (G adjacent images, or G horizontally adjacent windows):
+// the counterpart of the TPU kernels' G sequences a program.
+// - A block is two warpgroups (256 threads); warpgroup wg takes the 64-row
+//   tiles wg, wg + 2, ... of each sequence. Registers (the whole-width
+//   score tile) hold a block to one per SM (__launch_bounds__(256, 1)).
+// - The resident operands come by cp.async; with G > 1 they are kept
+//   twice, so that the next sequence's copies fly while this one is
+//   computed. A warpgroup's own 64-row tiles come through registers
+//   (copy_rows), outside the cp.async groups.
+// - NK is the width of the resident score tile, 208 or 256 keys (the TPU
+//   kernels' Nb): a 64 x NK product is issued as 64-column wgmma chunks
+//   and, at NK = 208, one 16-column chunk, so columns beyond NK cost nothing.
+// - q is scaled in shared memory, bf16(q * bf16(scale)), the TPU kernels'
+//   rounding point, so the scores need no scale and dK = dS^T.(scaled q)
+//   none either.
+// - Forward (`res_fwd`): K, V and Q resident; per query tile S = Q.K^T over
+//   all NK keys at once (NK / 2 registers a thread) and a single-pass
+//   softmax: no running max, no rescale; keys >= N are -inf.
+//   - #10 / #12: the unnormalised exponent is rounded to bf16 for P.V and
+//     the output divided by the row sum, as the TPU's v2 kernels do; each
+//     row's log-sum-exp is written for the backward.
+//   - #11 (kSaveP): P = exp / sum, rounded to bf16, is the A operand of P.V
+//     and is also written, (seqs, H, N, NK) bf16: N rows, all NK columns
+//     (columns >= N are exactly 0). Rows >= N are never written: the TPU
+//     kernel fills them from out-of-bounds q and its backward contracts
+//     over them (ROADMAP.md, "Known faults in the reference itself").
+// - Backward, the port's split form (a dq kernel, then a dk/dv kernel; no
+//   atomics, bitwise repeatable), with the operand that the streaming core
+//   re-reads resident instead, and the streaming core's tile arithmetic
+//   as step functions (dq_step, dkv_step below) on 64- and 16-wide chunks:
+//   - `res_bwd_dq`: K and V resident; per query tile and key chunk S, dP,
+//     P from the forward's log-sum-exp, dS, dQ += dS.K (three products);
+//     delta = rowsum(dO * O), as the port's #2 (the TPU's v2 takes
+//     rowsum(P * dP): equal in exact arithmetic).
+//   - `res_bwd_dkv`: scaled Q, dO, lse and delta resident; per key tile and
+//     query chunk S^T, dP^T, dV, dK (four products).
+//   - #11 reads P in place of S and the exponent: `res_savep_dq` takes a
+//     whole 64 x NK dP tile and P's 64 rows (through registers into shared
+//     memory, then ldmatrix in the accumulator layout), delta = rowsum(P *
+//     dP) from the bf16 P (the TPU's rounding point), dS, dQ (two
+//     products); `res_bwd_dkv<kSaveP>` takes 64 x 64 tiles of P the same
+//     way, transposed by ldmatrix .trans into the A layout of dV = P^T.dO,
+//     and runs dP^T, dV and dK (three). Five products, not four: one block
+//     owning a whole (sequence, head) would hold dK and dV of all NK keys
+//     (NK / 2 f32 registers a thread over two warpgroups) beside the dP
+//     tile (NK / 2 more), which 255 registers a thread cannot.
+//
+// Shared memory per block (64-wide bf16 rows of 128 B; NK rows rounded up
+// to 224 at 208; "x2" with G > 1): forward 2 NK + 256 rows x2; dq 2 NK
+// rows x2 + 256; dk/dv 2 NK rows x2 + 256 + 8 NK bytes of statistics; the
+// save-P dq 2 NK rows x2 + 128 + a 64 x NK P tile per warpgroup, its dk/dv
+// the dk/dv's + two 64 x 64 P tiles per warpgroup; at most 193 KiB.
+
+#pragma once
+
+#include <type_traits>
+
+#include "attention_core.cuh"
+
+namespace {
+
+// ------------------------------------------------ chunk products
+// S (64 x 16) = (acc ? S : 0) + A . B^T, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[2][4],
+                                             unsigned long long a,
+                                             unsigned long long b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero(float (&x)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+}
+
+// A 64 x W score chunk (W = 64 or 16) over a head of D: d = A . B^T, both
+// K-major in shared memory, D / 16 k-steps of 32 bytes
+template <int D, int W>
+__device__ __forceinline__ void mma_scores(float (&d)[W / 8][4],
+                                           unsigned long long a,
+                                           unsigned long long b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (W == 64) wgmma_ss_n64(d, a + 2 * kk, b + 2 * kk, kk);
+    else wgmma_ss_n16(d, a + 2 * kk, b + 2 * kk, kk);
+  }
+}
+
+// acc (64 x D) += A (64 x 16 KS, bf16 fragments in registers) . B (16 KS
+// rows of D in shared memory, MN-major), 16 rows (two atoms) a step
+template <int D, int KS>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
+                                       const unsigned (&a)[KS][4],
+                                       unsigned long long b) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_pv(acc, a[kk], b + kk * (2 * Swz<D>::kAtom >> 4));
+}
+
+// delta = rowsum(dO * O) of `row` (0 if row >= N) for the quad of the
+// calling lane: its four lanes take the row's 16-byte chunks in turn
+template <int D, class Rows>
+__device__ __forceinline__ float row_delta(const bf16* o, const bf16* dout,
+                                           int ld, Rows rows, int row, int N) {
+  float sum = 0.f;
+  if (row < N) {
+    const size_t off = (size_t)rows.offset(row) * ld;
+    for (int c = threadIdx.x & 3; c < Swz<D>::kChunks; c += 4)
+      sum = dot8(*reinterpret_cast<const uint4*>(o + off + c * 8),
+                 *reinterpret_cast<const uint4*>(dout + off + c * 8), sum);
+  }
+  sum += __shfl_xor_sync(kFull, sum, 1);
+  return sum + __shfl_xor_sync(kFull, sum, 2);
+}
+
+// ------------------------------------------- the backward's chunk steps
+// The arithmetic of the streaming core's backward tiles (attn_bwd_dq and
+// attn_bwd_dkv of attention_core.cuh keep it inline on their 64-key
+// tiles) as step functions over a W-wide chunk, W = 64 or 16.
+// res_bwd_dq's step:
+// W keys from key c0 (dk, dv: the chunk's K and V rows); per thread rows g
+// and g + 8 with nl = -lse log2(e) and dl = delta. S = Q.K^T, then dP =
+// dO.V^T as a second group, so that the exponent runs while dP is
+// multiplied; keys >= limit are masked; P = exp2(S sl2 + nl); dS = P (dP -
+// dl); acc += bf16(dS).K with K read MN-major.
+template <int D, int W>
+__device__ __forceinline__ void dq_step(float (&acc)[D / 8][4],
+                                        unsigned long long dq,
+                                        unsigned long long dg,
+                                        unsigned long long dk,
+                                        unsigned long long dv, int c0,
+                                        int limit, float sl2,
+                                        const float (&nl)[2],
+                                        const float (&dl)[2]) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  float sc[W / 8][4], dp[W / 8][4];
+  zero(sc);
+  zero(dp);
+  wg_fence();
+  mma_scores<D, W>(sc, dq, dk);
+  wg_commit();
+  mma_scores<D, W>(dp, dg, dv);
+  wg_commit();
+  wg_wait1();
+  wg_hold(sc);
+  if (c0 + W > limit) {              // the chunk that holds the last key
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (c0 + j * 8 + c2 + e >= limit)
+          sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
+  }
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[j][e] = exp2_approx(fmaf(sc[j][e], sl2, nl[e >> 1]));
+  wg_wait0();
+  wg_hold(dp);
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[j][e] = sc[j][e] * (dp[j][e] - dl[e >> 1]);      // dS
+  unsigned da[W / 16][4];
+  pack_a(dp, da);
+  wg_hold(acc);
+  wg_fence();
+  mma_pv<D, W / 16>(acc, da, dk);
+  wg_commit();
+  wg_wait0();
+  wg_hold(acc);
+}
+
+// The end of a dk/dv step: with P^T of the warp's keys at W query columns
+// (st in f32, pa its bf16 A fragments) and dP^T = V.dO^T the last wgmma
+// group in flight, dS^T = P^T (dP^T - delta) (the chunk's delta at dl),
+// then dV += bf16(P^T).dO and dK += bf16(dS^T).Q with the chunk's dO and Q
+// rows (at dg, dq) read MN-major.
+template <int D, int W>
+__device__ __forceinline__ void dkv_tail(float (&dka)[D / 8][4],
+                                         float (&dva)[D / 8][4],
+                                         const float (&st)[W / 8][4],
+                                         const unsigned (&pa)[W / 16][4],
+                                         float (&dpt)[W / 8][4],
+                                         const float* dl,
+                                         unsigned long long dq,
+                                         unsigned long long dg) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  wg_wait0();
+  wg_hold(dpt);
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const float2 d = *reinterpret_cast<const float2*>(dl + j * 8 + c2);
+    dpt[j][0] = st[j][0] * (dpt[j][0] - d.x);
+    dpt[j][1] = st[j][1] * (dpt[j][1] - d.y);
+    dpt[j][2] = st[j][2] * (dpt[j][2] - d.x);
+    dpt[j][3] = st[j][3] * (dpt[j][3] - d.y);
+  }
+  unsigned da[W / 16][4];
+  pack_a(dpt, da);                                  // bf16(dS^T)
+  wg_hold(dva);
+  wg_hold(dka);
+  wg_fence();
+  mma_pv<D, W / 16>(dva, pa, dg);
+  mma_pv<D, W / 16>(dka, da, dq);
+  wg_commit();
+  wg_wait0();
+  wg_hold(dva);
+  wg_hold(dka);
+}
+
+// res_bwd_dkv's step: the warp's keys
+// `key` and key + 8 (the warpgroup's K and V rows at dk, dv), W queries
+// from query c0 (their Q and dO rows at dq, dg; their lse and delta at ls
+// and dl). S^T = K.Q^T, then dP^T = V.dO^T as a second group; keys >=
+// key_limit and queries >= q_limit get p = 0 (with k zero, exp(-lse)
+// overflows for a row whose lse < -87, and inf * 0 is NaN); P^T =
+// exp2(S^T sl2 - lse log2(e)); then dkv_tail.
+template <int D, int W>
+__device__ __forceinline__ void dkv_step(float (&dka)[D / 8][4],
+                                         float (&dva)[D / 8][4],
+                                         unsigned long long dk,
+                                         unsigned long long dv,
+                                         unsigned long long dq,
+                                         unsigned long long dg, int key,
+                                         int key_limit, int c0, int q_limit,
+                                         float sl2, const float* ls,
+                                         const float* dl) {
+  const int c2 = (threadIdx.x & 3) * 2;
+  float st[W / 8][4], dpt[W / 8][4];
+  zero(st);
+  zero(dpt);
+  wg_fence();
+  mma_scores<D, W>(st, dk, dq);
+  wg_commit();
+  mma_scores<D, W>(dpt, dv, dg);
+  wg_commit();
+  wg_wait1();
+  wg_hold(st);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    if (key + 8 * hf >= key_limit)
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j)
+        st[j][2 * hf] = st[j][2 * hf + 1] = -CUDART_INF_F;
+  if (c0 + W > q_limit) {
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (c0 + j * 8 + c2 + e >= q_limit)
+          st[j][e] = st[j][e + 2] = -CUDART_INF_F;
+  }
+  // P^T from each query column's lse: columns 8 j + c2 and + 1
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(ls + j * 8 + c2);
+    const float n0 = -l.x * kLog2e, n1 = -l.y * kLog2e;
+    st[j][0] = exp2_approx(fmaf(st[j][0], sl2, n0));
+    st[j][1] = exp2_approx(fmaf(st[j][1], sl2, n1));
+    st[j][2] = exp2_approx(fmaf(st[j][2], sl2, n0));
+    st[j][3] = exp2_approx(fmaf(st[j][3], sl2, n1));
+  }
+  unsigned pa[W / 16][4];
+  pack_a(st, pa);                                   // bf16(P^T)
+  dkv_tail<D, W>(dka, dva, st, pa, dpt, dl, dq, dg);
+}
+
+constexpr int kResThreads = 256;          // two warpgroups a block
+constexpr int kRowBytes = 128;            // one 64-wide bf16 row
+constexpr unsigned long long kChunkDesc = 64 * kRowBytes >> 4;   // 64 rows
+
+// Rows of a resident buffer of NK rows: whole copies for 256 threads (8
+// 16-byte chunks a row), so 224 at NK = 208; the rows >= N are zeros.
+template <int NK>
+constexpr int kResRows = (NK + 31) / 32 * 32;
+// Rows of the forward's resident Q: whole 64-row query tiles (256)
+template <int NK>
+constexpr int kQRows = (NK + 63) / 64 * 64;
+
+// A 64 x NK product: 64-column chunks, then NK % 64 (16) columns; B's rows
+// 64 c.. are chunk c
+template <int NK>
+__device__ __forceinline__ void mma_wide(float (&d)[NK / 8][4],
+                                         unsigned long long a,
+                                         unsigned long long b) {
+  static_assert(NK % 64 == 0 || NK % 64 == 16, "chunks of 64, then 16");
+#pragma unroll
+  for (int c = 0; c < NK / 64; ++c)
+    mma_scores<64, 64>(*reinterpret_cast<float(*)[8][4]>(&d[8 * c]), a,
+                       b + c * kChunkDesc);
+  if constexpr (NK % 64 != 0)
+    mma_scores<64, 16>(*reinterpret_cast<float(*)[2][4]>(&d[8 * (NK / 64)]),
+                       a, b + (NK / 64) * kChunkDesc);
+}
+
+// barrier of warpgroup wg's 128 threads (barrier 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// order this thread's shared-memory writes (cp.async or plain) before the
+// wgmma reads that follow the next barrier
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The chunks that thread tid (of T) copied into an R-row tile by load_rows,
+// times s, rounded to bf16: bf16(q * bf16(scale)), the TPU kernels' q. Call
+// after the thread's own cp.async has landed.
+template <int R, int T>
+__device__ __forceinline__ void scale_rows(unsigned char* tile, int tid,
+                                           float s) {
+#pragma unroll
+  for (int i = 0; i < R * 8 / T; ++i) {
+    const int idx = tid + i * T;
+    uint4* p = reinterpret_cast<uint4*>(tile +
+                                        Swz<64>::offset(idx / 8, idx % 8));
+    uint4 u = *p;
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(x[e]);
+      x[e] = __floats2bfloat162_rn(f.x * s, f.y * s);
+    }
+    *p = u;
+  }
+}
+
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(p) + 1023) & ~(size_t)1023);
+}
+
+// Rows [first, first + R) of a sequence's 64-wide column slice at src (row
+// stride ld) into the swizzled tile at dst, by the T threads tid = 0..T-1,
+// through registers: all loads, then all stores. Unlike load_rows it joins
+// no cp.async group, so it neither waits for nor is waited for by the
+// copies of the next sequence in flight. Rows >= limit become zeros.
+template <int R, int T, class Rows>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
+                                          int ld, Rows rows, int first,
+                                          int limit, int tid) {
+  constexpr int kN = R * 8 / T;
+  static_assert(R * 8 % T == 0, "whole copies per thread");
+  uint4 x[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int idx = tid + i * T, r = idx / 8;
+    x[i] = first + r < limit
+               ? *reinterpret_cast<const uint4*>(
+                     src + (size_t)rows.offset(first + r) * ld + idx % 8 * 8)
+               : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int idx = tid + i * T;
+    *reinterpret_cast<uint4*>(dst + Swz<64>::offset(idx / 8, idx % 8)) = x[i];
+  }
+}
+
+// A tile of P (bf16, row stride NK elements): rows [r0, r0 + R) from column
+// col0, CH 16-byte chunks a row, by a warpgroup's 128 threads (wt), through
+// registers (`load_p` into x, then `store_p`) into rows of CH * 16 + 16
+// bytes (the 16 bytes of padding put the 8 rows an ldmatrix reads on
+// distinct banks); rows >= N and columns >= NK are zeros.
+template <int R, int CH>
+constexpr int kPCopies = (R * CH + 127) / 128;
+template <int R, int CH>
+__device__ __forceinline__ void load_p(uint4 (&x)[kPCopies<R, CH>],
+                                       const bf16* p, int NK, int r0,
+                                       int col0, int N, int wt) {
+#pragma unroll
+  for (int i = 0; i < kPCopies<R, CH>; ++i) {
+    const int idx = wt + i * 128, r = idx / CH, c = idx % CH;
+    x[i] = idx < R * CH && r0 + r < N && col0 + c * 8 < NK
+               ? *reinterpret_cast<const uint4*>(p + (size_t)(r0 + r) * NK +
+                                                 col0 + c * 8)
+               : make_uint4(0, 0, 0, 0);
+  }
+}
+template <int R, int CH>
+__device__ __forceinline__ void store_p(unsigned char* dst,
+                                        const uint4 (&x)[kPCopies<R, CH>],
+                                        int wt) {
+#pragma unroll
+  for (int i = 0; i < kPCopies<R, CH>; ++i) {
+    const int idx = wt + i * 128;
+    if (idx < R * CH)
+      *reinterpret_cast<uint4*>(dst + idx / CH * (CH * 16 + 16) +
+                                idx % CH * 16) = x[i];
+  }
+}
+
+// bf16 pair -> two floats
+__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// Shared memory of the kernels. The resident operands of a sequence (the
+// forward's K, V and Q; the dq kernels' K and V; the dk/dv kernel's Q and
+// dO) are kept twice when G > 1, so that the next sequence's cp.async
+// copies fly while this one is computed; then per warpgroup its 64-row
+// tiles, the dk/dv kernel's statistics and the save-P kernels' P tiles (a
+// 64 x NK row tile per warpgroup in dq, two 64 x 64 tiles in dk/dv).
+template <int NK>
+constexpr int kPRowBytes = NK * 2 + 16;
+constexpr int kPtBytes = 64 * (64 * 2 + 16);
+template <int NK>
+__host__ __device__ constexpr size_t resident_bytes(int operands, int G) {
+  return (size_t)(G > 1 ? 2 : 1) * operands * kResRows<NK> * kRowBytes;
+}
+template <int NK>
+size_t res_fwd_smem(int G) {
+  return (size_t)(G > 1 ? 2 : 1) * (2 * kResRows<NK> + kQRows<NK>) *
+             kRowBytes + 1024;
+}
+template <int NK>
+size_t res_dq_smem(bool save_p, int G) {
+  return resident_bytes<NK>(2, G) +
+         (save_p ? 2 * 64 * (kRowBytes + kPRowBytes<NK>)
+                 : 2 * 128 * kRowBytes) + 1024;
+}
+template <int NK>
+size_t res_dkv_smem(bool save_p, int G) {
+  return resident_bytes<NK>(2, G) + 8 * kResRows<NK> +
+         2 * 128 * kRowBytes + (save_p ? 2 * 2 * kPtBytes : 0) + 1024;
+}
+
+// ---------------------------------------------------------------- forward
+// grid (ceil(seqs / G), H), 256 threads; block x takes sequences x G ..
+// x G + G - 1 (< seqs) of head blockIdx.y. q, k, v point at head 0's
+// columns of their row slices (row stride ld_in, head h at + 64 h), o at
+// head 0's output columns (row stride ld_out). lse (seqs, H, N) for #10 /
+// #12; p (seqs, H, N, NK) for #11. A sequence's K, V and Q (NK rows each)
+// come by cp.async into one buffer; with G > 1 there are two, and the next
+// sequence's copies fly while this one is computed.
+template <int NK, bool kSaveP, class Rows>
+__global__ void __launch_bounds__(kResThreads, 1)
+res_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, int ld_in, bf16* __restrict__ o,
+        int ld_out, float* __restrict__ lse, bf16* __restrict__ p, Rows rows,
+        int seqs, int G, int N, float scale) {
+  using S = Swz<64>;
+  constexpr int NJ = NK / 8, NR = kResRows<NK>, QR = kQRows<NK>;
+  constexpr int kTile = NR * kRowBytes;            // K or V of a sequence
+  constexpr int kSeq = 2 * kTile + QR * kRowBytes; // K, V and Q
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  const int h = blockIdx.y, H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int n_qt = (N + 63) / 64;
+  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
+  const float qscale = __bfloat162float(__float2bfloat16(scale));
+  // K, V, Q of sequence first + i into buffer i % 2 (rows >= N: zeros)
+  auto load_seq = [&](int i) {
+    unsigned char* b = smem + (i & 1) * kSeq;
+    const size_t off = rows.base(first + i) * ld_in + h * 64;
+    load_rows<64, NR, kResThreads>(b, k + off, ld_in, rows, 0, N, tid);
+    load_rows<64, NR, kResThreads>(b + kTile, v + off, ld_in, rows, 0, N,
+                                   tid);
+    load_rows<64, QR, kResThreads>(b + 2 * kTile, q + off, ld_in, rows, 0, N,
+                                   tid);
+    cp_async_commit();
+  };
+  load_seq(0);
+
+  for (int gi = 0; gi < n_seq; ++gi) {
+    const int seq = first + gi;
+    bf16* ob = o + rows.base(seq) * ld_out + h * 64;
+    const size_t stat = ((size_t)seq * H + h) * N;
+    unsigned char* Ks = smem + (gi & 1) * kSeq;
+    unsigned char* Qs = Ks + 2 * kTile;
+    cp_async_wait<0>();              // this sequence's copies
+    scale_rows<QR, kResThreads>(Qs, tid, qscale);
+    fence_async();
+    __syncthreads();                 // ... everyone's; the last one is read
+    if (gi + 1 < n_seq) load_seq(gi + 1);
+    const unsigned long long dk = S::desc(Ks), dv = S::desc(Ks + kTile);
+
+    for (int qt = wg; qt < n_qt; qt += 2) {
+      unsigned char* Qt = Qs + qt * 64 * kRowBytes;
+      // S = Qs.K^T over all NK keys
+      float sc[NJ][4];
+      zero(sc);
+      wg_fence();
+      mma_wide<NK>(sc, S::desc(Qt), dk);
+      wg_commit();
+      wg_wait0();
+      wg_hold(sc);
+      if (N < NK) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (j * 8 + c2 + e >= N) sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
+      }
+      // single-pass softmax of rows g (half 0) and g + 8 (half 1)
+      float mx[2], sum[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float m = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          m = fmaxf(m, fmaxf(sc[j][2 * hf], sc[j][2 * hf + 1]));
+        m = fmaxf(m, __shfl_xor_sync(kFull, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
+        const float ms = m * kLog2e;
+        float l = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+            sc[j][e] = exp2_approx(fmaf(sc[j][e], kLog2e, -ms));
+            l += sc[j][e];
+          }
+        l += __shfl_xor_sync(kFull, l, 1);
+        l += __shfl_xor_sync(kFull, l, 2);
+        mx[hf] = m;
+        sum[hf] = l;
+      }
+      const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+      if constexpr (kSaveP) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];
+      }
+      unsigned pa[NJ / 2][4];
+      pack_a(sc, pa);
+      if constexpr (kSaveP) {        // P's rows < N, all NK columns
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = qt * 64 + wr + g + 8 * hf;
+          if (row < N) {
+            bf16* pr = p + (stat + row) * NK + c2;
+#pragma unroll
+            for (int kk = 0; kk < NJ / 2; ++kk) {
+              *reinterpret_cast<unsigned*>(pr + 16 * kk) = pa[kk][hf];
+              *reinterpret_cast<unsigned*>(pr + 16 * kk + 8) = pa[kk][2 + hf];
+            }
+          }
+        }
+      }
+      // O = bf16(P).V, all NK keys
+      float acc[8][4];
+      zero(acc);
+      wg_hold(acc);
+      wg_fence();
+      mma_pv<64, NJ / 2>(acc, pa, dv);
+      wg_commit();
+      wg_wait0();
+      wg_hold(acc);
+      if constexpr (!kSaveP) {     // O / l, and each row's log-sum-exp
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = qt * 64 + wr + g + 8 * hf;
+          if (c2 == 0 && row < N) lse[stat + row] = mx[hf] + logf(sum[hf]);
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            acc[n][2 * hf] *= inv[hf];
+            acc[n][2 * hf + 1] *= inv[hf];
+          }
+        }
+      }
+      wg_sync(wg);                 // every wgmma read of this Q tile is done
+      store_rows<64>(Qt + wr * kRowBytes, acc, 1.f, ob, ld_out, rows,
+                     qt * 64 + wr, N);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dq
+// grid and sequences as res_fwd. q, k, v as there; o (the forward's
+// output), dout at head 0's columns (row stride ld_out); dq (row stride
+// ld_dq). lse and delta (seqs, H, N); delta is written here. K and V of a
+// sequence resident (in one of two buffers when G > 1); a Q and a dO tile
+// per warpgroup.
+template <int NK, class Rows>
+__global__ void __launch_bounds__(kResThreads, 1)
+res_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, int ld_in, const bf16* __restrict__ o,
+           const bf16* __restrict__ dout, int ld_out,
+           const float* __restrict__ lse, float* __restrict__ delta,
+           bf16* __restrict__ dq, int ld_dq, Rows rows, int seqs, int G, int N,
+           float scale) {
+  using S = Swz<64>;
+  constexpr int NR = kResRows<NK>, kTile = NR * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  const int h = blockIdx.y, H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  unsigned char* Qs = smem + resident_bytes<NK>(2, G) + wg * 128 * kRowBytes;
+  unsigned char* Gs = Qs + 64 * kRowBytes;           // dO
+  const unsigned long long dqd = S::desc(Qs), dgd = S::desc(Gs);
+  const int n_qt = (N + 63) / 64;
+  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
+  const float qscale = __bfloat162float(__float2bfloat16(scale));
+  auto load_kv = [&](int i) {        // K, V of sequence first + i
+    unsigned char* b = smem + (i & 1) * 2 * kTile;
+    const size_t off = rows.base(first + i) * ld_in + h * 64;
+    load_rows<64, NR, kResThreads>(b, k + off, ld_in, rows, 0, N, tid);
+    load_rows<64, NR, kResThreads>(b + kTile, v + off, ld_in, rows, 0, N,
+                                   tid);
+    cp_async_commit();
+  };
+  load_kv(0);
+
+  for (int gi = 0; gi < n_seq; ++gi) {
+    const int seq = first + gi;
+    const size_t base = rows.base(seq);
+    const bf16* qb = q + base * ld_in + h * 64;
+    const bf16* ob = o + base * ld_out + h * 64;
+    const bf16* gb = dout + base * ld_out + h * 64;
+    bf16* dqb = dq + base * ld_dq + h * 64;
+    const size_t stat = ((size_t)seq * H + h) * N;
+    const unsigned char* Ks = smem + (gi & 1) * 2 * kTile;
+    const unsigned long long dkd = S::desc(Ks), dvd = S::desc(Ks + kTile);
+    cp_async_wait<0>();              // this sequence's K and V
+    fence_async();
+    __syncthreads();                 // ... everyone's; the last one is read
+    if (gi + 1 < n_seq) load_kv(gi + 1);
+
+    for (int qt = wg; qt < n_qt; qt += 2) {
+      wg_sync(wg);                   // the staged rows are read back
+      copy_rows<64, 128>(Qs, qb, ld_in, rows, qt * 64, N, wt);
+      copy_rows<64, 128>(Gs, gb, ld_out, rows, qt * 64, N, wt);
+      scale_rows<64, 128>(Qs, wt, qscale);
+      fence_async();
+      wg_sync(wg);
+      // delta = rowsum(dO * O) of rows g and g + 8, and -lse log2(e); rows
+      // >= N get p = 0
+      float dl[2], nl[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = qt * 64 + wr + g + 8 * hf;
+        const float s = row_delta<64>(ob, gb, ld_out, rows, row, N);
+        dl[hf] = s;
+        nl[hf] = row < N ? -lse[stat + row] * kLog2e : -CUDART_INF_F;
+        if (c2 == 0 && row < N) delta[stat + row] = s;
+      }
+
+      float acc[8][4];
+      zero(acc);
+      // chunks of 64 keys, then NK % 64
+#pragma unroll
+      for (int c = 0; c < NK / 64; ++c)
+        if (c * 64 < N)
+          dq_step<64, 64>(acc, dqd, dgd, dkd + c * kChunkDesc,
+                          dvd + c * kChunkDesc, c * 64, N, kLog2e, nl, dl);
+      if constexpr (NK % 64 != 0)
+        if (NK / 64 * 64 < N)
+          dq_step<64, NK % 64>(acc, dqd, dgd, dkd + NK / 64 * kChunkDesc,
+                               dvd + NK / 64 * kChunkDesc, NK / 64 * 64, N,
+                               kLog2e, nl, dl);
+      wg_sync(wg);                   // every wgmma read of Q is done
+      store_rows<64>(Qs + wr * kRowBytes, acc, scale, dqb, ld_dq, rows,
+                     qt * 64 + wr, N);
+    }
+  }
+}
+
+// The save-P dq kernel (#11): K and V resident as in res_bwd_dq; a dO tile
+// and a P row tile (64 x NK of p (seqs, H, N, NK)) per warpgroup; per query
+// tile dP = dO.V^T over all NK keys, P by ldmatrix in the accumulator
+// layout, delta = rowsum(P * dP) (written for the dk/dv kernel), dS = P (dP
+// - delta), dQ = bf16(dS).K.
+template <int NK, class Rows>
+__global__ void __launch_bounds__(kResThreads, 1)
+res_savep_dq(const bf16* __restrict__ k, const bf16* __restrict__ v,
+             int ld_in, const bf16* __restrict__ p,
+             const bf16* __restrict__ dout, int ld_out,
+             float* __restrict__ delta, bf16* __restrict__ dq, int ld_dq,
+             Rows rows, int seqs, int G, int N, float scale) {
+  using S = Swz<64>;
+  constexpr int NJ = NK / 8, NR = kResRows<NK>, kTile = NR * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  const int h = blockIdx.y, H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  unsigned char* Gs = smem + resident_bytes<NK>(2, G) +
+                      wg * 64 * kRowBytes;                      // dO
+  unsigned char* Pt = smem + resident_bytes<NK>(2, G) + 2 * 64 * kRowBytes +
+                      wg * 64 * kPRowBytes<NK>;                 // P rows
+  const unsigned long long dgd = S::desc(Gs);
+  // ldmatrix rows of this lane: lanes 0-15 rows 0-15 of the warp's 16 at
+  // keys 0-7 of a 16-key step, lanes 16-31 the same rows at keys 8-15
+  const unsigned char* pl = Pt + (wr + (lane & 15)) * kPRowBytes<NK> +
+                            (lane >> 4) * 16;
+  const int n_qt = (N + 63) / 64;
+  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
+  auto load_kv = [&](int i) {        // K, V of sequence first + i
+    unsigned char* b = smem + (i & 1) * 2 * kTile;
+    const size_t off = rows.base(first + i) * ld_in + h * 64;
+    load_rows<64, NR, kResThreads>(b, k + off, ld_in, rows, 0, N, tid);
+    load_rows<64, NR, kResThreads>(b + kTile, v + off, ld_in, rows, 0, N,
+                                   tid);
+    cp_async_commit();
+  };
+  load_kv(0);
+
+  for (int gi = 0; gi < n_seq; ++gi) {
+    const int seq = first + gi;
+    const size_t base = rows.base(seq);
+    const bf16* gb = dout + base * ld_out + h * 64;
+    bf16* dqb = dq + base * ld_dq + h * 64;
+    const size_t stat = ((size_t)seq * H + h) * N;
+    const unsigned char* Ks = smem + (gi & 1) * 2 * kTile;
+    const unsigned long long dkd = S::desc(Ks), dvd = S::desc(Ks + kTile);
+    cp_async_wait<0>();              // this sequence's K and V
+    fence_async();
+    __syncthreads();                 // ... everyone's; the last one is read
+    if (gi + 1 < n_seq) load_kv(gi + 1);
+
+    for (int qt = wg; qt < n_qt; qt += 2) {
+      wg_sync(wg);                   // the staged rows are read back
+      {
+        uint4 x[kPCopies<64, NK / 8>];
+        load_p<64, NK / 8>(x, p + stat * NK, NK, qt * 64, 0, N, wt);
+        copy_rows<64, 128>(Gs, gb, ld_out, rows, qt * 64, N, wt);
+        store_p<64, NK / 8>(Pt, x, wt);
+      }
+      fence_async();
+      wg_sync(wg);
+      float dp[NJ][4];
+      zero(dp);
+      wg_fence();
+      mma_wide<NK>(dp, dgd, dvd);
+      wg_commit();
+      wg_wait0();
+      wg_hold(dp);
+      // P of rows g and g + 8 in the accumulator layout, 16 keys a step
+      // (a[0], a[1]: rows g, g + 8 at keys c2..; a[2], a[3] at keys 8 + c2..;
+      // rows >= N are zeros): delta = rowsum(P * dP), then dS
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+        unsigned a[4];
+        ldmatrix_x4(a, pl + kk * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 pf = unpack_bf16(a[e]);
+          const int j = 2 * kk + (e >> 1), hf = e & 1;
+          s[hf] = fmaf(pf.x, dp[j][2 * hf], s[hf]);
+          s[hf] = fmaf(pf.y, dp[j][2 * hf + 1], s[hf]);
+        }
+      }
+      float dl[2];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        dl[hf] = s[hf] + __shfl_xor_sync(kFull, s[hf], 1);
+        dl[hf] += __shfl_xor_sync(kFull, dl[hf], 2);
+        const int row = qt * 64 + wr + g + 8 * hf;
+        if (c2 == 0 && row < N) delta[stat + row] = dl[hf];
+      }
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+        unsigned a[4];
+        ldmatrix_x4(a, pl + kk * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 pf = unpack_bf16(a[e]);
+          const int j = 2 * kk + (e >> 1), hf = e & 1;
+          dp[j][2 * hf] = pf.x * (dp[j][2 * hf] - dl[hf]);
+          dp[j][2 * hf + 1] = pf.y * (dp[j][2 * hf + 1] - dl[hf]);
+        }
+      }
+      unsigned da[NJ / 2][4];
+      pack_a(dp, da);
+      float acc[8][4];
+      zero(acc);
+      wg_hold(acc);
+      wg_fence();
+      mma_pv<64, NJ / 2>(acc, da, dkd);
+      wg_commit();
+      wg_wait0();
+      wg_hold(acc);
+      wg_sync(wg);                   // every wgmma read of dO is done
+      store_rows<64>(Gs + wr * kRowBytes, acc, scale, dqb, ld_dq, rows,
+                     qt * 64 + wr, N);
+    }
+  }
+}
+
+// The save-P dk/dv step (#11): W queries from query c0 at the 64-key tile
+// kt, with P's tile (queries c0.., keys 64 kt..; pb: this sequence and
+// head's P, row stride NK) in place of S^T and the exponent. dP^T = V.dO^T
+// is issued, the P tile goes through registers to pt, P^T comes by
+// ldmatrix .trans straight in the A layout (lanes 0-7 / 16-23 address
+// queries 0-7 / 8-15 of a 16-query step at the warp's keys 0-7, lanes
+// 8-15 / 24-31 the same at keys 8-15), then dkv_tail. P's columns >= N
+// are zeros, as the forward writes them.
+template <int NK, int W>
+__device__ __forceinline__ void savep_dkv_step(
+    float (&dka)[8][4], float (&dva)[8][4], unsigned long long dv,
+    unsigned long long dq, unsigned long long dg, unsigned char* pt,
+    const bf16* pb, int c0, int kt, int N, const float* dl) {
+  constexpr int kPt = 64 * 2 + 16;                 // a P tile's row bytes
+  const int tid = threadIdx.x, lane = tid & 31, wt = tid & 127;
+  const int wr = (tid >> 5 & 3) * 16;
+  float st[W / 8][4], dpt[W / 8][4];
+  unsigned pa[W / 16][4];
+  zero(dpt);
+  uint4 px[kPCopies<W, 8>];
+  load_p<W, 8>(px, pb, NK, c0, kt * 64, N, wt);
+  wg_fence();
+  mma_scores<64, W>(dpt, dv, dg);
+  wg_commit();
+  store_p<W, 8>(pt, px, wt);
+  wg_sync(tid >> 7);
+  const unsigned char* pl = pt + ((lane & 7) + (lane >> 4) * 8) * kPt +
+                            (wr + (lane >> 3 & 1) * 8) * 2;
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    ldmatrix_x4_trans(pa[kk], pl + kk * 16 * kPt);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 pf = unpack_bf16(pa[kk][e]);
+      st[2 * kk + (e >> 1)][2 * (e & 1)] = pf.x;
+      st[2 * kk + (e >> 1)][2 * (e & 1) + 1] = pf.y;
+    }
+  }
+  dkv_tail<64, W>(dka, dva, st, pa, dpt, dl, dq, dg);
+}
+
+// ---------------------------------------------------------------- dk, dv
+// grid and sequences as res_fwd, over KEY tiles. Scaled Q and dO of the
+// sequence resident (in one of two buffers when G > 1) with -lse log2(e)
+// and delta of each query; warpgroup wg takes key tiles wg, wg + 2, ..
+// with its own K and V tile. #10 / #12: S^T = K.Qs^T and P^T from lse; #11
+// (kSaveP): no S, no exponent, and k is not read: per query chunk the
+// 64 x 64 tile of p (seqs, H, N, NK) goes to one of two tiles of the
+// warpgroup and P^T comes by ldmatrix .trans, straight in the A layout (P's
+// columns >= N are zeros, as the forward writes them). dk, dv (row stride
+// ld_dkv); delta from the dq kernel.
+template <int NK, bool kSaveP, class Rows>
+__global__ void __launch_bounds__(kResThreads, 1)
+res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, int ld_in,
+            const bf16* __restrict__ dout, int ld_out,
+            const float* __restrict__ lse, const bf16* __restrict__ p,
+            const float* __restrict__ delta, bf16* __restrict__ dk,
+            bf16* __restrict__ dv, int ld_dkv, Rows rows, int seqs, int G,
+            int N, float scale) {
+  using S = Swz<64>;
+  constexpr int NR = kResRows<NK>, kTile = NR * kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  const int h = blockIdx.y, H = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
+  const int g = lane >> 2;
+  unsigned char* Kt = smem + resident_bytes<NK>(2, G) + wg * 128 * kRowBytes;
+  unsigned char* Vt = Kt + 64 * kRowBytes;
+  float* lses = reinterpret_cast<float*>(smem + resident_bytes<NK>(2, G) +
+                                         256 * kRowBytes);
+  float* dls = lses + NR;
+  unsigned char* Pts = reinterpret_cast<unsigned char*>(dls + NR) +
+                       wg * 2 * kPtBytes;          // two P tiles (kSaveP)
+  const unsigned long long dkt = S::desc(Kt), dvt = S::desc(Vt);
+  const int n_kt = (N + 63) / 64;
+  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
+  const float qscale = __bfloat162float(__float2bfloat16(scale));
+  auto load_qg = [&](int i) {        // Q, dO of sequence first + i
+    unsigned char* b = smem + (i & 1) * 2 * kTile;
+    const size_t base = rows.base(first + i);
+    load_rows<64, NR, kResThreads>(b, q + base * ld_in + h * 64, ld_in, rows,
+                                   0, N, tid);
+    load_rows<64, NR, kResThreads>(b + kTile, dout + base * ld_out + h * 64,
+                                   ld_out, rows, 0, N, tid);
+    cp_async_commit();
+  };
+  load_qg(0);
+
+  for (int gi = 0; gi < n_seq; ++gi) {
+    const int seq = first + gi;
+    const size_t base = rows.base(seq);
+    const bf16* kb = k + base * ld_in + h * 64;
+    const bf16* vb = v + base * ld_in + h * 64;
+    bf16* dkb = dk + base * ld_dkv + h * 64;
+    bf16* dvb = dv + base * ld_dkv + h * 64;
+    const size_t stat = ((size_t)seq * H + h) * N;
+    const bf16* pb = kSaveP ? p + stat * NK : nullptr;
+    unsigned char* Qs = smem + (gi & 1) * 2 * kTile;
+    const unsigned long long dqs = S::desc(Qs), dgs = S::desc(Qs + kTile);
+    cp_async_wait<0>();              // this sequence's Q and dO
+    __syncthreads();                 // the last sequence's statistics are read
+    for (int i = tid; i < NR; i += kResThreads) {   // masked: i >= N
+      if constexpr (!kSaveP) lses[i] = i < N ? lse[stat + i] : 0.f;
+      dls[i] = i < N ? delta[stat + i] : 0.f;
+    }
+    scale_rows<NR, kResThreads>(Qs, tid, qscale);
+    fence_async();
+    __syncthreads();
+    if (gi + 1 < n_seq) load_qg(gi + 1);
+
+    for (int kt = wg; kt < n_kt; kt += 2) {
+      wg_sync(wg);                   // the staged rows are read back
+      if constexpr (!kSaveP)
+        copy_rows<64, 128>(Kt, kb, ld_in, rows, kt * 64, N, wt);
+      copy_rows<64, 128>(Vt, vb, ld_in, rows, kt * 64, N, wt);
+      fence_async();
+      wg_sync(wg);
+      const int key = kt * 64 + wr + g;        // rows key and key + 8
+      float dka[8][4], dva[8][4];
+      zero(dka);
+      zero(dva);
+      // chunks of 64 queries, then NK % 64
+      auto chunk = [&](auto width, int c0) {
+        constexpr int W = decltype(width)::value;
+        const unsigned long long qoff = (unsigned long long)c0 * 8;  // rows
+        if constexpr (kSaveP)
+          savep_dkv_step<NK, W>(dka, dva, dvt, dqs + qoff, dgs + qoff,
+                                Pts + (c0 / 64 & 1) * kPtBytes, pb, c0, kt,
+                                N, dls + c0);
+        else
+          dkv_step<64, W>(dka, dva, dkt, dvt, dqs + qoff, dgs + qoff, key, N,
+                          c0, N, kLog2e, lses + c0, dls + c0);
+      };
+#pragma unroll
+      for (int c = 0; c < NK / 64; ++c)
+        if (c * 64 < N) chunk(std::integral_constant<int, 64>(), c * 64);
+      if constexpr (NK % 64 != 0)
+        if (NK / 64 * 64 < N)
+          chunk(std::integral_constant<int, NK % 64>(), NK / 64 * 64);
+      wg_sync(wg);                   // every wgmma read of K and V is done
+      // keys < N; the scale is in Qs already
+      store_rows<64>(Kt + wr * kRowBytes, dka, 1.f, dkb, ld_dkv, rows,
+                     kt * 64 + wr, N);
+      store_rows<64>(Vt + wr * kRowBytes, dva, 1.f, dvb, ld_dkv, rows,
+                     kt * 64 + wr, N);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+// Packed-QKV layouts: qkv (tokens, 3C) with C = 64 H; out and dout (tokens,
+// C); dqkv (tokens, 3C); `seqs` sequences of N <= NK rows placed by `rows`,
+// G of them a block.
+template <int NK, bool kSaveP, class Rows>
+cudaError_t launch_res_fwd(const void* qkv, void* out, void* lse, void* p,
+                           Rows rows, int seqs, int N, int H, int G,
+                           float scale, void* stream) {
+  const size_t smem = res_fwd_smem<NK>(G);
+  cudaError_t err = allow_smem(res_fwd<NK, kSaveP, Rows>, smem);
+  if (err != cudaSuccess) return err;
+  const int C = 64 * H;
+  const bf16* x = (const bf16*)qkv;
+  dim3 grid((seqs + G - 1) / G, H);
+  res_fwd<NK, kSaveP, Rows><<<grid, kResThreads, smem, (cudaStream_t)stream>>>(
+      x, x + C, x + 2 * C, 3 * C, (bf16*)out, C, (float*)lse, (bf16*)p, rows,
+      seqs, G, N, scale);
+  return cudaGetLastError();
+}
+
+// #10 / #12: dq (and delta), then dk and dv, both from the forward's lse
+template <int NK, class Rows>
+cudaError_t launch_res_bwd(const void* qkv, const void* out, const void* lse,
+                           const void* dout, void* delta, void* dqkv,
+                           Rows rows, int seqs, int N, int H, int G,
+                           float scale, void* stream) {
+  const size_t dq_smem = res_dq_smem<NK>(false, G);
+  const size_t dkv_smem = res_dkv_smem<NK>(false, G);
+  cudaError_t err = allow_smem(res_bwd_dq<NK, Rows>, dq_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(res_bwd_dkv<NK, false, Rows>, dkv_smem);
+  if (err != cudaSuccess) return err;
+  const int C = 64 * H;
+  const bf16* x = (const bf16*)qkv;
+  bf16* dx = (bf16*)dqkv;
+  dim3 grid((seqs + G - 1) / G, H);
+  cudaStream_t s = (cudaStream_t)stream;
+  res_bwd_dq<NK, Rows><<<grid, kResThreads, dq_smem, s>>>(
+      x, x + C, x + 2 * C, 3 * C, (const bf16*)out, (const bf16*)dout, C,
+      (const float*)lse, (float*)delta, dx, 3 * C, rows, seqs, G, N, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  res_bwd_dkv<NK, false, Rows><<<grid, kResThreads, dkv_smem, s>>>(
+      x, x + C, x + 2 * C, 3 * C, (const bf16*)dout, C, (const float*)lse,
+      nullptr, (const float*)delta, dx + C, dx + 2 * C, 3 * C, rows, seqs, G,
+      N, scale);
+  return cudaGetLastError();
+}
+
+// #11: dq (and delta = rowsum(P * dP)), then dk and dv, both reading P
+template <int NK, class Rows>
+cudaError_t launch_savep_bwd(const void* qkv, const void* p, const void* dout,
+                             void* delta, void* dqkv, Rows rows, int seqs,
+                             int N, int H, int G, float scale, void* stream) {
+  const size_t dq_smem = res_dq_smem<NK>(true, G);
+  const size_t dkv_smem = res_dkv_smem<NK>(true, G);
+  cudaError_t err = allow_smem(res_savep_dq<NK, Rows>, dq_smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(res_bwd_dkv<NK, true, Rows>, dkv_smem);
+  if (err != cudaSuccess) return err;
+  const int C = 64 * H;
+  const bf16* x = (const bf16*)qkv;
+  bf16* dx = (bf16*)dqkv;
+  dim3 grid((seqs + G - 1) / G, H);
+  cudaStream_t s = (cudaStream_t)stream;
+  res_savep_dq<NK, Rows><<<grid, kResThreads, dq_smem, s>>>(
+      x + C, x + 2 * C, 3 * C, (const bf16*)p, (const bf16*)dout, C,
+      (float*)delta, dx, 3 * C, rows, seqs, G, N, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  res_bwd_dkv<NK, true, Rows><<<grid, kResThreads, dkv_smem, s>>>(
+      x, x + C, x + 2 * C, 3 * C, (const bf16*)dout, C, nullptr,
+      (const bf16*)p, (const float*)delta, dx + C, dx + 2 * C, 3 * C, rows,
+      seqs, G, N, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace

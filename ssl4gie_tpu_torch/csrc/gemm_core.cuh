@@ -189,13 +189,6 @@ template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
 
 // ------------------------------------------------------------------ GELU
 constexpr float kSqrt2OverPi = 0.7978845608028654f;

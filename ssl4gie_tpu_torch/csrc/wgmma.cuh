@@ -1,7 +1,8 @@
 // Hopper warpgroup-MMA (wgmma) primitives shared by the attention core
-// (attention_core.cuh) and the GEMM core (gemm_core.cuh): the swizzled
-// shared-memory tile layout wgmma reads and its descriptor, the fence /
-// commit / wait of the asynchronous products, and bf16 packing.
+// (attention_core.cuh, attention_resident.cuh) and the GEMM core
+// (gemm_core.cuh): the swizzled shared-memory tile layout wgmma reads and
+// its descriptor, the fence / commit / wait of the asynchronous products,
+// ldmatrix, and bf16 packing.
 
 #pragma once
 
@@ -56,6 +57,27 @@ __device__ __forceinline__ void wg_wait0() {
 __device__ __forceinline__ void wg_wait1() {   // all but the last group
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
+// Four 8 x 8 b16 matrices from shared memory, lane l addressing row l % 8
+// of matrix l / 8: thread t gets row t / 4, columns 2 (t % 4) and + 1 of
+// each (the m16n8k16 A layout when lanes 0-15 address rows 0-15 at k 0-7
+// and lanes 16-31 the same rows at k 8-15); `_trans` gives column t / 4,
+// rows 2 (t % 4) and + 1, so the transpose of a tile stored row-major
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
 // keep the compiler from touching an accumulator across an async wgmma
 template <int N>
 __device__ __forceinline__ void wg_hold(float (&d)[N][4]) {

@@ -32,15 +32,6 @@
 
 #include "attention_core.cuh"
 
-namespace {
-
-WindowRows window_rows(int GH, int GW, int ws) {
-  return WindowRows{ws, GH / ws, GW / ws, GW,
-                    (65536u + (unsigned)ws - 1) / (unsigned)ws};
-}
-
-}  // namespace
-
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError(). The Python wrapper checks the shapes, the dtype (bf16),
 // Dh == 64, GH and GW multiples of ws, and ws * ws <= 512 before calling.
