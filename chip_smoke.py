@@ -15,8 +15,13 @@
    once and each output written once). Times are CUDA-event medians; each
    backward also prints its rate, counting the five products of the
    function (S, dP, dV, dQ, dK) as the bound does.
-   - classification: B=64 images, ViT-B/16 attention N=197 H=12 Dh=64,
-     224x224x3 rotation;
+   - classification: B=64 images, ViT-B/16 attention N=197 H=12 Dh=64;
+     the same kernels also held at the segmentation step's B=48;
+   - rotation, at both of its path shapes (the classification batch, 64 x
+     224 x 224 x 3, and the segmentation affine's canvas, 48 x 352 x 352
+     x 5), at random and boundary angles, element for element, per call
+     and back to back, cycling over input/output pairs that exceed the
+     card's 50 MB L2 (`ssl4gie_tpu_torch/benchmarks/bench_rotate.py`);
    - detection: windowed attention on a (4, 64, 64, 3*768) grid with 16x16
      windows, flash attention at (48, 4096, 64), and masked flash cases
      (N=1024, n_valid=1000 and 3);
@@ -40,6 +45,14 @@
    must grow by exactly 12 attention forwards, 12 attention backwards and one
    rotation per step; the losses must be finite; the model's logits must agree
    with a float32 CPU run of the same weights on a small input.
+   Segmentation path: the ViT-B/16 + DPT seg step at full width, B=48
+   (uint8 batch and 0/1 masks -> on-device seg augmentation: jitter, blur,
+   normalize, joint flips, the joint random affine whose rotation runs on
+   the 352 px canvas -> forward/backward of the soft Dice loss with
+   BatchNorm in train mode and the head's dropout -> AdamW), a few steps.
+   The counters must grow by exactly 12 attention forwards, 12 backwards
+   and one rotation per step; the losses must be finite; the bf16 logits
+   must agree with a float32 CPU run of the same weights on a small input.
 4. Detection path: the ViT-B Faster R-CNN train step at full width, 1024 px,
    B=4 (uint8 batch -> on-device `detection_augment` -> forward/backward of
    the four losses -> AdamW), a few steps. The counters must grow by exactly
@@ -72,9 +85,9 @@
 
     python3 chip_smoke.py --profile DIR
 
-also profiles a few classification, detection and MAE steps with
-`torch.profiler` (device time by kernel, the device's busy share, the NMS
-slot loop's host time) and writes the tables to DIR.
+also profiles a few classification, segmentation, detection and MAE
+steps with `torch.profiler` (device time by kernel, the device's busy
+share, the NMS slot loop's host time) and writes the tables to DIR.
 
 Any failure raises (nonzero exit, no result). There is no CPU fallback.
 """
@@ -84,6 +97,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -95,11 +109,11 @@ import numpy as np
 import torch
 
 from ssl4gie_tpu_torch.benchmarks import bench_attention_kernel as bak
+from ssl4gie_tpu_torch.benchmarks import bench_rotate as brot
 from ssl4gie_tpu_torch.benchmarks import bench_window_kernel as bwk
 from ssl4gie_tpu_torch.core.train_state import make_adamw
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
-from ssl4gie_tpu_torch.data.augment import (eval_batch, normalize,
-                                            rotation_factors)
+from ssl4gie_tpu_torch.data.augment import eval_batch, normalize
 from ssl4gie_tpu_torch.data.ssl_augment import mae_augment, sample_mae_params
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels import attention_variants as av
@@ -110,6 +124,7 @@ from ssl4gie_tpu_torch.kernels import rotate as rot
 from ssl4gie_tpu_torch.kernels import window_attention as wa
 from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
 from ssl4gie_tpu_torch.models import layers
+from ssl4gie_tpu_torch.models.factory import ViTDenseModel
 from ssl4gie_tpu_torch.models.faster_rcnn import FasterRCNN
 from ssl4gie_tpu_torch.models.vit import ViTClassifier
 from ssl4gie_tpu_torch.ssl.mae import MAE
@@ -119,6 +134,7 @@ from ssl4gie_tpu_torch.ssl.pretrain import (MAEPretrainConfig,
                                             make_mae_optimizer, make_schedule)
 from ssl4gie_tpu_torch.tasks.detection import (SyntheticDetectionSource,
                                                make_detection_full_step)
+from ssl4gie_tpu_torch.tasks.segmentation import segmentation_task
 
 SEED = 0
 B = 64                  # main-path batch (images per step)
@@ -140,6 +156,11 @@ MAE_WARMUP_STEPS, MAE_TIMED_STEPS = 1, 3
 MAE_LOSS_TOL = 0.01     # fused vs unfused MLP forward: 1% of the loss
 MAE_REF_B = 2
 HARNESS_WARMUP_STEPS, HARNESS_TIMED_STEPS = 1, 5
+# segmentation: the batch of benchmarks/bench_segmentation.py, and the
+# random affine's rotation canvas at 224 px (image, mask, validity: 5 channels)
+SEG_B, SEG_CANVAS = 48, 352
+SEG_WARMUP_STEPS, SEG_TIMED_STEPS = 1, 3
+SEG_REF_B = 2
 # the card's published peaks (H100 SXM, dense bf16 tensor cores; HBM3)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
@@ -331,28 +352,54 @@ def kernel_phase(card: str) -> list[dict]:
           f"plain (autograd) {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms "
           f"({tflops(work[0], lib_ms)})  [{card}]", flush=True)
 
-    img = (torch.randint(0, 256, (B, IMG, IMG, 3), generator=gen, device=dev)
-           .to(torch.bfloat16) / 255.0).contiguous()
-    angle = (torch.rand((B,), generator=gen, device=dev) * 360.0) - 180.0
-    q, alpha, beta = rotation_factors(angle)
-    r_k = rot.shear_rotate(img, alpha, beta, 0.0, quarter=q)
+    # the segmentation step runs the same kernels at B = SEG_B
+    qkv_s, dout_s = qkv[:SEG_B], dout[:SEG_B]
+    out_s, lse_s = da.attention_fwd(qkv_s, HEADS, scale)
+    dq_s = da.attention_bwd(qkv_s, out_s, lse_s, dout_s, HEADS, scale)
     torch.cuda.synchronize()
-    r_p = rot.shear_rotate_plain(img, alpha, beta, 0.0, quarter=q)
-    if not torch.equal(r_k, r_p):
-        n_bad = int((r_k != r_p).sum())
-        raise AssertionError(f"shear_rotate: {n_bad} elements differ from the "
-                             "plain version (must be element-exact)")
-    err = (r_k.float() - r_p.float()).abs().max().item()
-    ms = cuda_ms(lambda: rot.shear_rotate(img, alpha, beta, 0.0, quarter=q))
-    plain_ms = cuda_ms(lambda: rot.shear_rotate_plain(img, alpha, beta, 0.0,
-                                                      quarter=q))
-    # no matrix products; bytes: the image in and out, 3 floats per image
-    results.append(result(
-        "shear_rotate", "rotate.cu", "ssl4gie_tpu/kernels/rotate.py:33", err,
-        ms, plain_ms, None, 0, 2 * img.numel() * 2 + B * 3 * 4))
-    print(f"[kernel] shear rotate   B={B} {IMG}x{IMG}x3 bf16 (rot90 fold in "
-          f"the kernel): element-exact; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms  [{card}]", flush=True)
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv_s, HEADS, scale)
+    err_f = check_close("attention_fwd (seg batch)", out_s, out_p, tol)
+    check_close("attention_fwd lse (seg batch)", lse_s, lse_p, 2.0 ** -16)
+    err_b = check_close("attention_bwd (seg batch)", dq_s,
+                        da.fused_qkv_attention_bwd_plain(qkv_s, dout_s, HEADS,
+                                                         scale), tol)
+    print(f"[kernel] attention fwd / bwd at the seg step's B={SEG_B}: "
+          f"max|err| {err_f:.3g} / {err_b:.3g} (tol {tol:.3g} rel)",
+          flush=True)
+    return results
+
+
+def rotate_kernel_phase(card: str) -> list[dict]:
+    """The rotation kernel against its plain version at both of its path
+    shapes, element for element at random angles and the boundary angles;
+    timed per call through the wrapper and back to back by its C entry
+    point, cycling over input/output pairs that exceed the card's L2
+    (`benchmarks/bench_rotate.py`, which also compares two checkouts)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    results = []
+    for name, shape in brot.SHAPES.items():
+        nb, h, w, c = shape
+        gs, factors = brot.rotation_case(shape, gen)
+        brot.check_exact(gs, factors)
+        per_call, entry = brot.cycled(gs, factors)
+        ms, b2b_ms = brot.per_call_ms(per_call), brot.back_to_back_ms(entry)
+        q, alpha, beta = factors
+        g, pairs = gs[0], len(gs)
+        plain_ms = cuda_ms(lambda: rot.shear_rotate_plain(g, alpha, beta, 0.0,
+                                                          quarter=q))
+        del gs, g
+        # no matrix products; bytes: the image in and out, 3 numbers an image
+        nbytes = 2 * math.prod(shape) * 2 + nb * 3 * 4
+        r = result(name, "rotate.cu", "ssl4gie_tpu/kernels/rotate.py:33", 0.0,
+                   ms, plain_ms, None, 0, nbytes, shape=list(shape),
+                   b2b_ms=b2b_ms)
+        results.append(r)
+        print(f"[kernel] {name} {nb}x{h}x{w}x{c} bf16 (rot90 fold in the "
+              f"kernel): element-exact; {ms:.4f} ms per call, {b2b_ms:.4f} ms "
+              f"back to back ({r['bound_ms'] / b2b_ms:.2f} of the bound; "
+              f"{brot.B2B_RUNS} launches cycling over {pairs} input/output "
+              f"pairs, past the L2), plain {plain_ms:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms  [{card}]", flush=True)
     return results
 
 
@@ -729,6 +776,94 @@ def main_path(card: str) -> dict:
     if err > LOGIT_TOL * scale:
         raise AssertionError(f"logits disagree: {err} > {LOGIT_TOL} * {scale}")
     return launches
+
+SEG_COUNTERS = {"dense_attention_fwd_seg": da.attention_fwd,
+                "dense_attention_bwd_seg": da.attention_bwd,
+                "shear_rotate_seg": rot.shear_rotate}
+
+
+def seg_setup():
+    """The full-width ViT-B/16 + DPT seg model (random weights from SEED),
+    its optimizer, the seg full step, a synthetic uint8 batch and its 0/1
+    masks on the card (as `benchmarks/bench_segmentation.py` makes them) and
+    a generator on the card (augmentation factors and the head's dropout)."""
+    dev = torch.device("cuda")
+    model = ViTDenseModel(dense="seg", dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(SEED),
+                          device=dev)
+    rng = np.random.default_rng(SEED)
+    img_u8 = torch.from_numpy(
+        rng.integers(0, 256, (SEG_B, IMG, IMG, 3), dtype=np.uint8)).to(dev)
+    mask = torch.from_numpy(
+        (rng.random((SEG_B, IMG, IMG, 1)) > 0.5).astype(np.float32)).to(dev)
+    return (model, make_adamw(model.parameters(), LR),
+            make_full_step(segmentation_task()), img_u8, mask,
+            torch.Generator(device=dev).manual_seed(SEED))
+
+
+def seg_path(card: str) -> dict:
+    """The full-width ViT-B/16 + DPT segmentation train step, a few times;
+    returns the launch counts."""
+    model, optimizer, full_step, img_u8, mask, gen = seg_setup()
+    depth = len(model.backbone.blocks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in SEG_COUNTERS.values():
+        fn.launches = 0
+    losses = []
+    n_steps = SEG_WARMUP_STEPS + SEG_TIMED_STEPS
+    for step in range(n_steps):
+        if step == SEG_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(full_step(model, optimizer, img_u8, mask, gen)["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in SEG_COUNTERS.items()}
+    expected = {"dense_attention_fwd_seg": depth * n_steps,
+                "dense_attention_bwd_seg": depth * n_steps,
+                "shear_rotate_seg": n_steps}
+    print(f"[seg] launches over {n_steps} steps: {launches} (expected "
+          f"{expected})", flush=True)
+    if launches != expected:
+        raise AssertionError("the segmentation path did not run through the "
+                             f"kernels as expected: {launches} != {expected}")
+    losses = [float(x) for x in losses]
+    print(f"[seg] losses: {losses}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    ms_step = dt / SEG_TIMED_STEPS * 1e3
+    print(f"[seg] ViT-B/16 + DPT 224 px segmentation step, B={SEG_B}, bf16 "
+          f"compute / f32 AdamW, seg augmentation (affine on the "
+          f"{SEG_CANVAS} px canvas) on device: {ms_step:.2f} ms/step, "
+          f"{SEG_B * SEG_TIMED_STEPS / dt:.1f} img/s (mean of "
+          f"{SEG_TIMED_STEPS} steps after {SEG_WARMUP_STEPS} warm-up), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+          f"[{card}]", flush=True)
+
+    # the card's bf16 logits against a float32 CPU run of the same weights
+    # and BatchNorm statistics (plain attention) on a small input
+    x = eval_batch(img_u8[:SEG_REF_B])
+    model.eval()
+    with torch.no_grad():
+        logits = model(x).float().cpu()
+        ref_model = ViTDenseModel(dense="seg", dtype=torch.float32,
+                                  device="cpu")
+        ref_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        ref = ref_model.eval()(x.cpu())
+    if (logits.shape != (SEG_REF_B, IMG, IMG, 1)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"bad seg logits {tuple(logits.shape)}")
+    err = (logits - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"[seg] logits bf16 on card vs f32 on CPU (B={SEG_REF_B}): "
+          f"max|err|={err:.4g}, max|ref|={scale:.4g}", flush=True)
+    if err > LOGIT_TOL * scale:
+        raise AssertionError(f"seg logits disagree: {err} > {LOGIT_TOL} * "
+                             f"{scale}")
+    return launches
+
 
 MLP_SHAPES = {"encoder": (MAE_ENC_TOKENS, 768, 3072),
               "decoder": (MAE_DEC_TOKENS, MAE_DEC_DIM, 4 * MAE_DEC_DIM)}
@@ -1272,6 +1407,13 @@ def profile_cls(card: str, out_dir: str) -> None:
                   TIMED_STEPS, out_dir, "cls_profile.txt")
 
 
+def profile_seg(card: str, out_dir: str) -> None:
+    """torch.profiler over SEG_TIMED_STEPS segmentation steps."""
+    model, optimizer, full_step, img_u8, mask, gen = seg_setup()
+    profile_steps(card, lambda: full_step(model, optimizer, img_u8, mask, gen),
+                  SEG_TIMED_STEPS, out_dir, "seg_profile.txt")
+
+
 def profile_mae(card: str, out_dir: str) -> None:
     """torch.profiler over MAE_TIMED_STEPS MAE steps, fused MLP on."""
     model, optimizer, full_step, img_u8, gen = mae_setup()
@@ -1323,8 +1465,9 @@ def profile_det(card: str, out_dir: str) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile the classification, detection "
-                             "and MAE steps; the tables go to DIR")
+                        help="also profile the classification, "
+                             "segmentation, detection and MAE steps; the "
+                             "tables go to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1359,10 +1502,12 @@ def main() -> None:
                          (1, 128), (2, 128))))
 
     phases = [("kernels (classification shapes)", kernel_phase),
+              ("kernels (rotation, both shapes)", rotate_kernel_phase),
               ("kernels (detection shapes)", det_kernel_phase),
               ("kernels (MAE shapes)", mae_kernel_phase),
               ("kernels (A/B variants)", variant_kernel_phase),
               ("classification path", main_path),
+              ("segmentation path", seg_path),
               ("detection path", det_path),
               ("MAE path", mae_path),
               ("kernel A/B harnesses", harness_path)]
@@ -1380,6 +1525,7 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     if args.profile:
         profile_cls(card, args.profile)
+        profile_seg(card, args.profile)
         profile_det(card, args.profile)
         profile_mae(card, args.profile)
     print(card)

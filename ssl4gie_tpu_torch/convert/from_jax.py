@@ -1,15 +1,17 @@
 """JAX param tree <-> this port's state_dict.
 
 The inverse of `ssl4gie_tpu/convert/torch_names.py:vit_torch_to_flax` for the
-classifier, and both directions for the ViT-B Faster R-CNN and the MAE
-pretraining model: flax Conv
-kernels (kh, kw, I, O) become torch (O, I, kh, kw); flax ConvTranspose
-kernels (kh, kw, I, O) become torch (I, O, kh, kw) flipped in both spatial
-axes (flax's default `transpose_kernel=False` with SAME padding at k = s = 2
-gives out[2i] = w[1] x[i], out[2i+1] = w[0] x[i]; torch's conv_transpose2d
-gives out[2i+a] = w[a] x[i]); Dense kernels (I, O) become Linear weights
-(O, I); LayerNorm `scale` becomes `weight`. Used by the tests and by
-anything that must run both packages from one weight set.
+classifier, and both directions for the ViT-B Faster R-CNN, the MAE
+pretraining model and the ViT dense model (with its BatchNorm statistics):
+flax Conv kernels (kh, kw, I, O) become torch (O, I, kh, kw); flax
+ConvTranspose kernels (kh, kw, I, O) become torch (I, O, kh, kw) flipped in
+both spatial axes (flax's default `transpose_kernel=False` with SAME
+padding at k = s gives out[k i + a] = w[k - 1 - a] x[i]; torch's
+conv_transpose2d gives out[k i + a] = w[a] x[i]); Dense kernels (I, O)
+become Linear weights (O, I); LayerNorm and BatchNorm `scale` becomes
+`weight`, and BatchNorm's batch_stats `mean` and `var` become
+`running_mean` and `running_var`. Used by the tests and by anything that
+must run both packages from one weight set.
 """
 
 from __future__ import annotations
@@ -69,15 +71,19 @@ def vit_classifier_params_to_torch(params) -> dict[str, torch.Tensor]:
 _LEAVES = {
     "dense": (("kernel", "weight"), ("bias", "bias")),
     "conv": (("kernel", "weight"), ("bias", "bias")),
+    "conv_nb": (("kernel", "weight"),),         # a conv with no bias
     "deconv": (("kernel", "weight"), ("bias", "bias")),
     "ln": (("scale", "weight"), ("bias", "bias")),
+    "bn": (("scale", "weight"), ("bias", "bias")),
 }
+# a BatchNorm's batch_stats leaves
+_STATS = (("mean", "running_mean"), ("var", "running_var"))
 
 
 def _kernel_to_torch(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "dense":
         return a.T
-    if kind == "conv":
+    if kind in ("conv", "conv_nb"):
         return a.transpose(3, 2, 0, 1)
     if kind == "deconv":
         return a[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -87,7 +93,7 @@ def _kernel_to_torch(a: np.ndarray, kind: str) -> np.ndarray:
 def _kernel_to_flax(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "dense":
         return a.T
-    if kind == "conv":
+    if kind in ("conv", "conv_nb"):
         return a.transpose(2, 3, 1, 0)
     if kind == "deconv":
         return a.transpose(2, 3, 0, 1)[::-1, ::-1]
@@ -232,3 +238,84 @@ def mae_state_dict_to_params(sd) -> dict:
     return _to_flax(sd, _mae_layers(count("blocks."), count("decoder_blocks.")),
                     {"cls_token": sd["cls_token"],
                      "mask_token": sd["mask_token"]})
+
+
+# ------------------------------------------------------- ViT dense + DPT
+
+def _dpt_layers(seg: bool):
+    """(flax path, torch module name, kind) of every layer of the DPT
+    decoder, relative to the decoder."""
+    layers = []
+    for i in range(1, 5):
+        layers.append(((f"proj{i}",), f"proj{i}", "conv"))
+        layers.append(((f"layer{i}_rn",), f"layer{i}_rn", "conv_nb"))
+    layers += [(("resample1",), "resample1", "deconv"),
+               (("resample2",), "resample2", "deconv"),
+               (("resample4",), "resample4", "conv")]
+    conv = "conv_nb" if seg else "conv"
+    for i in (4, 3, 2, 1):
+        for rcu in (("rcu2",) if i == 4 else ("rcu1", "rcu2")):
+            pre = (f"refinenet{i}", rcu)
+            for c in ("conv1", "conv2"):
+                layers.append((pre + (c,), ".".join(pre + (c,)), conv))
+            if seg:
+                for b in ("bn1", "bn2"):
+                    layers.append((pre + (b,), ".".join(pre + (b,)), "bn"))
+        layers.append(((f"refinenet{i}", "out_conv"),
+                       f"refinenet{i}.out_conv", "conv"))
+    if seg:
+        return layers + [(("head_conv1",), "head_conv1", "conv_nb"),
+                         (("head_bn",), "head_bn", "bn"),
+                         (("head_conv2",), "head_conv2", "conv")]
+    return layers + [((f"head_conv{i}",), f"head_conv{i}", "conv")
+                     for i in (1, 2, 3)]
+
+
+def _vit_dense_layers(depth: int, seg: bool):
+    """The same for `ViTDenseModel`: the dense-mode backbone (no final
+    norm) under `backbone`, the decoder under `decoder`."""
+    pre = lambda fp, layers: [((fp,) + p, f"{fp}.{n}", k)
+                              for p, n, k in layers]
+    return (pre("backbone", _backbone_layers(depth)[:-1])
+            + pre("decoder", _dpt_layers(seg)))
+
+
+def vit_dense_params_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
+    """params, batch_stats: the JAX `ViTDenseModel` variables as nested
+    dicts of arrays (batch_stats empty for depth). Returns the port's
+    `ViTDenseModel` state_dict, BatchNorm running statistics included
+    (float32 CPU tensors)."""
+    bb = params["backbone"]
+    layers = _vit_dense_layers(_depth(bb), "head_bn" in params["decoder"])
+    sd = _to_torch(params, layers,
+                   {"backbone.cls_token": _tensor(bb["cls_token"]),
+                    "backbone.pos_embed": _tensor(bb["pos_embed"])})
+    for path, name, kind in layers:
+        if kind == "bn":
+            node = batch_stats
+            for p in path:
+                node = node[p]
+            for leaf, buf in _STATS:
+                sd[f"{name}.{buf}"] = _tensor(node[leaf])
+    return sd
+
+
+def vit_dense_state_dict_to_params(sd) -> tuple[dict, dict]:
+    """The inverse of `vit_dense_params_to_torch`: a port `ViTDenseModel`
+    state_dict -> (params, batch_stats), nested dicts of float32 numpy."""
+    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    depth = sum(1 for k in sd if k.startswith("backbone.blocks.")
+                and k.endswith(".norm1.weight"))
+    layers = _vit_dense_layers(depth, "decoder.head_bn.weight" in sd)
+    params = _to_flax(sd, layers, {"backbone": {
+        "cls_token": sd["backbone.cls_token"],
+        "pos_embed": sd["backbone.pos_embed"]}})
+    stats = {}
+    for path, name, kind in layers:
+        if kind == "bn":
+            node = stats
+            for p in path:
+                node = node.setdefault(p, {})
+            for leaf, buf in _STATS:
+                node[leaf] = np.ascontiguousarray(sd[f"{name}.{buf}"])
+    return params, stats

@@ -2,8 +2,12 @@
 
 One step is the forward, the loss, the backward over `accum_steps`
 microbatches with averaged gradients (a Python loop where the JAX package
-scans), then the optimizer step. `make_full_step` composes the on-device
-augmentation and that step, as the JAX package's bench step does.
+scans), then the optimizer step. The model runs in train mode: BatchNorm
+statistics update once per microbatch, as the JAX package threads its
+batch_stats through the scan, and dropout and stochastic depth draw from
+the step's generator. `make_full_step` composes the on-device augmentation
+(classification or segmentation) and that step, as the JAX package's bench
+steps do.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ import torch
 
 from ssl4gie_tpu_torch.core.train_state import apply_gradients
 from ssl4gie_tpu_torch.data.augment import (apply_classification,
-                                            sample_classification_params)
+                                            apply_segmentation,
+                                            sample_classification_params,
+                                            sample_segmentation_params)
 
 
 @dataclasses.dataclass
@@ -23,7 +29,7 @@ class TaskDefinition:
     """What a task contributes to the train step. (The JAX package's
     evaluation and selection fields come with the ported Trainer.)"""
     name: str
-    aug_mode: str                       # classification (the one ported)
+    aug_mode: str                       # classification | segmentation
     target_key: str                     # label | mask | depth
     loss_fn: Callable                   # (outputs, targets) -> scalar loss
 
@@ -32,7 +38,7 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
     """Returns train_step(model, optimizer, batch, generator=None) ->
     {"loss": scalar tensor}. `batch` holds "image" and `task.target_key`
     with the batch on dim 0, divisible by `accum_steps`; `generator` drives
-    any sampling inside the model (stochastic depth)."""
+    any sampling inside the model (stochastic depth, dropout)."""
 
     def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    batch: dict, generator: torch.Generator | None = None):
@@ -60,18 +66,25 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
 
 
 def make_full_step(task: TaskDefinition, accum_steps: int = 1):
-    """Returns full_step(model, optimizer, img_u8, labels, generator): sample
-    the augmentation from `generator`, augment the uint8 batch on its device,
-    then take one train step."""
-    if task.aug_mode != "classification":
+    """Returns full_step(model, optimizer, img_u8, targets, generator):
+    sample the augmentation from `generator`, augment the uint8 batch (and,
+    for segmentation, its (B, H, W, 1) mask with it) on its device, then
+    take one train step, whose dropout also draws from `generator`."""
+    if task.aug_mode not in ("classification", "segmentation"):
         raise NotImplementedError(f"aug_mode {task.aug_mode!r}: only "
-                                  "classification is ported")
+                                  "classification and segmentation are "
+                                  "ported")
     step = make_train_step(task, accum_steps)
 
-    def full_step(model, optimizer, img_u8, labels, generator):
-        params = sample_classification_params(img_u8.shape[0], generator)
-        img = apply_classification(img_u8, params)
-        return step(model, optimizer, {"image": img, task.target_key: labels},
+    def full_step(model, optimizer, img_u8, targets, generator):
+        B = img_u8.shape[0]
+        if task.aug_mode == "segmentation":
+            params = sample_segmentation_params(B, img_u8.shape[1], generator)
+            img, targets = apply_segmentation(img_u8, targets, params)
+        else:
+            params = sample_classification_params(B, generator)
+            img = apply_classification(img_u8, params)
+        return step(model, optimizer, {"image": img, task.target_key: targets},
                     generator)
 
     return full_step

@@ -13,8 +13,11 @@ out of the composed index chain, so the port takes no P.
 `rotate_nearest_shear` first (q quarter turns per image), so the caller can
 hand over the unfolded image.
 
-On a CUDA tensor this runs the kernel of `csrc/rotate.cu` (bf16); on a CPU
-tensor, the plain PyTorch version below.
+On a CUDA tensor this runs the kernel of `csrc/rotate.cu` (bf16): one block
+per 32 x 32 output tile of an image, which follows each pixel's index chain
+once, stages the tile's source box in shared memory by 16-byte cp.async
+copies along the image's rows and writes the tile by 16-byte stores. On a CPU tensor it runs
+the plain PyTorch version below.
 """
 
 from __future__ import annotations
@@ -73,6 +76,9 @@ def shear_rotate(g: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
         raise ValueError(f"g must be a non-empty (B, H, W, C), got "
                          f"{tuple(g.shape)}")
     B, H, W, C = g.shape
+    if B > 65535 or max(H, W) >= 32768:
+        raise ValueError(f"the CUDA kernel takes B <= 65535 and H, W < 32768, "
+                         f"got {tuple(g.shape)}")
     if g.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bfloat16, got {g.dtype}")
     if not g.is_contiguous():

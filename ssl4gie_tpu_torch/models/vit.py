@@ -15,9 +15,12 @@ Ported so far:
   interpolated bilinearly to the patch grid and its cls row dropped; blocks
   GLOBAL_ATTN_BLOCKS attend globally and the others in DET_WINDOW x
   DET_WINDOW windows; the final norm is applied, then the tokens are
-  returned as a (B, GH, GW, C) map.
-Mode "dense", other pooled image sizes, the conv stem and the probe
-BatchNorm raise.
+  returned as a (B, GH, GW, C) map;
+- mode "dense" (the DPT decoder's input), at 224 px: the token sequences
+  (B, 1 + N, C), cls included and no final norm (the module has none),
+  after blocks `dense_taps` (DENSE_TAPS, as the JAX field's default).
+Other pooled or dense image sizes, the conv stem and the probe BatchNorm
+raise.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ssl4gie_tpu_torch.models.layers import (Block, PatchEmbed,
 
 BASE_GRID = 14         # position embedding stored at the pretraining grid
 OUT_TOKENS = ("cls", "spatial", "global_pool")
+DENSE_TAPS = (2, 5, 8, 11)           # dense mode: the DPT decoder's taps
 GLOBAL_ATTN_BLOCKS = (2, 5, 8, 11)   # det mode: the rest are windowed
 DET_WINDOW = 16
 
@@ -43,11 +47,12 @@ class ViTBackbone(nn.Module):
                  mlp_ratio: float = 4.0, mode: str = "pooled",
                  out_token: str = "cls", pos_embed_type: str = "learned",
                  stem: str = "patch", dtype=torch.float32,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0,
+                 dense_taps: tuple = DENSE_TAPS):
         super().__init__()
-        if mode not in ("pooled", "det"):
-            raise NotImplementedError(f"mode {mode!r}: only 'pooled' and "
-                                      "'det' are ported")
+        if mode not in ("pooled", "dense", "det"):
+            raise ValueError(f"mode {mode!r} not in ('pooled', 'dense', "
+                             "'det')")
         det = mode == "det"
         if not det and img_size // patch_size != BASE_GRID:
             raise NotImplementedError(
@@ -60,6 +65,7 @@ class ViTBackbone(nn.Module):
         if pos_embed_type not in ("learned", "sincos"):
             raise ValueError(f"pos_embed_type {pos_embed_type!r}")
         self.mode = mode
+        self.dense_taps = tuple(dense_taps)
         self.out_token = out_token
         self.pos_embed_type = pos_embed_type
         self.dtype = dtype
@@ -76,10 +82,11 @@ class ViTBackbone(nn.Module):
                                GLOBAL_ATTN_BLOCKS else None))
             for i in range(depth))
         # the global_pool recipe has fc_norm and no final norm
-        # (`Models/mae/models_vit.py:31`)
-        norm_name = ("fc_norm" if out_token == "global_pool" and not det
-                     else "norm")
-        self.add_module(norm_name, nn.LayerNorm(embed_dim, eps=1e-6))
+        # (`Models/mae/models_vit.py:31`); dense mode has neither
+        if mode != "dense":
+            norm_name = ("fc_norm" if out_token == "global_pool" and not det
+                         else "norm")
+            self.add_module(norm_name, nn.LayerNorm(embed_dim, eps=1e-6))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.patch_embed.reset_parameters(generator)
@@ -93,14 +100,16 @@ class ViTBackbone(nn.Module):
                 trunc_normal_(self.pos_embed, 0.02, generator)
         for blk in self.blocks:
             blk.reset_parameters(generator)
-        self.final_norm().reset_parameters()
+        if self.mode != "dense":
+            self.final_norm().reset_parameters()
 
     def final_norm(self) -> nn.LayerNorm:
         return self.fc_norm if hasattr(self, "fc_norm") else self.norm
 
     def forward(self, x, generator: torch.Generator | None = None):
-        """x: (B, S, S, 3) NHWC -> pooled features (B, C), or in det mode
-        the normed (B, S/16, S/16, C) map, in `dtype`."""
+        """x: (B, S, S, 3) NHWC -> pooled features (B, C), in det mode the
+        normed (B, S/16, S/16, C) map, in dense mode the list of the
+        `dense_taps` blocks' (B, 1 + N, C) outputs; in `dtype`."""
         x, (gh, gw) = self.patch_embed(x)
         B, N, C = x.shape
         if self.mode == "det":
@@ -113,8 +122,13 @@ class ViTBackbone(nn.Module):
             return x.reshape(B, gh, gw, C)
         cls = self.cls_token.to(self.dtype).expand(B, 1, C)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
-        for blk in self.blocks:
+        taps = []
+        for i, blk in enumerate(self.blocks):
             x = blk(x, generator)
+            if i in self.dense_taps:
+                taps.append(x)
+        if self.mode == "dense":
+            return taps
         if self.out_token == "global_pool":
             # pre-norm patch-token mean, then fc_norm
             return layer_norm(x[:, 1:].mean(dim=1), self.fc_norm, self.dtype)

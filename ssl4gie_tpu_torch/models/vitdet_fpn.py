@@ -29,8 +29,9 @@ from ssl4gie_tpu_torch.models.layers import init_lecun, layer_norm
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
               padding: int = 0) -> torch.Tensor:
     """An NHWC convolution with `conv`'s weights in `dtype` (a 1x1 one as a
-    matmul over channels)."""
-    w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+    matmul over channels); `conv` may have no bias."""
+    w = conv.weight.to(dtype)
+    b = None if conv.bias is None else conv.bias.to(dtype)
     if w.shape[-2:] == (1, 1) and conv.stride == (1, 1):
         return F.linear(x.to(dtype), w[:, :, 0, 0], b)
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), w, b, stride=conv.stride,

@@ -1,1 +1,2 @@
-"""Task wiring: the detection train step and its augmentation."""
+"""Task wiring: the detection train step and its augmentation, and the
+segmentation task."""

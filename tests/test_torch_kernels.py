@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from ssl4gie_tpu_torch.data import augment as aug
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels import dense_attention as da
 from ssl4gie_tpu_torch.kernels import rotate as rot
@@ -414,3 +415,92 @@ def test_shear_rotate_kernel_matches_plain_on_card(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, rot.shear_rotate_plain(img, alpha, beta, 0.0,
                                                    quarter=q))
+
+
+BOUNDARY_ANGLES = (0.0, 90.0, 180.0, -90.0, 45.0, -45.0, 135.0, -135.0)
+
+
+@pytest.mark.parametrize("size", [224, 352])
+def test_rotation_source_box_fits_the_staged_box(size):
+    """The kernel stages each 32 x 32 output tile's source box in shared
+    memory sized for csrc/rotate.cu's kBoxPix pixels a side. Over the
+    boundary angles and 60 random ones, every tile's box (in the folded
+    canvas: the fold only permutes axes) is at most 46 x 46 pixels."""
+    import re
+    from pathlib import Path
+    src = Path(rot.__file__).resolve().parent.parent / "csrc" / "rotate.cu"
+    box_pix = int(re.search(r"kBoxPix = (\d+)", src.read_text())[1])
+    angle = torch.cat([torch.tensor(BOUNDARY_ANGLES),
+                       torch.rand(60, generator=torch.Generator()
+                                  .manual_seed(0)) * 360 - 180])
+    _, alpha, beta = aug.rotation_factors(angle)
+    n, t = angle.shape[0], size // 32
+    c = (size - 1) / 2.0
+    y = torch.arange(size).reshape(1, size, 1)
+    x = torch.arange(size).reshape(1, 1, size)
+    a, be = alpha.reshape(n, 1, 1), beta.reshape(n, 1, 1)
+    u = x + rot._shift(a, y, c)
+    y2 = y + rot._shift(be, u, c)
+    x2 = u + rot._shift(a, y2, c)
+    valid = (y2 >= 0) & (y2 < size) & (x2 >= 0) & (x2 < size)
+    worst = 0
+    for v in (y2, x2):
+        tiles = v.reshape(n, t, 32, t, 32).transpose(2, 3)
+        ok = valid.reshape(n, t, 32, t, 32).transpose(2, 3)
+        big = torch.iinfo(torch.int64).max
+        hi = torch.where(ok, tiles, -big).amax(dim=(3, 4))
+        lo = torch.where(ok, tiles, big).amin(dim=(3, 4))
+        worst = max(worst, int((hi - lo + 1)[ok.any(dim=(3, 4))].max()))
+    assert worst == 46 and worst <= box_pix
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 224, 224, 3), (48, 352, 352, 5)])
+@pytest.mark.parametrize("fill", [0.0, -1.0])
+def test_rotate_kernel_matches_plain_on_card(cuda, shape, fill):
+    """Both path shapes, random and boundary angles, element for
+    element."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    g = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    angle = torch.rand((shape[0],), generator=gen, device=cuda) * 360 - 180
+    angle[:len(BOUNDARY_ANGLES)] = torch.tensor(BOUNDARY_ANGLES, device=cuda)
+    q, alpha, beta = aug.rotation_factors(angle)
+    got = rot.shear_rotate(g, alpha, beta, fill, quarter=q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rot.shear_rotate_plain(g, alpha, beta, fill,
+                                                   quarter=q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 100, 100, 1), (2, 70, 90, 3),
+                                   (2, 40, 40, 9)])
+def test_rotate_kernel_odd_shapes_on_card(cuda, shape):
+    """Rows that are not a multiple of 16 bytes, partial tiles, non-square
+    canvases without the fold, and a channel count with no instantiation of
+    its own; shear factors past 45 degrees (a box larger than the staged
+    one) read pixel by pixel."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    g = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    Bn = shape[0]
+    alpha = torch.rand((Bn,), generator=gen, device=cuda) * 3 - 1.5
+    beta = torch.rand((Bn,), generator=gen, device=cuda) * 3 - 1.5
+    got = rot.shear_rotate(g, alpha, beta, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rot.shear_rotate_plain(g, alpha, beta, 0.5))
+
+
+@pytest.mark.gpu
+def test_seg_affine_on_card_goes_through_the_kernel(cuda, monkeypatch):
+    """The seg augmentation's affine in bf16 on the card launches the
+    kernel once, and gives what the same algorithm gives on the card with
+    the rotation's plain version in its place: element for element."""
+    gen = torch.Generator().manual_seed(2)
+    img = torch.randn((4, 224, 224, 3), generator=gen).bfloat16().to(cuda)
+    mask = (torch.rand((4, 224, 224, 1), generator=gen) > 0.5).float().to(cuda)
+    p = aug.sample_affine_params(4, 224, gen)
+    n = rot.shear_rotate.launches
+    gi, gm = aug.apply_affine(img, mask, p)
+    assert rot.shear_rotate.launches == n + 1
+    monkeypatch.setattr(aug, "shear_rotate", rot.shear_rotate_plain)
+    ri, rm = aug.apply_affine(img, mask, p)
+    assert torch.equal(gi, ri) and torch.equal(gm, rm)

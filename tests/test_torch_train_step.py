@@ -228,8 +228,8 @@ def test_adamw_clip_with_decay_mask_matches_optax():
 
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter, the
-    detection modules among them, leaves jax, flax and optax out of
-    sys.modules."""
+    detection, MAE and segmentation modules among them, leaves jax, flax
+    and optax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -241,7 +241,9 @@ def test_port_imports_no_jax():
         " 'ops.boxes', 'ops.nms', 'ops.resize', 'ops.roi_align',"
         " 'models.vitdet_fpn', 'models.rpn', 'models.roi_heads',"
         " 'models.faster_rcnn', 'tasks.detection', 'kernels.fused_mlp',"
-        " 'ssl.mae', 'ssl.pretrain', 'data.ssl_augment'):\n"
+        " 'ssl.mae', 'ssl.pretrain', 'data.ssl_augment', 'models.batchnorm',"
+        " 'models.dpt', 'models.factory', 'metrics.segmentation',"
+        " 'tasks.segmentation', 'benchmarks.bench_rotate'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
