@@ -16,12 +16,15 @@
    backward also prints its rate, counting the five products of the
    function (S, dP, dV, dQ, dK) as the bound does.
    - classification: B=64 images, ViT-B/16 attention N=197 H=12 Dh=64;
-     the same kernels also held at the segmentation step's B=48;
-   - rotation, at both of its path shapes (the classification batch, 64 x
-     224 x 224 x 3, and the segmentation affine's canvas, 48 x 352 x 352
-     x 5), at random and boundary angles, element for element, per call
-     and back to back, cycling over input/output pairs that exceed the
-     card's 50 MB L2 (`ssl4gie_tpu_torch/benchmarks/bench_rotate.py`);
+     the same kernels also held to their plain versions
+     and timed at the seg and ViT depth steps' B=48;
+   - rotation, at its path shapes (the ViT classification batch, 64 x 224
+     x 224 x 3, the segmentation affine's canvas, 48 x 352 x 352 x 5, of
+     the ViT and the RN50 seg steps, and the RN50 classification batch, 48
+     x 224 x 224 x 3), at random and boundary angles, element for element,
+     per call and back to back, cycling over input/output pairs that
+     exceed the card's 50 MB L2
+     (`ssl4gie_tpu_torch/benchmarks/bench_rotate.py`);
    - detection: windowed attention on a (4, 64, 64, 3*768) grid with 16x16
      windows, flash attention at (48, 4096, 64), and masked flash cases
      (N=1024, n_valid=1000 and 3);
@@ -45,14 +48,22 @@
    must grow by exactly 12 attention forwards, 12 attention backwards and one
    rotation per step; the losses must be finite; the model's logits must agree
    with a float32 CPU run of the same weights on a small input.
-   Segmentation path: the ViT-B/16 + DPT seg step at full width, B=48
-   (uint8 batch and 0/1 masks -> on-device seg augmentation: jitter, blur,
-   normalize, joint flips, the joint random affine whose rotation runs on
-   the 352 px canvas -> forward/backward of the soft Dice loss with
-   BatchNorm in train mode and the head's dropout -> AdamW), a few steps.
-   The counters must grow by exactly 12 attention forwards, 12 backwards
-   and one rotation per step; the losses must be finite; the bf16 logits
-   must agree with a float32 CPU run of the same weights on a small input.
+   Then the dense-task and RN50 paths (DENSE_PATHS), each at full width,
+   B=48, a few steps: the ViT-B/16 + DPT segmentation step (uint8 batch
+   and 0/1 masks -> on-device seg augmentation: jitter, blur, normalize,
+   joint flips, the joint random affine whose rotation runs on the 352 px
+   canvas -> forward/backward of the soft Dice loss with BatchNorm in
+   train mode and the head's dropout -> AdamW; 12 attention forwards, 12
+   backwards and one rotation per step), the RN50 + DeepLabV3+
+   segmentation step (the same augmentation and loss; one rotation per
+   step), the ViT-B/16 + DPT depth step (the depth augmentation, the SSI
+   loss; 12 + 12 attention launches per step), the RN50 + the
+   reference's decoder depth step (no kernel) and the RN50 classification
+   step (the classification augmentation; one rotation per step). Every
+   kernel counter must grow by exactly those launches and the others by
+   none; the losses must be finite; the bf16 eval output must agree with
+   a float32 CPU run of the same weights and BatchNorm statistics at B=2.
+   Each prints ms/step, img/s and peak memory.
 4. Detection path: the ViT-B Faster R-CNN train step at full width, 1024 px,
    B=4 (uint8 batch -> on-device `detection_augment` -> forward/backward of
    the four losses -> AdamW), a few steps. The counters must grow by exactly
@@ -85,9 +96,11 @@
 
     python3 chip_smoke.py --profile DIR
 
-also profiles a few classification, segmentation, detection and MAE
-steps with `torch.profiler` (device time by kernel, the device's busy
-share, the NMS slot loop's host time) and writes the tables to DIR.
+also profiles a few classification, segmentation, RN50 segmentation, ViT
+depth, detection and MAE steps with `torch.profiler` (device time by
+kernel, the device's busy share, the NMS slot loop's host time, the RN50
+and depth steps' NCHW <-> NHWC layout conversions) and writes the tables
+to DIR.
 
 Any failure raises (nonzero exit, no result). There is no CPU fallback.
 """
@@ -96,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import math
 import re
@@ -124,7 +138,8 @@ from ssl4gie_tpu_torch.kernels import rotate as rot
 from ssl4gie_tpu_torch.kernels import window_attention as wa
 from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
 from ssl4gie_tpu_torch.models import layers
-from ssl4gie_tpu_torch.models.factory import ViTDenseModel
+from ssl4gie_tpu_torch.models.factory import (DeepLabV3Plus, ResNetClassifier,
+                                              ResNetDepthModel, ViTDenseModel)
 from ssl4gie_tpu_torch.models.faster_rcnn import FasterRCNN
 from ssl4gie_tpu_torch.models.vit import ViTClassifier
 from ssl4gie_tpu_torch.ssl.mae import MAE
@@ -134,6 +149,7 @@ from ssl4gie_tpu_torch.ssl.pretrain import (MAEPretrainConfig,
                                             make_mae_optimizer, make_schedule)
 from ssl4gie_tpu_torch.tasks.detection import (SyntheticDetectionSource,
                                                make_detection_full_step)
+from ssl4gie_tpu_torch.tasks.depth import depth_task
 from ssl4gie_tpu_torch.tasks.segmentation import segmentation_task
 
 SEED = 0
@@ -352,8 +368,8 @@ def kernel_phase(card: str) -> list[dict]:
           f"plain (autograd) {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms "
           f"({tflops(work[0], lib_ms)})  [{card}]", flush=True)
 
-    # the segmentation step runs the same kernels at B = SEG_B
-    qkv_s, dout_s = qkv[:SEG_B], dout[:SEG_B]
+    # the segmentation and ViT depth steps run the same kernels at B = SEG_B
+    qkv_s, dout_s = qkv[:SEG_B].contiguous(), dout[:SEG_B].contiguous()
     out_s, lse_s = da.attention_fwd(qkv_s, HEADS, scale)
     dq_s = da.attention_bwd(qkv_s, out_s, lse_s, dout_s, HEADS, scale)
     torch.cuda.synchronize()
@@ -363,15 +379,41 @@ def kernel_phase(card: str) -> list[dict]:
     err_b = check_close("attention_bwd (seg batch)", dq_s,
                         da.fused_qkv_attention_bwd_plain(qkv_s, dout_s, HEADS,
                                                          scale), tol)
-    print(f"[kernel] attention fwd / bwd at the seg step's B={SEG_B}: "
-          f"max|err| {err_f:.3g} / {err_b:.3g} (tol {tol:.3g} rel)",
+    q, k, v = heads_of(qkv_s, HEADS)
+    fwd = result(
+        "dense_attention_fwd_seg", "dense_attention.cu",
+        "ssl4gie_tpu/kernels/dense_attention.py:64", err_f,
+        cuda_ms(lambda: da.attention_fwd(qkv_s, HEADS, scale)),
+        cuda_ms(lambda: da.fused_qkv_attention_plain(qkv_s, HEADS, scale)),
+        sdpa_ms(q, k, v, scale),
+        *attn_work(SEG_B, HEADS, TOKENS, HEAD_DIM, False))
+    x = qkv_s.detach().requires_grad_(True)
+    o = da.fused_qkv_attention_plain(x, HEADS, scale)
+    bwd = result(
+        "dense_attention_bwd_seg", "dense_attention.cu",
+        "ssl4gie_tpu/kernels/dense_attention.py:90", err_b,
+        cuda_ms(lambda: da.attention_bwd(qkv_s, out_s, lse_s, dout_s, HEADS,
+                                         scale)),
+        cuda_ms(lambda: torch.autograd.grad(o, x, dout_s,
+                                            retain_graph=True)),
+        sdpa_ms(q, k, v, scale, split_heads(dout_s, HEADS)),
+        *attn_work(SEG_B, HEADS, TOKENS, HEAD_DIM, True))
+    del x, o
+    # the ViT depth step's entries: the same shapes, timed once
+    results += [fwd, bwd, dict(fwd, name="dense_attention_fwd_vit_depth"),
+                dict(bwd, name="dense_attention_bwd_vit_depth")]
+    print(f"[kernel] attention fwd / bwd at the seg and depth steps' "
+          f"B={SEG_B}: max|err| {err_f:.3g} / {err_b:.3g} (tol {tol:.3g} "
+          f"rel); kernel {fwd['ms']:.4f} / {bwd['ms']:.4f} ms, plain "
+          f"{fwd['plain_ms']:.4f} / {bwd['plain_ms']:.4f} ms, sdpa "
+          f"{fwd['library_ms']:.4f} / {bwd['library_ms']:.4f} ms  [{card}]",
           flush=True)
     return results
 
 
 def rotate_kernel_phase(card: str) -> list[dict]:
-    """The rotation kernel against its plain version at both of its path
-    shapes, element for element at random angles and the boundary angles;
+    """The rotation kernel against its plain version at its path shapes,
+    element for element at random angles and the boundary angles;
     timed per call through the wrapper and back to back by its C entry
     point, cycling over input/output pairs that exceed the card's L2
     (`benchmarks/bench_rotate.py`, which also compares two checkouts)."""
@@ -400,7 +442,10 @@ def rotate_kernel_phase(card: str) -> list[dict]:
               f"{brot.B2B_RUNS} launches cycling over {pairs} input/output "
               f"pairs, past the L2), plain {plain_ms:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms  [{card}]", flush=True)
-    return results
+    # the RN50 seg step's affine runs the seg canvas: the same shape, timed
+    # once
+    seg = next(r for r in results if r["name"] == "shear_rotate_seg")
+    return results + [dict(seg, name="shear_rotate_rn50_seg")]
 
 
 def det_kernel_phase(card: str) -> list[dict]:
@@ -695,6 +740,10 @@ def variant_kernel_phase(card: str) -> list[dict]:
     return results
 
 
+CLS_TASK = TaskDefinition(name="classification", aug_mode="classification",
+                          target_key="label", loss_fn=weighted_cross_entropy)
+
+
 def cls_setup():
     """The full-width ViT-B/16 classifier (random weights from SEED), its
     optimizer, the full step, a synthetic uint8 batch and its labels on the
@@ -703,13 +752,12 @@ def cls_setup():
     model = ViTClassifier(NUM_CLASSES, dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(SEED),
                           device=dev)
-    task = TaskDefinition(name="classification", aug_mode="classification",
-                          target_key="label", loss_fn=weighted_cross_entropy)
     rng = np.random.default_rng(SEED)
     img_u8 = torch.from_numpy(
         rng.integers(0, 256, size=(B, IMG, IMG, 3), dtype=np.uint8)).to(dev)
     labels = torch.from_numpy(rng.integers(0, NUM_CLASSES, size=B)).to(dev)
-    return (model, make_adamw(model.parameters(), LR), make_full_step(task),
+    return (model, make_adamw(model.parameters(), LR),
+            make_full_step(CLS_TASK),
             img_u8, labels, torch.Generator().manual_seed(SEED))
 
 
@@ -777,38 +825,105 @@ def main_path(card: str) -> dict:
         raise AssertionError(f"logits disagree: {err} > {LOGIT_TOL} * {scale}")
     return launches
 
-SEG_COUNTERS = {"dense_attention_fwd_seg": da.attention_fwd,
-                "dense_attention_bwd_seg": da.attention_bwd,
-                "shear_rotate_seg": rot.shear_rotate}
+# every kernel's launch counter: a path's launches are checked on all of
+# them (those it does not run must stay at 0)
+COUNTERS = {"dense_attention_fwd": da.attention_fwd,
+            "dense_attention_bwd": da.attention_bwd,
+            "shear_rotate": rot.shear_rotate,
+            "window_attention_fwd": wa.window_attention_fwd,
+            "window_attention_bwd": wa.window_attention_bwd,
+            "flash_attention_fwd": fa.flash_fwd,
+            "flash_attention_bwd": fa.flash_bwd,
+            "fused_mlp_fwd": fm.mlp_fwd, "fused_mlp_bwd": fm.mlp_bwd,
+            "attention_v2_fwd": av.attention_v2_fwd,
+            "attention_v2_bwd": av.attention_v2_bwd,
+            "attention_save_p_fwd": av.attention_save_p_fwd,
+            "attention_save_p_bwd": av.attention_save_p_bwd,
+            "window_v2_fwd": av.window_v2_fwd,
+            "window_v2_bwd": av.window_v2_bwd}
 
 
-def seg_setup():
-    """The full-width ViT-B/16 + DPT seg model (random weights from SEED),
-    its optimizer, the seg full step, a synthetic uint8 batch and its 0/1
-    masks on the card (as `benchmarks/bench_segmentation.py` makes them) and
-    a generator on the card (augmentation factors and the head's dropout)."""
-    dev = torch.device("cuda")
-    model = ViTDenseModel(dense="seg", dtype=torch.bfloat16,
-                          generator=torch.Generator().manual_seed(SEED),
-                          device=dev)
+def dense_batch(kind: str):
+    """A synthetic uint8 batch of SEG_B images on the card and its targets:
+    0/1 masks (seg, as `benchmarks/bench_segmentation.py` makes them),
+    depth maps in [0, 1) (depth, as `benchmarks/bench_depth.py`), or
+    labels."""
     rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
     img_u8 = torch.from_numpy(
         rng.integers(0, 256, (SEG_B, IMG, IMG, 3), dtype=np.uint8)).to(dev)
-    mask = torch.from_numpy(
-        (rng.random((SEG_B, IMG, IMG, 1)) > 0.5).astype(np.float32)).to(dev)
+    if kind == "seg":
+        t = (rng.random((SEG_B, IMG, IMG, 1)) > 0.5).astype(np.float32)
+    elif kind == "depth":
+        t = rng.random((SEG_B, IMG, IMG, 1)).astype(np.float32)
+    else:
+        t = rng.integers(0, NUM_CLASSES, size=SEG_B)
+    return img_u8, torch.from_numpy(t).to(dev)
+
+
+# The dense-task and RN50 paths, each at full width, B = SEG_B (the
+# reference finetunes every task at 48): (what it is, the model (built from
+# a dtype and a device), the task, the batch kind, kernel launches per
+# step)
+DENSE_PATHS = {
+    "seg": ("ViT-B/16 + DPT 224 px segmentation step (BatchNorm in train "
+            "mode, the head's Dropout(0.1) live; the seg affine on the "
+            f"{SEG_CANVAS} px canvas)",
+            lambda dt, dev, gen=None: ViTDenseModel(
+                dense="seg", dtype=dt, generator=gen, device=dev),
+            segmentation_task, "seg",
+            {"dense_attention_fwd": 12, "dense_attention_bwd": 12,
+             "shear_rotate": 1}),
+    "rn50_seg": ("RN50 + DeepLabV3+ 224 px segmentation step (OS 16, ASPP "
+                 "12/24/36, its Dropout(0.5) live; the seg affine on the "
+                 f"{SEG_CANVAS} px canvas)",
+                 lambda dt, dev, gen=None: DeepLabV3Plus(
+                     1, dtype=dt, generator=gen, device=dev),
+                 segmentation_task, "seg", {"shear_rotate": 1}),
+    "vit_depth": ("ViT-B/16 + DPT 224 px depth step (SSI loss, alpha 0.1; "
+                  "jitter, blur, joint flips)",
+                  lambda dt, dev, gen=None: ViTDenseModel(
+                      dense="depth", dtype=dt, generator=gen, device=dev),
+                  depth_task, "depth",
+                  {"dense_attention_fwd": 12, "dense_attention_bwd": 12}),
+    "rn50_depth": ("RN50 + the reference's decoder 224 px depth step (SSI "
+                   "loss, alpha 0.1)",
+                   lambda dt, dev, gen=None: ResNetDepthModel(
+                       dtype=dt, generator=gen, device=dev),
+                   depth_task, "depth", {}),
+    "rn50_cls": ("RN50 224 px classification step (6 classes; the "
+                 "classification augmentation's rotation)",
+                 lambda dt, dev, gen=None: ResNetClassifier(
+                     NUM_CLASSES, dtype=dt, generator=gen, device=dev),
+                 lambda: CLS_TASK, "cls", {"shear_rotate": 1}),
+}
+
+
+def dense_setup(tag: str):
+    """A path of DENSE_PATHS: its model (bf16 compute over f32 masters,
+    random weights from SEED) on the card, its optimizer, the full step,
+    the batch and a generator on the card (augmentation factors, dropout)."""
+    _, build, task, kind, _ = DENSE_PATHS[tag]
+    dev = torch.device("cuda")
+    model = build(torch.bfloat16, dev, torch.Generator().manual_seed(SEED))
+    img_u8, targets = dense_batch(kind)
     return (model, make_adamw(model.parameters(), LR),
-            make_full_step(segmentation_task()), img_u8, mask,
+            make_full_step(task()), img_u8, targets,
             torch.Generator(device=dev).manual_seed(SEED))
 
 
-def seg_path(card: str) -> dict:
-    """The full-width ViT-B/16 + DPT segmentation train step, a few times;
-    returns the launch counts."""
-    model, optimizer, full_step, img_u8, mask, gen = seg_setup()
-    depth = len(model.backbone.blocks)
+def dense_path(tag: str, card: str) -> dict:
+    """A path of DENSE_PATHS, a few steps: each kernel counter must grow by
+    exactly its launches per step (0 for the kernels the path does not
+    run), the losses must be finite, and the model's bf16 eval output on
+    the card must agree with a float32 CPU run of the same weights and
+    BatchNorm statistics at B = SEG_REF_B within LOGIT_TOL of its largest
+    value. Returns the launch counts, keyed `<kernel>_<tag>`."""
+    what, build, _, _, per_step = DENSE_PATHS[tag]
+    model, optimizer, full_step, img_u8, targets, gen = dense_setup(tag)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in SEG_COUNTERS.values():
+    for fn in COUNTERS.values():
         fn.launches = 0
     losses = []
     n_steps = SEG_WARMUP_STEPS + SEG_TIMED_STEPS
@@ -816,52 +931,50 @@ def seg_path(card: str) -> dict:
         if step == SEG_WARMUP_STEPS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        losses.append(full_step(model, optimizer, img_u8, mask, gen)["loss"])
+        losses.append(full_step(model, optimizer, img_u8, targets,
+                                gen)["loss"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in SEG_COUNTERS.items()}
-    expected = {"dense_attention_fwd_seg": depth * n_steps,
-                "dense_attention_bwd_seg": depth * n_steps,
-                "shear_rotate_seg": n_steps}
-    print(f"[seg] launches over {n_steps} steps: {launches} (expected "
-          f"{expected})", flush=True)
+    launches = {f"{name}_{tag}": fn.launches
+                for name, fn in COUNTERS.items()}
+    expected = {f"{name}_{tag}": per_step.get(name, 0) * n_steps
+                for name in COUNTERS}
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"[{tag}] launches over {n_steps} steps: {ran or 'none'} (all "
+          "other kernels 0)", flush=True)
     if launches != expected:
-        raise AssertionError("the segmentation path did not run through the "
-                             f"kernels as expected: {launches} != {expected}")
+        raise AssertionError(f"the {tag} path did not run through the "
+                             f"kernels as expected: {launches} != "
+                             f"{expected}")
     losses = [float(x) for x in losses]
-    print(f"[seg] losses: {losses}", flush=True)
+    print(f"[{tag}] losses: {losses}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    ms_step = dt / SEG_TIMED_STEPS * 1e3
-    print(f"[seg] ViT-B/16 + DPT 224 px segmentation step, B={SEG_B}, bf16 "
-          f"compute / f32 AdamW, seg augmentation (affine on the "
-          f"{SEG_CANVAS} px canvas) on device: {ms_step:.2f} ms/step, "
+    print(f"[{tag}] {what}, B={SEG_B}, bf16 compute / f32 AdamW, aug on "
+          f"device: {dt / SEG_TIMED_STEPS * 1e3:.2f} ms/step, "
           f"{SEG_B * SEG_TIMED_STEPS / dt:.1f} img/s (mean of "
           f"{SEG_TIMED_STEPS} steps after {SEG_WARMUP_STEPS} warm-up), peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
           f"[{card}]", flush=True)
 
-    # the card's bf16 logits against a float32 CPU run of the same weights
-    # and BatchNorm statistics (plain attention) on a small input
     x = eval_batch(img_u8[:SEG_REF_B])
     model.eval()
     with torch.no_grad():
-        logits = model(x).float().cpu()
-        ref_model = ViTDenseModel(dense="seg", dtype=torch.float32,
-                                  device="cpu")
+        out = model(x).float().cpu()
+        ref_model = build(torch.float32, "cpu")
         ref_model.load_state_dict({k: v.cpu() for k, v in
                                    model.state_dict().items()})
         ref = ref_model.eval()(x.cpu())
-    if (logits.shape != (SEG_REF_B, IMG, IMG, 1)
-            or not bool(torch.isfinite(logits).all())):
-        raise AssertionError(f"bad seg logits {tuple(logits.shape)}")
-    err = (logits - ref).abs().max().item()
+    if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bad {tag} output {tuple(out.shape)}")
+    err = (out - ref).abs().max().item()
     scale = ref.abs().max().item()
-    print(f"[seg] logits bf16 on card vs f32 on CPU (B={SEG_REF_B}): "
-          f"max|err|={err:.4g}, max|ref|={scale:.4g}", flush=True)
+    print(f"[{tag}] eval output {tuple(out.shape)} bf16 on card vs f32 on "
+          f"CPU (B={SEG_REF_B}): max|err|={err:.4g}, max|ref|={scale:.4g}",
+          flush=True)
     if err > LOGIT_TOL * scale:
-        raise AssertionError(f"seg logits disagree: {err} > {LOGIT_TOL} * "
-                             f"{scale}")
+        raise AssertionError(f"{tag} output disagrees: {err} > {LOGIT_TOL} "
+                             f"* {scale}")
     return launches
 
 
@@ -1407,11 +1520,24 @@ def profile_cls(card: str, out_dir: str) -> None:
                   TIMED_STEPS, out_dir, "cls_profile.txt")
 
 
-def profile_seg(card: str, out_dir: str) -> None:
-    """torch.profiler over SEG_TIMED_STEPS segmentation steps."""
-    model, optimizer, full_step, img_u8, mask, gen = seg_setup()
-    profile_steps(card, lambda: full_step(model, optimizer, img_u8, mask, gen),
-                  SEG_TIMED_STEPS, out_dir, "seg_profile.txt")
+def profile_dense(tag: str, card: str, out_dir: str) -> None:
+    """torch.profiler over SEG_TIMED_STEPS steps of a DENSE_PATHS path;
+    also prints the device time of layout conversions around the
+    convolutions (cuDNN's NCHW <-> NHWC and tensor-transform kernels),
+    which channels-last maps should not need."""
+    model, optimizer, full_step, img_u8, targets, gen = dense_setup(tag)
+    events, _ = profile_steps(
+        card, lambda: full_step(model, optimizer, img_u8, targets, gen),
+        SEG_TIMED_STEPS, out_dir, f"{tag}_profile.txt")
+    from torch.autograd import DeviceType
+    layout = [e for e in events if e.device_type == DeviceType.CUDA
+              and re.search(r"(?i)nchwtonhwc|nhwctonchw|tensortransform",
+                            e.key)]
+    ms = sum(e.self_device_time_total for e in layout) / 1e3 / SEG_TIMED_STEPS
+    calls = sum(e.count for e in layout) // SEG_TIMED_STEPS
+    print(f"[profile] {tag}: layout conversions (NCHW <-> NHWC, tensor "
+          f"transforms) "
+          f"{calls} a step, {ms:.3f} ms/step  [{card}]", flush=True)
 
 
 def profile_mae(card: str, out_dir: str) -> None:
@@ -1466,8 +1592,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile the classification, "
-                             "segmentation, detection and MAE steps; the "
-                             "tables go to DIR")
+                             "segmentation, RN50 segmentation, ViT depth, "
+                             "detection and MAE steps; the tables go to "
+                             "DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1502,12 +1629,13 @@ def main() -> None:
                          (1, 128), (2, 128))))
 
     phases = [("kernels (classification shapes)", kernel_phase),
-              ("kernels (rotation, both shapes)", rotate_kernel_phase),
+              ("kernels (rotation, its path shapes)", rotate_kernel_phase),
               ("kernels (detection shapes)", det_kernel_phase),
               ("kernels (MAE shapes)", mae_kernel_phase),
               ("kernels (A/B variants)", variant_kernel_phase),
               ("classification path", main_path),
-              ("segmentation path", seg_path),
+              *((f"{tag} path", functools.partial(dense_path, tag))
+                for tag in DENSE_PATHS),
               ("detection path", det_path),
               ("MAE path", mae_path),
               ("kernel A/B harnesses", harness_path)]
@@ -1525,7 +1653,9 @@ def main() -> None:
         r["launches"] = launches[r["name"]]
     if args.profile:
         profile_cls(card, args.profile)
-        profile_seg(card, args.profile)
+        profile_dense("seg", card, args.profile)
+        profile_dense("rn50_seg", card, args.profile)
+        profile_dense("vit_depth", card, args.profile)
         profile_det(card, args.profile)
         profile_mae(card, args.profile)
     print(card)

@@ -1,8 +1,10 @@
-"""Times the rotation kernel (#3, `csrc/rotate.cu`) on the card at both of
-its path shapes: (64, 224, 224, 3), the classification step's batch, and
-(48, 352, 352, 5), the segmentation affine's canvas. Random angles plus the
-angles where the rot90 fold changes quarter turn; before it is timed, the
-kernel's output is held against its plain version element for element.
+"""Times the rotation kernel (#3, `csrc/rotate.cu`) on the card at its path
+shapes: (64, 224, 224, 3), the ViT classification step's batch, (48, 352,
+352, 5), the segmentation affine's canvas (the ViT and RN50 seg steps),
+and (48, 224, 224, 3), the RN50 classification step's batch. Random
+angles plus the angles where the rot90 fold changes quarter turn; before
+it is timed, the kernel's output is held against its plain version element
+for element.
 
 Each shape is timed per call through the wrapper (median of 20 CUDA-event
 readings) and back to back (100 launches of the C entry point between two
@@ -37,7 +39,8 @@ from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels import rotate as rot
 
 SHAPES = {"shear_rotate": (64, 224, 224, 3),
-          "shear_rotate_seg": (48, 352, 352, 5)}
+          "shear_rotate_seg": (48, 352, 352, 5),
+          "shear_rotate_rn50_cls": (48, 224, 224, 3)}
 # the angles where the fold changes quarter turn, and whole quarter turns
 BOUNDARY = (0.0, 90.0, 180.0, -90.0, 45.0, -45.0, 135.0, -135.0)
 CYCLE_BYTES = 200e6       # > 4x the H100's 50 MB L2

@@ -2,8 +2,10 @@
 
 The inverse of `ssl4gie_tpu/convert/torch_names.py:vit_torch_to_flax` for the
 classifier, and both directions for the ViT-B Faster R-CNN, the MAE
-pretraining model and the ViT dense model (with its BatchNorm statistics):
-flax Conv kernels (kh, kw, I, O) become torch (O, I, kh, kw); flax
+pretraining model, the ViT dense model and the three ResNet-50 models
+(classifier, DeepLabV3+, depth; with their BatchNorm statistics): flax
+Conv kernels (kh, kw, I, O) become torch (O, I, kh, kw) (a depthwise
+kernel (kh, kw, 1, C) becomes (C, 1, kh, kw) the same way); flax
 ConvTranspose kernels (kh, kw, I, O) become torch (I, O, kh, kw) flipped in
 both spatial axes (flax's default `transpose_kernel=False` with SAME
 padding at k = s gives out[k i + a] = w[k - 1 - a] x[i]; torch's
@@ -158,6 +160,12 @@ def _to_torch(tree, layers, sd=None) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _numpy(sd) -> dict:
+    """float32 numpy copies of a state_dict's tensors (a view would share
+    memory with the model's parameters and buffers)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in sd.items()}
+
+
 def _to_flax(sd, layers, tree=None) -> dict:
     tree = {} if tree is None else tree
     for path, name, kind in layers:
@@ -199,7 +207,7 @@ def faster_rcnn_params_to_torch(params) -> dict[str, torch.Tensor]:
 def faster_rcnn_state_dict_to_params(sd) -> dict:
     """The inverse of `faster_rcnn_params_to_torch`: a port `FasterRCNN`
     state_dict -> the JAX param tree (nested dicts of float32 numpy)."""
-    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    sd = _numpy(sd)
     depth = sum(1 for k in sd if k.startswith("backbone.blocks.")
                 and k.endswith(".norm1.weight"))
     return _to_flax(sd, _faster_rcnn_layers(depth),
@@ -232,7 +240,7 @@ def mae_params_to_torch(params) -> dict[str, torch.Tensor]:
 def mae_state_dict_to_params(sd) -> dict:
     """The inverse of `mae_params_to_torch`: a port `MAE` state_dict -> the
     JAX param tree (nested dicts of float32 numpy)."""
-    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
+    sd = _numpy(sd)
     count = lambda pre: sum(1 for k in sd if k.startswith(pre)
                             and k.endswith(".norm1.weight"))
     return _to_flax(sd, _mae_layers(count("blocks."), count("decoder_blocks.")),
@@ -280,16 +288,8 @@ def _vit_dense_layers(depth: int, seg: bool):
             + pre("decoder", _dpt_layers(seg)))
 
 
-def vit_dense_params_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
-    """params, batch_stats: the JAX `ViTDenseModel` variables as nested
-    dicts of arrays (batch_stats empty for depth). Returns the port's
-    `ViTDenseModel` state_dict, BatchNorm running statistics included
-    (float32 CPU tensors)."""
-    bb = params["backbone"]
-    layers = _vit_dense_layers(_depth(bb), "head_bn" in params["decoder"])
-    sd = _to_torch(params, layers,
-                   {"backbone.cls_token": _tensor(bb["cls_token"]),
-                    "backbone.pos_embed": _tensor(bb["pos_embed"])})
+def _stats_to_torch(batch_stats, layers, sd) -> dict[str, torch.Tensor]:
+    """Add each BatchNorm's running statistics of `layers` to `sd`."""
     for path, name, kind in layers:
         if kind == "bn":
             node = batch_stats
@@ -300,16 +300,8 @@ def vit_dense_params_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
     return sd
 
 
-def vit_dense_state_dict_to_params(sd) -> tuple[dict, dict]:
-    """The inverse of `vit_dense_params_to_torch`: a port `ViTDenseModel`
-    state_dict -> (params, batch_stats), nested dicts of float32 numpy."""
-    sd = {k: v.detach().cpu().numpy() for k, v in sd.items()}
-    depth = sum(1 for k in sd if k.startswith("backbone.blocks.")
-                and k.endswith(".norm1.weight"))
-    layers = _vit_dense_layers(depth, "decoder.head_bn.weight" in sd)
-    params = _to_flax(sd, layers, {"backbone": {
-        "cls_token": sd["backbone.cls_token"],
-        "pos_embed": sd["backbone.pos_embed"]}})
+def _stats_to_flax(sd, layers) -> dict:
+    """The batch_stats tree of the BatchNorms of `layers`."""
     stats = {}
     for path, name, kind in layers:
         if kind == "bn":
@@ -318,4 +310,164 @@ def vit_dense_state_dict_to_params(sd) -> tuple[dict, dict]:
                 node = node.setdefault(p, {})
             for leaf, buf in _STATS:
                 node[leaf] = np.ascontiguousarray(sd[f"{name}.{buf}"])
-    return params, stats
+    return stats
+
+
+def vit_dense_params_to_torch(params, batch_stats) -> dict[str, torch.Tensor]:
+    """params, batch_stats: the JAX `ViTDenseModel` variables as nested
+    dicts of arrays (batch_stats empty for depth). Returns the port's
+    `ViTDenseModel` state_dict, BatchNorm running statistics included
+    (float32 CPU tensors)."""
+    bb = params["backbone"]
+    layers = _vit_dense_layers(_depth(bb), "head_bn" in params["decoder"])
+    sd = _to_torch(params, layers,
+                   {"backbone.cls_token": _tensor(bb["cls_token"]),
+                    "backbone.pos_embed": _tensor(bb["pos_embed"])})
+    return _stats_to_torch(batch_stats, layers, sd)
+
+
+def vit_dense_state_dict_to_params(sd) -> tuple[dict, dict]:
+    """The inverse of `vit_dense_params_to_torch`: a port `ViTDenseModel`
+    state_dict -> (params, batch_stats), nested dicts of float32 numpy."""
+    sd = _numpy(sd)
+    depth = sum(1 for k in sd if k.startswith("backbone.blocks.")
+                and k.endswith(".norm1.weight"))
+    layers = _vit_dense_layers(depth, "decoder.head_bn.weight" in sd)
+    params = _to_flax(sd, layers, {"backbone": {
+        "cls_token": sd["backbone.cls_token"],
+        "pos_embed": sd["backbone.pos_embed"]}})
+    return params, _stats_to_flax(sd, layers)
+
+
+# ------------------------------------------------------------- ResNet-50
+
+def _resnet_layers(stage_sizes):
+    """(flax path, torch module name, kind) of every layer of `ResNet50`:
+    the JAX package's `layer{s}_{b}` blocks under torchvision's
+    `layer{s}.{b}` names."""
+    layers = [(("conv1",), "conv1", "conv_nb"), (("bn1",), "bn1", "bn")]
+    for s, n_blocks in enumerate(stage_sizes):
+        for b in range(n_blocks):
+            src, dst = f"layer{s + 1}_{b}", f"layer{s + 1}.{b}"
+            for i in (1, 2, 3):
+                layers += [((src, f"conv{i}"), f"{dst}.conv{i}", "conv_nb"),
+                           ((src, f"bn{i}"), f"{dst}.bn{i}", "bn")]
+            if b == 0:
+                layers += [((src, "downsample_conv"), f"{dst}.downsample.0",
+                            "conv_nb"),
+                           ((src, "downsample_bn"), f"{dst}.downsample.1",
+                            "bn")]
+    return layers
+
+
+def _stage_sizes_flax(encoder) -> tuple:
+    return tuple(sum(1 for k in encoder if k.startswith(f"layer{s}_"))
+                 for s in (1, 2, 3, 4))
+
+
+def _stage_sizes_torch(sd, prefix: str) -> tuple:
+    return tuple(len({k.split(".")[2] for k in sd
+                      if k.startswith(f"{prefix}.layer{s}.")})
+                 for s in (1, 2, 3, 4))
+
+
+def _prefixed(fp: str, layers):
+    return [((fp,) + p, f"{fp}.{n}", k) for p, n, k in layers]
+
+
+def _resnet_classifier_layers(stage_sizes):
+    return (_prefixed("backbone", _resnet_layers(stage_sizes))
+            + [(("lin_head",), "lin_head", "dense")])
+
+
+def _separable(fp: tuple, tp: str):
+    return [(fp + (c,), f"{tp}.{c}", "conv_nb")
+            for c in ("depthwise", "pointwise")]
+
+
+def _deeplabv3plus_layers(stage_sizes):
+    layers = _prefixed("encoder", _resnet_layers(stage_sizes))
+    layers += [(("aspp", "b0_conv"), "aspp.b0_conv", "conv_nb"),
+               (("aspp", "b0_bn"), "aspp.b0_bn", "bn")]
+    for i in (1, 2, 3):
+        layers += _separable(("aspp", f"b{i}_conv"), f"aspp.b{i}_conv")
+        layers.append((("aspp", f"b{i}_bn"), f"aspp.b{i}_bn", "bn"))
+    for n in ("pool", "project"):
+        layers += [(("aspp", f"{n}_conv"), f"aspp.{n}_conv", "conv_nb"),
+                   (("aspp", f"{n}_bn"), f"aspp.{n}_bn", "bn")]
+    layers += _separable(("aspp_post",), "aspp_post")
+    layers += [(("aspp_post_bn",), "aspp_post_bn", "bn"),
+               (("high_conv",), "high_conv", "conv_nb"),
+               (("high_bn",), "high_bn", "bn")]
+    layers += _separable(("fuse_conv",), "fuse_conv")
+    return layers + [(("fuse_bn",), "fuse_bn", "bn"),
+                     (("seg_head",), "seg_head", "conv")]
+
+
+def _resnet_depth_layers(stage_sizes):
+    layers = _prefixed("encoder", _resnet_layers(stage_sizes))
+    for lv in ("level0", "level1", "level2"):
+        layers += [((lv, "reduce_conv"), f"{lv}.reduce_conv", "conv"),
+                   ((lv, "reduce_bn"), f"{lv}.reduce_bn", "bn")]
+        for i in range(3):
+            blk = (lv, f"block{i}")
+            names = ("id", "1", "2", "3") if i == 0 else ("1", "2", "3")
+            for n in names:
+                c = "id_conv" if n == "id" else f"conv{n}"
+                b = "id_bn" if n == "id" else f"bn{n}"
+                layers += [(blk + (c,), ".".join(blk + (c,)), "conv"),
+                           (blk + (b,), ".".join(blk + (b,)), "bn")]
+    return layers + [((f"out_conv{i}",), f"out_conv{i}", "conv")
+                     for i in (1, 2, 3)]
+
+
+def _resnet_to_torch(params, batch_stats, layers_of, top: str):
+    layers = layers_of(_stage_sizes_flax(params[top]))
+    return _stats_to_torch(batch_stats, layers, _to_torch(params, layers))
+
+
+def _resnet_to_flax(sd, layers_of, top: str) -> tuple[dict, dict]:
+    sd = _numpy(sd)
+    layers = layers_of(_stage_sizes_torch(sd, top))
+    return _to_flax(sd, layers), _stats_to_flax(sd, layers)
+
+
+def resnet_classifier_params_to_torch(params, batch_stats
+                                      ) -> dict[str, torch.Tensor]:
+    """params, batch_stats: the JAX `ResNetClassifier` variables as nested
+    dicts of arrays. Returns the port's `ResNetClassifier` state_dict,
+    BatchNorm running statistics included (float32 CPU tensors)."""
+    return _resnet_to_torch(params, batch_stats, _resnet_classifier_layers,
+                            "backbone")
+
+
+def resnet_classifier_state_dict_to_params(sd) -> tuple[dict, dict]:
+    """The inverse of `resnet_classifier_params_to_torch`: a state_dict ->
+    (params, batch_stats), nested dicts of float32 numpy."""
+    return _resnet_to_flax(sd, _resnet_classifier_layers, "backbone")
+
+
+def deeplabv3plus_params_to_torch(params, batch_stats
+                                  ) -> dict[str, torch.Tensor]:
+    """The JAX `DeepLabV3Plus` variables -> the port's `DeepLabV3Plus`
+    state_dict (as `resnet_classifier_params_to_torch`)."""
+    return _resnet_to_torch(params, batch_stats, _deeplabv3plus_layers,
+                            "encoder")
+
+
+def deeplabv3plus_state_dict_to_params(sd) -> tuple[dict, dict]:
+    """The inverse of `deeplabv3plus_params_to_torch`."""
+    return _resnet_to_flax(sd, _deeplabv3plus_layers, "encoder")
+
+
+def resnet_depth_params_to_torch(params, batch_stats
+                                 ) -> dict[str, torch.Tensor]:
+    """The JAX `ResNetDepthModel` variables -> the port's
+    `ResNetDepthModel` state_dict (as `resnet_classifier_params_to_torch`)."""
+    return _resnet_to_torch(params, batch_stats, _resnet_depth_layers,
+                            "encoder")
+
+
+def resnet_depth_state_dict_to_params(sd) -> tuple[dict, dict]:
+    """The inverse of `resnet_depth_params_to_torch`."""
+    return _resnet_to_flax(sd, _resnet_depth_layers, "encoder")

@@ -6,8 +6,8 @@ scans), then the optimizer step. The model runs in train mode: BatchNorm
 statistics update once per microbatch, as the JAX package threads its
 batch_stats through the scan, and dropout and stochastic depth draw from
 the step's generator. `make_full_step` composes the on-device augmentation
-(classification or segmentation) and that step, as the JAX package's bench
-steps do.
+(classification, segmentation or depth) and that step, as the JAX
+package's bench steps do.
 """
 
 from __future__ import annotations
@@ -18,9 +18,10 @@ from typing import Callable
 import torch
 
 from ssl4gie_tpu_torch.core.train_state import apply_gradients
-from ssl4gie_tpu_torch.data.augment import (apply_classification,
+from ssl4gie_tpu_torch.data.augment import (apply_classification, apply_depth,
                                             apply_segmentation,
                                             sample_classification_params,
+                                            sample_depth_params,
                                             sample_segmentation_params)
 
 
@@ -29,7 +30,7 @@ class TaskDefinition:
     """What a task contributes to the train step. (The JAX package's
     evaluation and selection fields come with the ported Trainer.)"""
     name: str
-    aug_mode: str                       # classification | segmentation
+    aug_mode: str                       # classification | segmentation | depth
     target_key: str                     # label | mask | depth
     loss_fn: Callable                   # (outputs, targets) -> scalar loss
 
@@ -68,12 +69,13 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
 def make_full_step(task: TaskDefinition, accum_steps: int = 1):
     """Returns full_step(model, optimizer, img_u8, targets, generator):
     sample the augmentation from `generator`, augment the uint8 batch (and,
-    for segmentation, its (B, H, W, 1) mask with it) on its device, then
-    take one train step, whose dropout also draws from `generator`."""
-    if task.aug_mode not in ("classification", "segmentation"):
+    for segmentation and depth, its (B, H, W, 1) mask or depth map with it)
+    on its device, then take one train step, whose dropout also draws from
+    `generator`."""
+    if task.aug_mode not in ("classification", "segmentation", "depth"):
         raise NotImplementedError(f"aug_mode {task.aug_mode!r}: only "
-                                  "classification and segmentation are "
-                                  "ported")
+                                  "classification, segmentation and depth "
+                                  "are ported")
     step = make_train_step(task, accum_steps)
 
     def full_step(model, optimizer, img_u8, targets, generator):
@@ -81,6 +83,9 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1):
         if task.aug_mode == "segmentation":
             params = sample_segmentation_params(B, img_u8.shape[1], generator)
             img, targets = apply_segmentation(img_u8, targets, params)
+        elif task.aug_mode == "depth":
+            params = sample_depth_params(B, generator)
+            img, targets = apply_depth(img_u8, targets, params)
         else:
             params = sample_classification_params(B, generator)
             img = apply_classification(img_u8, params)

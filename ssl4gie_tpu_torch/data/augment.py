@@ -9,14 +9,16 @@ Two branches of `_augment_train_batch`:
   mask together, then the joint random affine `fast_random_affine` (image
   fill -1, mask fill 0): scale and translation, an x-shear, and the
   rotation by the rotation kernel on a 352 px canvas that holds the image,
-  the mask and a validity channel.
+  the mask and a validity channel;
+- depth: jitter and blur, normalize, h/v flips of the image and its depth
+  map together, and no warp.
 
 Each op is split into sampling and applying: `sample_*_params` draws every
 random factor from a `torch.Generator`, `apply_*` applies them. Images are
 NHWC, (B, H, W, C). The pipeline runs in bfloat16 on the card and in float32
 on the CPU, with the same algorithm on both (the JAX package runs
 `fast_random_affine` in bfloat16 on its accelerator); the normalized output
-is float32, the mask keeps its dtype.
+is float32, the mask or depth map keeps its dtype.
 """
 
 from __future__ import annotations
@@ -214,6 +216,11 @@ def _uniform(shape, lo, hi, generator: torch.Generator) -> torch.Tensor:
     return lo + (hi - lo) * u
 
 
+def _on(params: dict, device) -> dict:
+    return {k: v.to(device) if torch.is_tensor(v) else v
+            for k, v in params.items()}
+
+
 def _sample_jitter_blur_flips(B: int, generator: torch.Generator) -> dict:
     """Jitter factors U[1-x, 1+x] (hue U[-h, h]) and one op order per batch
     (`color_jitter`), blur sigma U[0.001, 2] (`gaussian_blur`), flips with
@@ -244,8 +251,7 @@ def apply_classification(img_u8: torch.Tensor, params: dict) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> normalized float32 (B, H, W, 3): jitter + blur ->
     flips -> rotation (fill 0) -> normalize, with the factors of `params`."""
     dt = torch.bfloat16 if img_u8.is_cuda else torch.float32
-    p = {k: v.to(img_u8.device) if torch.is_tensor(v) else v
-         for k, v in params.items()}
+    p = _on(params, img_u8.device)
     img = img_u8.to(dt) / 255.0
     img = color_jitter(img, p["brightness"], p["contrast"], p["saturation"],
                        p["hue"], p["order"])
@@ -380,19 +386,41 @@ def sample_segmentation_params(B: int, size: int,
     return params
 
 
+def _dense_photometric_flips(img_u8: torch.Tensor, target: torch.Tensor,
+                             p: dict):
+    """The dense branches' first half: jitter + blur -> normalize -> joint
+    flips of the image and its target, in the pipeline's dtype (the
+    target in its own)."""
+    dt = torch.bfloat16 if img_u8.is_cuda else torch.float32
+    img = img_u8.to(dt) / 255.0
+    img = color_jitter(img, p["brightness"], p["contrast"], p["saturation"],
+                       p["hue"], p["order"])
+    img = normalize(gaussian_blur(img, p["sigma"]))
+    return (random_flips(img, p["hflip"], p["vflip"]),
+            random_flips(target, p["hflip"], p["vflip"]))
+
+
 def apply_segmentation(img_u8: torch.Tensor, mask: torch.Tensor,
                        params: dict):
     """(B, H, W, 3) uint8 and its (B, H, W, Ct) mask -> (normalized float32
     image, mask in its dtype): jitter + blur -> normalize -> joint flips ->
     joint affine (fill -1 image, 0 mask), with the factors of `params`."""
-    dt = torch.bfloat16 if img_u8.is_cuda else torch.float32
-    p = {k: v.to(img_u8.device) if torch.is_tensor(v) else v
-         for k, v in params.items()}
-    img = img_u8.to(dt) / 255.0
-    img = color_jitter(img, p["brightness"], p["contrast"], p["saturation"],
-                       p["hue"], p["order"])
-    img = normalize(gaussian_blur(img, p["sigma"]))
-    img = random_flips(img, p["hflip"], p["vflip"])
-    mask = random_flips(mask, p["hflip"], p["vflip"])
+    p = _on(params, img_u8.device)
+    img, mask = _dense_photometric_flips(img_u8, mask, p)
     img, mask = apply_affine(img, mask, p)
     return img.to(torch.float32), mask
+
+
+def sample_depth_params(B: int, generator: torch.Generator) -> dict:
+    """Every random factor of the depth augmentation: jitter, blur and flips
+    (`_sample_jitter_blur_flips`)."""
+    return _sample_jitter_blur_flips(B, generator)
+
+
+def apply_depth(img_u8: torch.Tensor, depth: torch.Tensor, params: dict):
+    """(B, H, W, 3) uint8 and its (B, H, W, 1) depth map -> (normalized
+    float32 image, depth map in its dtype): jitter + blur -> normalize ->
+    joint flips, with the factors of `params`."""
+    img, depth = _dense_photometric_flips(img_u8, depth,
+                                          _on(params, img_u8.device))
+    return img.to(torch.float32), depth

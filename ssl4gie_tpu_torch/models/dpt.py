@@ -61,7 +61,7 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = True):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
 
-def _init_conv(conv: nn.Conv2d, generator: torch.Generator) -> None:
+def init_conv(conv: nn.Conv2d, generator: torch.Generator) -> None:
     """flax `nn.Conv` default init: lecun-normal over kh * kw * cin, zero
     bias."""
     fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1]
@@ -84,8 +84,8 @@ class ResidualConvUnit(nn.Module):
             self.bn2 = BatchNorm(features, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        _init_conv(self.conv1, generator)
-        _init_conv(self.conv2, generator)
+        init_conv(self.conv1, generator)
+        init_conv(self.conv2, generator)
         if self.use_bn:
             self.bn1.reset_parameters()
             self.bn2.reset_parameters()
@@ -117,7 +117,7 @@ class FeatureFusionBlock(nn.Module):
         if hasattr(self, "rcu1"):
             self.rcu1.reset_parameters(generator)
         self.rcu2.reset_parameters(generator)
-        _init_conv(self.out_conv, generator)
+        init_conv(self.out_conv, generator)
 
     def forward(self, x, skip=None):
         out = x if skip is None else x + self.rcu1(skip)
@@ -164,23 +164,23 @@ class DPTDecoder(nn.Module):
         """flax's default inits, drawn in the order flax creates the
         layers."""
         for i in range(4):
-            _init_conv(getattr(self, f"proj{i + 1}"), generator)
+            init_conv(getattr(self, f"proj{i + 1}"), generator)
             if i < 2:
                 dc = getattr(self, f"resample{i + 1}")
                 k = dc.kernel_size[0]
                 init_lecun(dc, k * k * dc.in_channels, generator)
             elif i == 3:
-                _init_conv(self.resample4, generator)
-            _init_conv(getattr(self, f"layer{i + 1}_rn"), generator)
+                init_conv(self.resample4, generator)
+            init_conv(getattr(self, f"layer{i + 1}_rn"), generator)
         for i in (4, 3, 2, 1):
             getattr(self, f"refinenet{i}").reset_parameters(generator)
-        _init_conv(self.head_conv1, generator)
+        init_conv(self.head_conv1, generator)
         if self.dense == "depth":
-            _init_conv(self.head_conv2, generator)
-            _init_conv(self.head_conv3, generator)
+            init_conv(self.head_conv2, generator)
+            init_conv(self.head_conv3, generator)
         else:
             self.head_bn.reset_parameters()
-            _init_conv(self.head_conv2, generator)
+            init_conv(self.head_conv2, generator)
 
     def reassemble(self, taps):
         """The taps -> the four fusion-width maps at strides 4, 8, 16, 32."""

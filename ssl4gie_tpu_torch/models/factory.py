@@ -1,5 +1,9 @@
 """Model wiring (port of `ssl4gie_tpu/models/factory.py`): the ViT dense
-model. The classifier is `models/vit.py:ViTClassifier`; the detector
+model, and the ResNet-50 models the JAX factory builds
+(`models/resnet.py:ResNetClassifier`, `ResNetDepthModel`;
+`models/deeplabv3plus.py:DeepLabV3Plus`), exported here with the same
+`generator=` / `device=` contract. The ViT classifier is
+`models/vit.py:ViTClassifier`; the detector
 `models/faster_rcnn.py:FasterRCNN`."""
 
 from __future__ import annotations
@@ -9,9 +13,14 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ssl4gie_tpu_torch.models.deeplabv3plus import DeepLabV3Plus
 from ssl4gie_tpu_torch.models.dpt import DPTDecoder
 from ssl4gie_tpu_torch.models.layers import default_device
+from ssl4gie_tpu_torch.models.resnet import ResNetClassifier, ResNetDepthModel
 from ssl4gie_tpu_torch.models.vit import DENSE_TAPS, ViTBackbone
+
+__all__ = ["ViTDenseModel", "DeepLabV3Plus", "ResNetClassifier",
+           "ResNetDepthModel"]
 
 
 class ViTDenseModel(nn.Module):

@@ -80,7 +80,8 @@ class FasterRCNN(nn.Module):
         super().__init__()
         if arch != "vit_b":
             raise NotImplementedError(f"arch {arch!r}: only 'vit_b' is ported; "
-                                      "the RN50 detector waits for ResNet-50")
+                                      "the RN50 detector (ResNetFPN) is not "
+                                      "ported yet")
         device = default_device(device)
         self.image_size = image_size
         self.dtype = dtype

@@ -11,8 +11,8 @@ compute dtype over float32 weights.
 ln_mode "channel" is the channel-wise LayerNorm (eps 1e-6); "chw" is the
 reference's full-(C, H, W) LayerNorm (eps 1e-5, a per-element affine stored
 (H, W, C)), which binds the model to one canvas, so it needs the ViT grid
-`grid` at construction. `ResNetFPN` waits for the ResNet-50 of the dense
-slice.
+`grid` at construction. `ResNetFPN` (the RN50 detector's FPN over
+`models/resnet.py:ResNet50`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,14 +28,16 @@ from ssl4gie_tpu_torch.models.layers import init_lecun, layer_norm
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype,
               padding: int = 0) -> torch.Tensor:
-    """An NHWC convolution with `conv`'s weights in `dtype` (a 1x1 one as a
-    matmul over channels); `conv` may have no bias."""
+    """An NHWC convolution with `conv`'s weights, stride, dilation and groups
+    in `dtype` (a dense 1x1 one as a matmul over channels); `conv` may have
+    no bias. The NCHW view of an NHWC map is channels-last, so cuDNN takes
+    the map as it lies."""
     w = conv.weight.to(dtype)
     b = None if conv.bias is None else conv.bias.to(dtype)
-    if w.shape[-2:] == (1, 1) and conv.stride == (1, 1):
+    if w.shape[-2:] == (1, 1) and conv.stride == (1, 1) and conv.groups == 1:
         return F.linear(x.to(dtype), w[:, :, 0, 0], b)
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), w, b, stride=conv.stride,
-                 padding=padding)
+                 padding=padding, dilation=conv.dilation, groups=conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -147,7 +149,7 @@ class ViTDetFPN(nn.Module):
 
 
 class ResNetFPN(nn.Module):
-    """The RN50 FPN waits for the ResNet-50 of the dense slice."""
+    """The RN50 FPN (over `models/resnet.py:ResNet50`) is not ported yet."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("ResNetFPN (the RN50 detector) is not "

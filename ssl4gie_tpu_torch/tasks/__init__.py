@@ -1,2 +1,2 @@
 """Task wiring: the detection train step and its augmentation, and the
-segmentation task."""
+segmentation and depth tasks."""

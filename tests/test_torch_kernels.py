@@ -455,10 +455,12 @@ def test_rotation_source_box_fits_the_staged_box(size):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(64, 224, 224, 3), (48, 352, 352, 5)])
+@pytest.mark.parametrize("shape", [(64, 224, 224, 3), (48, 352, 352, 5),
+                                   (48, 224, 224, 3)])
 @pytest.mark.parametrize("fill", [0.0, -1.0])
 def test_rotate_kernel_matches_plain_on_card(cuda, shape, fill):
-    """Both path shapes, random and boundary angles, element for
+    """The path shapes (the ViT classification batch, the seg canvas, the
+    RN50 classification batch), random and boundary angles, element for
     element."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     g = torch.randn(shape, generator=gen, device=cuda).bfloat16()

@@ -228,8 +228,8 @@ def test_adamw_clip_with_decay_mask_matches_optax():
 
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter, the
-    detection, MAE and segmentation modules among them, leaves jax, flax
-    and optax out of sys.modules."""
+    detection, MAE, segmentation, ResNet-50 and depth modules among them,
+    leaves jax, flax and optax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -243,7 +243,8 @@ def test_port_imports_no_jax():
         " 'models.faster_rcnn', 'tasks.detection', 'kernels.fused_mlp',"
         " 'ssl.mae', 'ssl.pretrain', 'data.ssl_augment', 'models.batchnorm',"
         " 'models.dpt', 'models.factory', 'metrics.segmentation',"
-        " 'tasks.segmentation', 'benchmarks.bench_rotate'):\n"
+        " 'tasks.segmentation', 'benchmarks.bench_rotate', 'models.resnet',"
+        " 'models.deeplabv3plus', 'metrics.depth', 'tasks.depth'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
