@@ -26,8 +26,9 @@
      exceed the card's 50 MB L2
      (`ssl4gie_tpu_torch/benchmarks/bench_rotate.py`);
    - detection: windowed attention on a (4, 64, 64, 3*768) grid with 16x16
-     windows, flash attention at (48, 4096, 64), and masked flash cases
-     (N=1024, n_valid=1000 and 3);
+     windows, flash attention at (48, 4096, 64), the two forwards also at
+     the eval batch of 2 ((2, 64, 64, 3*768) and (24, 4096, 64)), and
+     masked flash cases (N=1024, n_valid=1000 and 3);
    - MAE: the fused MLP forward and backward at the encoder's (12800
      tokens, 768 -> 3072) and the decoder's (50432 tokens, 512 -> 2048)
      shapes, also against the unfused cuBLAS sequence F.linear -> F.gelu
@@ -71,6 +72,15 @@
    backwards per step; the losses must be finite; one eval forward must give
    detections of the expected shapes; the backbone's map must agree with a
    float32 CPU run of the same weights on a small (512 px) input.
+   Then the RN50-FPN Faster R-CNN train step at full width, 1344 px, B=4
+   (the same step): no kernel launches, finite losses, the body's
+   BatchNorm running statistics bitwise unchanged (frozen), the bf16 FPN
+   maps against a float32 CPU run at 256 px, B=2. Then `evaluate_map` at
+   batch 2 over five frames for both detectors: the RN50 at 1344 px with
+   torchvision placement (content sizes 1000 x 800 ... 1333 x 744, so the
+   batch-max emulation masks), no kernel launches; the ViT-B at 1024 px,
+   exactly 8 window and 4 flash forwards per eval batch; a finite mAP
+   dict. Each prints ms per step or per eval batch, img/s and peak memory.
 5. MAE path: the MAE ViT-B/16 pretraining step at full width (encoder 12
    blocks, 768 wide, 12 heads; decoder 8 blocks, 512 wide, 16 heads), 224
    px, B=256 (uint8 256 px canvases -> on-device `mae_augment` -> masking
@@ -97,10 +107,10 @@
     python3 chip_smoke.py --profile DIR
 
 also profiles a few classification, segmentation, RN50 segmentation, ViT
-depth, detection and MAE steps with `torch.profiler` (device time by
-kernel, the device's busy share, the NMS slot loop's host time, the RN50
-and depth steps' NCHW <-> NHWC layout conversions) and writes the tables
-to DIR.
+depth, ViT and RN50 detection and MAE steps and one ViT detection eval
+batch with `torch.profiler` (device time by kernel, the device's busy
+share, the NMS slot loops' span, the RN50 and depth steps' NCHW <-> NHWC
+layout conversions) and writes the tables to DIR.
 
 Any failure raises (nonzero exit, no result). There is no CPU fallback.
 """
@@ -147,7 +157,10 @@ from ssl4gie_tpu_torch.ssl.pretrain import (MAEPretrainConfig,
                                             SyntheticUnlabeled,
                                             make_mae_full_step,
                                             make_mae_optimizer, make_schedule)
-from ssl4gie_tpu_torch.tasks.detection import (SyntheticDetectionSource,
+from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
+                                               SyntheticDetectionSource,
+                                               evaluate_map,
+                                               make_detection_eval_step,
                                                make_detection_full_step)
 from ssl4gie_tpu_torch.tasks.depth import depth_task
 from ssl4gie_tpu_torch.tasks.segmentation import segmentation_task
@@ -164,6 +177,22 @@ DET_B, DET_IMG, DET_GRID, DET_WINDOW = 4, 1024, 64, 16   # bench.py's batch
 DET_BH, DET_N = DET_B * HEADS, DET_GRID * DET_GRID       # global attention
 DET_WARMUP_STEPS, DET_TIMED_STEPS = 1, 3
 DET_REF_IMG = 512   # f32 CPU reference: 32x32 grid, 4 windows, N=1024 global
+# the RN50 detector: torchvision's 1333 rounded up to /32
+# (benchmarks/bench_detection.py:28), the ViT detector's batch; its bf16 FPN
+# maps are held to f32 on the CPU at 256 px, B = 2
+RN50_DET_REF_IMG, RN50_DET_REF_B = 256, 2
+# evaluate_map: the JAX package's eval batch of 2 over five frames (the tail
+# padded). The RN50 frames (w, h) resize (torchvision: min(800 / short,
+# 1333 / long)) to the content sizes torchvision gives Kvasir frames, whose
+# batch-max extents (1024 x 800, 1344 x 800, 1088 x 800) lie below the
+# canvas; the ViT frames are centered on the 1024 px canvas
+EVAL_B = 2
+RN50_EVAL_FRAMES = ((650, 520), (650, 553), (716, 400), (560, 560),
+                    (652, 489))
+RN50_EVAL_CONTENT = ((1000, 800), (940, 800), (1333, 744), (800, 800),
+                     (1066, 800))
+VIT_EVAL_FRAMES = ((622, 529), (576, 720), (1000, 800), (720, 576),
+                   (1024, 1024))
 MAE_B, MAE_CANVAS = 256, 256       # ROADMAP's H100 row "MAE B=256"
 MAE_ENC_TOKENS = MAE_B * 50        # 49 kept patches + cls
 MAE_DEC_TOKENS = MAE_B * 197
@@ -557,6 +586,50 @@ def det_kernel_phase(card: str) -> list[dict]:
           f"({tflops(10 * flash_flops, lib_ms)})  [{card}]", flush=True)
     del q, k, v, do, o_k, lse_k
 
+    # the ViT eval batch (evaluate_map's EVAL_B images): the two forwards
+    qkv = rand(EVAL_B, DET_GRID, DET_GRID, 3 * C)
+    out_k, lse_k = wa.window_attention_fwd(qkv, *args)
+    torch.cuda.synchronize()
+    out_p, lse_p = wa.windowed_attention_fwd_plain(qkv, *args)
+    err = check_close("window_attention_fwd (eval batch)", out_k, out_p, tol)
+    check_close("window_attention_fwd lse (eval batch)", lse_k, lse_p,
+                2.0 ** -16)
+    q, k, v = heads_of(wa.partition(qkv, DET_WINDOW), HEADS)
+    win = result(
+        "window_attention_fwd_eval", "window_attention.cu",
+        "ssl4gie_tpu/kernels/window_attention.py:93", err,
+        cuda_ms(lambda: wa.window_attention_fwd(qkv, *args)),
+        cuda_ms(lambda: wa.windowed_attention_fwd_plain(qkv, *args)),
+        sdpa_ms(q, k, v, scale),
+        *attn_work(EVAL_B * (DET_GRID // DET_WINDOW) ** 2, HEADS,
+                   DET_WINDOW ** 2, HEAD_DIM, False))
+    del qkv, out_k, lse_k, out_p, lse_p, q, k, v
+    bh = EVAL_B * HEADS
+    q, k, v = (rand(bh, DET_N, HEAD_DIM) for _ in range(3))
+    o_k, lse_k = fa.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale)
+    err = check_close("flash_fwd (eval batch)", o_k, o_p, tol)
+    check_close("flash_fwd lse (eval batch)", lse_k, lse_p, 2.0 ** -16)
+    bhnd = lambda t: t.view(EVAL_B, HEADS, DET_N, HEAD_DIM)
+    flash = result(
+        "flash_attention_fwd_eval", "flash_attention.cu",
+        "ssl4gie_tpu/kernels/flash_attention.py:136", err,
+        cuda_ms(lambda: fa.flash_fwd(q, k, v, scale)),
+        cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, scale)),
+        sdpa_ms(bhnd(q), bhnd(k), bhnd(v), scale),
+        4 * bh * DET_N * DET_N * HEAD_DIM,
+        4 * bh * DET_N * HEAD_DIM * 2 + bh * DET_N * 4)
+    del q, k, v, o_k, lse_k, o_p, lse_p
+    results += [win, flash]
+    for r, shape in ((win, f"B={EVAL_B} grid {DET_GRID}x{DET_GRID}"),
+                     (flash, f"BH={bh} N={DET_N} D={HEAD_DIM}")):
+        print(f"[kernel] {r['name']} {shape} bf16: max|err|="
+              f"{r['max_abs_err']:.3g} (tol {tol:.3g} rel) kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms  "
+              f"[{card}]", flush=True)
+
     # masked keys: N = 1024 with n_valid = 1000 (a partial last key tile)
     # and 3 (one key tile; dk/dv blocks whose keys are all masked)
     q, k, v, do = (rand(DET_BH, 1024, HEAD_DIM) for _ in range(4))
@@ -843,6 +916,20 @@ COUNTERS = {"dense_attention_fwd": da.attention_fwd,
             "window_v2_bwd": av.window_v2_bwd}
 
 
+def check_launches(tag: str, expected: dict) -> dict:
+    """Every kernel counter against `expected` (absent names: 0); returns
+    the counts of the kernels that ran."""
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"[{tag}] launches: {ran or 'none'} (all other kernels 0)",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"the {tag} path did not run through the "
+                             f"kernels as expected: {launches} != {want}")
+    return ran
+
+
 def dense_batch(kind: str):
     """A synthetic uint8 batch of SEG_B images on the card and its targets:
     0/1 masks (seg, as `benchmarks/bench_segmentation.py` makes them),
@@ -918,7 +1005,8 @@ def dense_path(tag: str, card: str) -> dict:
     run), the losses must be finite, and the model's bf16 eval output on
     the card must agree with a float32 CPU run of the same weights and
     BatchNorm statistics at B = SEG_REF_B within LOGIT_TOL of its largest
-    value. Returns the launch counts, keyed `<kernel>_<tag>`."""
+    value. Returns the counts of the kernels that ran, keyed
+    `<kernel>_<tag>`."""
     what, build, _, _, per_step = DENSE_PATHS[tag]
     model, optimizer, full_step, img_u8, targets, gen = dense_setup(tag)
     torch.cuda.synchronize()
@@ -935,17 +1023,9 @@ def dense_path(tag: str, card: str) -> dict:
                                 gen)["loss"])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {f"{name}_{tag}": fn.launches
-                for name, fn in COUNTERS.items()}
-    expected = {f"{name}_{tag}": per_step.get(name, 0) * n_steps
-                for name in COUNTERS}
-    ran = {k: v for k, v in launches.items() if v}
-    print(f"[{tag}] launches over {n_steps} steps: {ran or 'none'} (all "
-          "other kernels 0)", flush=True)
-    if launches != expected:
-        raise AssertionError(f"the {tag} path did not run through the "
-                             f"kernels as expected: {launches} != "
-                             f"{expected}")
+    ran = check_launches(tag, {name: n * n_steps
+                               for name, n in per_step.items()})
+    launches = {f"{name}_{tag}": n for name, n in ran.items()}
     losses = [float(x) for x in losses]
     print(f"[{tag}] losses: {losses}", flush=True)
     if not all(np.isfinite(losses)):
@@ -1308,14 +1388,15 @@ DET_COUNTERS = {"window_attention_fwd": wa.window_attention_fwd,
                 "flash_attention_bwd": fa.flash_bwd}
 
 
-def det_setup():
-    """The full-width detector (random weights from SEED), its optimizer,
-    the full step, a synthetic uint8 batch on the card and a generator."""
+def det_setup(arch: str = "vit_b", canvas: int = DET_IMG):
+    """The full-width detector `arch` on a `canvas` px square (random
+    weights from SEED), its optimizer, the full step, a synthetic uint8
+    batch on the card and a generator."""
     dev = torch.device("cuda")
-    model = FasterRCNN(image_size=DET_IMG, dtype=torch.bfloat16,
+    model = FasterRCNN(arch=arch, image_size=canvas, dtype=torch.bfloat16,
                        generator=torch.Generator().manual_seed(SEED),
                        device=dev)
-    src = SyntheticDetectionSource(DET_B, canvas=DET_IMG, seed=SEED)
+    src = SyntheticDetectionSource(DET_B, canvas=canvas, seed=SEED)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in src.batch(range(DET_B)).items()}
     return (model, make_adamw(model.parameters(), LR),
@@ -1404,6 +1485,152 @@ def det_path(card: str) -> dict:
         raise AssertionError(f"backbone maps disagree: {err} > {LOGIT_TOL} "
                              f"* {scale}")
     return launches
+
+
+def det_rn50_path(card: str) -> dict:
+    """The full-width RN50-FPN Faster R-CNN train step at TV_CANVAS px, a
+    few times: no kernel launches, finite losses, the body's BatchNorm
+    running statistics bitwise unchanged (frozen, as torchvision's
+    FrozenBatchNorm2d), and the bf16 FPN maps against a float32 CPU run of
+    the same weights on a small input."""
+    model, optimizer, full_step, batch, gen = det_setup("resnet50",
+                                                        TV_CANVAS)
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running_" in k}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    losses = []
+    n_steps = DET_WARMUP_STEPS + DET_TIMED_STEPS
+    for step in range(n_steps):
+        if step == DET_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(full_step(model, optimizer, batch, gen))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check_launches("det_rn50", {})
+    losses = [{k: float(v) for k, v in d.items()} for d in losses]
+    print(f"[det_rn50] losses: {losses}", flush=True)
+    if not all(np.isfinite(list(d.values())).all() for d in losses):
+        raise AssertionError(f"non-finite detection loss: {losses}")
+    after = model.state_dict()
+    moved = [k for k, v in stats.items() if not torch.equal(after[k], v)]
+    print(f"[det_rn50] {len(stats)} BatchNorm running statistics, "
+          f"{len(moved)} moved over {n_steps} steps", flush=True)
+    if moved:
+        raise AssertionError(f"frozen BatchNorm statistics moved: {moved}")
+    print(f"[det_rn50] RN50-FPN Faster R-CNN {TV_CANVAS} px train step, "
+          f"B={DET_B}, bf16 compute / f32 AdamW, detection_augment on "
+          f"device: {dt / DET_TIMED_STEPS * 1e3:.2f} ms/step, "
+          f"{DET_B * DET_TIMED_STEPS / dt:.2f} img/s (mean of "
+          f"{DET_TIMED_STEPS} steps after {DET_WARMUP_STEPS} warm-up), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+          f"[{card}]", flush=True)
+
+    # the FPN maps, bf16 on the card against f32 on the CPU, small input
+    x = normalize(batch["image"][:RN50_DET_REF_B, :RN50_DET_REF_IMG,
+                                 :RN50_DET_REF_IMG].to(torch.float32) / 255.0)
+    ref_model = FasterRCNN(arch="resnet50", image_size=RN50_DET_REF_IMG,
+                           dtype=torch.float32, device="cpu")
+    ref_model.load_state_dict({k: v.cpu() for k, v in after.items()})
+    model.eval()
+    with torch.no_grad():
+        maps = [m.float().cpu() for m in model.backbone(x.to(torch.bfloat16))]
+        refs = ref_model.eval().backbone(x.cpu())
+    for lvl, (m, r) in enumerate(zip(maps, refs)):
+        err, scale = (m - r).abs().max().item(), r.abs().max().item()
+        print(f"[det_rn50] FPN level {lvl} {tuple(m.shape)} bf16 on card vs "
+              f"f32 on CPU: max|err|={err:.4g}, max|ref|={scale:.4g}",
+              flush=True)
+        if m.shape != r.shape or not bool(torch.isfinite(m).all()) \
+                or err > LOGIT_TOL * scale:
+            raise AssertionError(f"FPN level {lvl} disagrees: {err} > "
+                                 f"{LOGIT_TOL} * {scale}")
+    return {}
+
+
+class FrameSource(DetectionSource):
+    """A `DetectionSource` whose frames are made, not read: random uint8
+    frames of `sizes` (w, h) with one to three painted boxes each, from
+    SEED. The placement (resize, canvas, boxes, content size) is the
+    source's own."""
+
+    def __init__(self, sizes, canvas: int, resize: str):
+        super().__init__([f"frame{i}" for i in range(len(sizes))], {},
+                         canvas, resize=resize)
+        self.sizes = sizes
+
+    def decode(self, i):
+        rng = np.random.default_rng(SEED * 7919 + i)
+        w, h = self.sizes[i]
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        n = int(rng.integers(1, 4))
+        xy = rng.uniform(0, 0.6, (n, 2)) * (w, h)
+        wh = rng.uniform(0.1, 0.35, (n, 2)) * (w, h)
+        boxes = np.concatenate([xy, np.minimum(xy + wh, (w, h))],
+                               axis=1).astype(np.float32)
+        for x0, y0, x1, y1 in boxes.astype(int):
+            img[y0:y1, x0:x1] = rng.integers(180, 256, 3)
+        return img, boxes, np.ones((n,), np.int32)
+
+
+def det_eval_path(card: str) -> dict:
+    """`evaluate_map` at batch EVAL_B over five frames (the tail padded) for
+    both detectors at full width: the RN50 at TV_CANVAS px with
+    torchvision placement (content sizes below the canvas: the batch-max
+    emulation works), which launches no kernel, and the ViT-B at DET_IMG
+    px with fixed placement, exactly 8 window and 4 flash forwards a batch
+    and nothing else. Each after a one-batch warm-up; the mAP dict must be
+    finite (random weights: its value means nothing). Returns the ViT's
+    window and flash launch counts."""
+    dev = torch.device("cuda")
+    n_batches = -(-len(RN50_EVAL_FRAMES) // EVAL_B)
+    out = {}
+    for arch, canvas, frames, resize in (
+            ("resnet50", TV_CANVAS, RN50_EVAL_FRAMES, "torchvision"),
+            ("vit_b", DET_IMG, VIT_EVAL_FRAMES, "fixed")):
+        tag = f"det_eval {arch}"
+        model = FasterRCNN(arch=arch, image_size=canvas, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(SEED),
+                           device=dev)
+        src = FrameSource(frames, canvas, resize)
+        if arch == "resnet50":
+            sizes = tuple(tuple(src.get(i)["content_size"].tolist())
+                          for i in range(len(src)))
+            print(f"[{tag}] content sizes {sizes}", flush=True)
+            if sizes != RN50_EVAL_CONTENT:
+                raise AssertionError(f"content sizes {sizes} != "
+                                     f"{RN50_EVAL_CONTENT}")
+        evaluate_map(model, FrameSource(frames[:EVAL_B], canvas, resize),
+                     EVAL_B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = evaluate_map(model, src, EVAL_B)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if arch == "resnet50":
+            check_launches(tag, {})
+        else:
+            out = check_launches(tag, {
+                "window_attention_fwd": 8 * n_batches,
+                "flash_attention_fwd": 4 * n_batches})
+        print(f"[{tag}] mAP {res}", flush=True)
+        if set(res) != {"map", "map_50", "map_75"} or \
+                not np.isfinite(list(res.values())).all():
+            raise AssertionError(f"bad mAP dict: {res}")
+        print(f"[{tag}] evaluate_map {canvas} px, {len(src)} frames at "
+              f"batch {EVAL_B} ({resize} placement; host decode and "
+              f"placement included): {dt / n_batches * 1e3:.2f} ms per eval "
+              f"batch, {len(src) / dt:.2f} img/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+              f"[{card}]", flush=True)
+        del model
+    return {f"{name}_eval": n for name, n in out.items()}
 
 
 # harness -> (module, B, L): the harnesses' full sizes
@@ -1553,6 +1780,44 @@ def profile_mae(card: str, out_dir: str) -> None:
         layers.FUSED_MLP = fused_flag
 
 
+def print_nms_span(what: str, events, wall: float, n_steps: int,
+                   card: str) -> None:
+    """The "nms_topk" range on the device timeline, per step: first to
+    last kernel of the NMS slot loops, idle gaps included."""
+    nms = [e for e in events if e.key == "nms_topk"]
+    nms_ms = max((e.device_time_total for e in nms), default=0) / 1e3 / \
+        n_steps
+    print(f"[profile] {what}: nms_topk span {nms_ms:.2f} ms/step "
+          f"({nms_ms / wall:.3f} of wall)  [{card}]", flush=True)
+
+
+def profile_det_rn50(card: str, out_dir: str) -> None:
+    """torch.profiler over DET_TIMED_STEPS RN50 detection steps."""
+    model, optimizer, full_step, batch, gen = det_setup("resnet50",
+                                                        TV_CANVAS)
+    events, wall = profile_steps(
+        card, lambda: full_step(model, optimizer, batch, gen),
+        DET_TIMED_STEPS, out_dir, "det_rn50_profile.txt")
+    print_nms_span("RN50 detection step", events, wall, DET_TIMED_STEPS,
+                   card)
+
+
+def profile_det_eval(card: str, out_dir: str) -> None:
+    """torch.profiler over one ViT-B eval batch (EVAL_B frames placed as
+    `evaluate_map` places them) after one warm-up batch."""
+    model = FasterRCNN(image_size=DET_IMG, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(SEED),
+                       device=torch.device("cuda"))
+    src = FrameSource(VIT_EVAL_FRAMES[:EVAL_B], DET_IMG, "fixed")
+    imgs = torch.from_numpy(np.stack([src.get(i)["image"]
+                                      for i in range(EVAL_B)])).cuda()
+    eval_step = make_detection_eval_step(model)
+    events, wall = profile_steps(
+        card, lambda: eval_step(imgs.to(torch.float32) / 255.0), 1, out_dir,
+        "det_eval_profile.txt")
+    print_nms_span("ViT-B eval batch", events, wall, 1, card)
+
+
 def profile_det(card: str, out_dir: str) -> None:
     """torch.profiler over DET_TIMED_STEPS detection steps after one warm-up:
     device time by kernel, the device's busy share, and the NMS slot loop's
@@ -1562,13 +1827,7 @@ def profile_det(card: str, out_dir: str) -> None:
     events, wall = profile_steps(
         card, lambda: full_step(model, optimizer, batch, gen),
         DET_TIMED_STEPS, out_dir, "det_profile.txt")
-    # the "nms_topk" range on the device timeline: first to last kernel of
-    # the slot loop, idle gaps included
-    nms = [e for e in events if e.key == "nms_topk"]
-    nms_ms = max((e.device_time_total for e in nms), default=0) / 1e3 / \
-        DET_TIMED_STEPS
-    print(f"[profile] detection step: nms_topk span {nms_ms:.2f} ms/step "
-          f"({nms_ms / wall:.3f} of wall)  [{card}]", flush=True)
+    print_nms_span("detection step", events, wall, DET_TIMED_STEPS, card)
     # the RPN's slot loop alone, without the profiler: B images of 8768
     # candidates (2000 per level, 768 at stride 64), 1000 slots
     n = 4 * model.rpn_pre_nms_top_n[0] + (DET_IMG // 64) ** 2 * 3
@@ -1593,7 +1852,8 @@ def main() -> None:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile the classification, "
                              "segmentation, RN50 segmentation, ViT depth, "
-                             "detection and MAE steps; the tables go to "
+                             "ViT and RN50 detection and MAE steps and a "
+                             "ViT detection eval batch; the tables go to "
                              "DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1637,6 +1897,8 @@ def main() -> None:
               *((f"{tag} path", functools.partial(dense_path, tag))
                 for tag in DENSE_PATHS),
               ("detection path", det_path),
+              ("RN50 detection path", det_rn50_path),
+              ("detection eval (evaluate_map)", det_eval_path),
               ("MAE path", mae_path),
               ("kernel A/B harnesses", harness_path)]
     results, launches = [], {}
@@ -1657,6 +1919,8 @@ def main() -> None:
         profile_dense("rn50_seg", card, args.profile)
         profile_dense("vit_depth", card, args.profile)
         profile_det(card, args.profile)
+        profile_det_rn50(card, args.profile)
+        profile_det_eval(card, args.profile)
         profile_mae(card, args.profile)
     print(card)
     print(json.dumps({"kernels": results}))

@@ -2,8 +2,9 @@
 
 The inverse of `ssl4gie_tpu/convert/torch_names.py:vit_torch_to_flax` for the
 classifier, and both directions for the ViT-B Faster R-CNN, the MAE
-pretraining model, the ViT dense model and the three ResNet-50 models
-(classifier, DeepLabV3+, depth; with their BatchNorm statistics): flax
+pretraining model, the ViT dense model and the four ResNet-50 models
+(classifier, DeepLabV3+, depth, the RN50 Faster R-CNN; with their BatchNorm
+statistics): flax
 Conv kernels (kh, kw, I, O) become torch (O, I, kh, kw) (a depthwise
 kernel (kh, kw, 1, C) becomes (C, 1, kh, kw) the same way); flax
 ConvTranspose kernels (kh, kw, I, O) become torch (I, O, kh, kw) flipped in
@@ -135,9 +136,13 @@ def _faster_rcnn_layers(depth: int):
     pre = lambda fp, tp, layers: [((fp,) + p, f"{tp}.{n}", k)
                                   for p, n, k in layers]
     layers = pre("backbone", "backbone", _backbone_layers(depth))
-    layers += pre("fpn", "fpn", _fpn_layers())
-    for n in ("conv", "cls_logits", "bbox_pred"):
-        layers.append((("rpn_head", n), f"rpn.head.{n}", "conv"))
+    return layers + pre("fpn", "fpn", _fpn_layers()) + _detector_head_layers()
+
+
+def _detector_head_layers():
+    """The same for the RPN head and the box head of either detector."""
+    layers = [(("rpn_head", n), f"rpn.head.{n}", "conv")
+              for n in ("conv", "cls_logits", "bbox_pred")]
     return layers + [
         (("box_head", "fc6"), "roi_heads.box_head.fc6", "dense"),
         (("box_head", "fc7"), "roi_heads.box_head.fc7", "dense"),
@@ -366,9 +371,9 @@ def _stage_sizes_flax(encoder) -> tuple:
 
 
 def _stage_sizes_torch(sd, prefix: str) -> tuple:
-    return tuple(len({k.split(".")[2] for k in sd
-                      if k.startswith(f"{prefix}.layer{s}.")})
-                 for s in (1, 2, 3, 4))
+    blocks = lambda pre: {k[len(pre):].split(".")[0] for k in sd
+                          if k.startswith(pre)}
+    return tuple(len(blocks(f"{prefix}.layer{s}.")) for s in (1, 2, 3, 4))
 
 
 def _prefixed(fp: str, layers):
@@ -471,3 +476,39 @@ def resnet_depth_params_to_torch(params, batch_stats
 def resnet_depth_state_dict_to_params(sd) -> tuple[dict, dict]:
     """The inverse of `resnet_depth_params_to_torch`."""
     return _resnet_to_flax(sd, _resnet_depth_layers, "encoder")
+
+
+# ------------------------------------------------ RN50 Faster R-CNN
+
+def _faster_rcnn_rn50_layers(stage_sizes):
+    """(flax path, torch module name, kind) of every layer of the RN50
+    Faster R-CNN: the JAX `ResNetFPN`'s `body`, `lateral{i}` and
+    `output{i}` under torchvision's `backbone.body`,
+    `backbone.fpn.inner_blocks.{i}` and `backbone.fpn.layer_blocks.{i}`."""
+    layers = [(("backbone", "body") + p, f"backbone.body.{n}", k)
+              for p, n, k in _resnet_layers(stage_sizes)]
+    for i in range(4):
+        layers += [(("backbone", f"lateral{i}"),
+                    f"backbone.fpn.inner_blocks.{i}", "conv"),
+                   (("backbone", f"output{i}"),
+                    f"backbone.fpn.layer_blocks.{i}", "conv")]
+    return layers + _detector_head_layers()
+
+
+def faster_rcnn_rn50_params_to_torch(params, batch_stats
+                                     ) -> dict[str, torch.Tensor]:
+    """params, batch_stats: the JAX `FasterRCNN(arch="resnet50")` variables
+    as nested dicts of arrays. Returns the port's `FasterRCNN(arch=
+    "resnet50")` state_dict, the body's BatchNorm running statistics
+    included (float32 CPU tensors)."""
+    layers = _faster_rcnn_rn50_layers(
+        _stage_sizes_flax(params["backbone"]["body"]))
+    return _stats_to_torch(batch_stats, layers, _to_torch(params, layers))
+
+
+def faster_rcnn_rn50_state_dict_to_params(sd) -> tuple[dict, dict]:
+    """The inverse of `faster_rcnn_rn50_params_to_torch`: a state_dict ->
+    (params, batch_stats), nested dicts of float32 numpy copies."""
+    sd = _numpy(sd)
+    layers = _faster_rcnn_rn50_layers(_stage_sizes_torch(sd, "backbone.body"))
+    return _to_flax(sd, layers), _stats_to_flax(sd, layers)

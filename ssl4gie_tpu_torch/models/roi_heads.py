@@ -24,9 +24,9 @@ from torch import nn
 
 from ssl4gie_tpu_torch.models.layers import init_lecun
 from ssl4gie_tpu_torch.models.rpn import sample_balanced
-from ssl4gie_tpu_torch.ops.boxes import (box_iou, clip_boxes, decode_boxes,
-                                         encode_boxes, small_box_mask,
-                                         smooth_l1)
+from ssl4gie_tpu_torch.ops.boxes import (box_iou, clip_to_canvas,
+                                         decode_boxes, encode_boxes,
+                                         small_box_mask, smooth_l1)
 from ssl4gie_tpu_torch.ops.nms import batched_nms_topk
 from ssl4gie_tpu_torch.ops.roi_align import multiscale_roi_align
 
@@ -141,16 +141,19 @@ def roi_head_loss(scores, deltas, labels, reg_targets, pos_mask, valid):
 def postprocess_detections(scores, deltas, proposals, prop_valid,
                            image_size: int, score_thresh: float = 0.05,
                            nms_thresh: float = 0.5,
-                           detections_per_img: int = 100):
+                           detections_per_img: int = 100, content_wh=None):
     """scores (B, R, K) logits; deltas (B, R, K, 4); proposals (B, R, 4).
     Returns dict(boxes (B, D, 4), scores (B, D), labels (B, D), valid
-    (B, D))."""
+    (B, D)). content_wh: optional (B, 2) (w, h) pre-pad extents: each
+    image's boxes are clipped to its own before the NMS, as torchvision's
+    `RoIHeads` clips to `image_shapes` (clipping moves IoUs, so it must come
+    before the NMS)."""
     B, R, K = scores.shape
     probs = torch.softmax(scores, dim=-1)
     boxes_k = decode_boxes(deltas, proposals[:, :, None, :].expand(-1, -1, K,
                                                                    -1),
                            BOX_REG_WEIGHTS)
-    boxes_k = clip_boxes(boxes_k, image_size, image_size)
+    boxes_k = clip_to_canvas(boxes_k, image_size, content_wh)
     probs, boxes_k = probs[..., 1:], boxes_k[:, :, 1:]      # drop background
     flat_boxes = boxes_k.reshape(B, R * (K - 1), 4)
     flat_scores = probs.reshape(B, R * (K - 1))

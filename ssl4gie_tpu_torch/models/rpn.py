@@ -23,9 +23,9 @@ from torch import nn
 
 from ssl4gie_tpu_torch.models.layers import init_lecun
 from ssl4gie_tpu_torch.models.vitdet_fpn import conv_nhwc
-from ssl4gie_tpu_torch.ops.boxes import (box_iou, clip_boxes, decode_boxes,
-                                         encode_boxes, small_box_mask,
-                                         smooth_l1)
+from ssl4gie_tpu_torch.ops.boxes import (box_iou, clip_to_canvas,
+                                         decode_boxes, encode_boxes,
+                                         small_box_mask, smooth_l1)
 from ssl4gie_tpu_torch.ops.nms import batched_nms_topk
 
 ANCHOR_SIZES = (32, 64, 128, 256, 512)
@@ -181,13 +181,26 @@ def rpn_loss(rand, anchors, objectness, deltas, gt_boxes, gt_valid):
 def select_proposals(objectness, deltas, anchors, level_slices,
                      image_size: int, pre_nms_top_n: int, post_nms_top_n: int,
                      nms_thresh: float = 0.7, min_size: float = 1e-3,
-                     return_index: bool = False):
+                     return_index: bool = False, anchor_valid=None,
+                     content_wh=None):
     """Per image: per-level top-k -> decode -> clip -> level-aware NMS ->
     post_nms_top_n proposals and their validity: ((B, P, 4), (B, P)).
     level_slices: list of (start, end) into the anchors. The per-level top-k
     is a stable descending sort, as `jax.lax.top_k` breaks ties by index.
     With `return_index`, also the (B, P) indices into the concatenated
-    per-level candidates."""
+    per-level candidates.
+
+    anchor_valid: optional (N,) bool, the anchors inside the batch-max
+    content extent (torchvision pads a batch to its largest image, so the
+    others do not exist there); the rest get -inf objectness before the
+    top-k. content_wh: optional (B, 2) (w, h): each image's proposals are
+    clipped to its own pre-pad extent, as torchvision's `filter_proposals`
+    does, instead of to the canvas."""
+    if anchor_valid is not None:
+        objectness = torch.where(anchor_valid, objectness,
+                                 torch.full((), float("-inf"),
+                                            dtype=objectness.dtype,
+                                            device=objectness.device))
     sel_scores, sel_boxes, sel_levels = [], [], []
     for li, (s, e) in enumerate(level_slices):
         k = min(pre_nms_top_n, e - s)
@@ -200,7 +213,8 @@ def select_proposals(objectness, deltas, anchors, level_slices,
         sel_levels.append(torch.full((k,), li, dtype=torch.int32,
                                      device=objectness.device))
     scores = torch.cat(sel_scores, dim=1)
-    boxes = clip_boxes(torch.cat(sel_boxes, dim=1), image_size, image_size)
+    boxes = clip_to_canvas(torch.cat(sel_boxes, dim=1), image_size,
+                           content_wh)
     levels = torch.cat(sel_levels)
     valid = small_box_mask(boxes, min_size) & (scores > float("-inf"))
     idx, ok = batched_nms_topk(boxes, torch.sigmoid(scores), levels,

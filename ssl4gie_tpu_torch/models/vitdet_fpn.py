@@ -11,8 +11,10 @@ compute dtype over float32 weights.
 ln_mode "channel" is the channel-wise LayerNorm (eps 1e-6); "chw" is the
 reference's full-(C, H, W) LayerNorm (eps 1e-5, a per-element affine stored
 (H, W, C)), which binds the model to one canvas, so it needs the ViT grid
-`grid` at construction. `ResNetFPN` (the RN50 detector's FPN over
-`models/resnet.py:ResNet50`) is not ported yet.
+`grid` at construction.
+
+`ResNetFPN` is the RN50 detector's torchvision-style FPN over
+`models/resnet.py:ResNet50`.
 """
 
 from __future__ import annotations
@@ -149,8 +151,67 @@ class ViTDetFPN(nn.Module):
 
 
 class ResNetFPN(nn.Module):
-    """The RN50 FPN (over `models/resnet.py:ResNet50`) is not ported yet."""
+    """The RN50 detector's backbone (`fasterrcnn_resnet50_fpn`): the
+    ResNet-50 stage maps at strides 4-32 (`body`), 1x1 laterals
+    (`fpn.inner_blocks.{i}`), a nearest 2x top-down sum from stride 32,
+    3x3 output convolutions (`fpn.layer_blocks.{i}`) and a stride-64 level,
+    the stride-2 1x1 max-pool of the stride-32 output. torchvision's
+    state-dict names.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("ResNetFPN (the RN50 detector) is not "
-                                  "ported yet")
+    The body's BatchNorms keep their running statistics in training too,
+    as the JAX package runs its body with `train=False` (torchvision's
+    `FrozenBatchNorm2d`); their scale and bias are parameters and train."""
+
+    def __init__(self, out_channels: int = 256, dtype=torch.float32):
+        super().__init__()
+        # imported here: models/resnet.py imports conv_nhwc from this module
+        from ssl4gie_tpu_torch.models.resnet import WIDTHS, ResNet50
+        self.dtype = dtype
+        self.body = ResNet50(mode="dense", dtype=dtype)
+        self.fpn = nn.Module()
+        self.fpn.inner_blocks = nn.ModuleList(
+            nn.Conv2d(4 * w, out_channels, 1) for w in WIDTHS)
+        self.fpn.layer_blocks = nn.ModuleList(
+            nn.Conv2d(out_channels, out_channels, 3, padding=1)
+            for _ in WIDTHS)
+        self.body.eval()
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.body.reset_parameters(generator)
+        for conv in (*self.fpn.inner_blocks, *self.fpn.layer_blocks):
+            kh, kw = conv.kernel_size
+            init_lecun(conv, kh * kw * conv.in_channels, generator)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.body.eval()
+        return self
+
+    def forward(self, x, mask_hw=None) -> List[torch.Tensor]:
+        """x: (B, H, W, 3) NHWC, H and W multiples of 32 -> [s4, s8, s16,
+        s32, s64]. mask_hw: an optional (h, w) /32-multiple content extent
+        at the input's resolution (the batch-max emulation,
+        `resnet.extent_mask`): the body is masked before every spatial op,
+        each level before its 3x3 output convolution, and the outputs after
+        it, so the RPN's 3x3 convolution and RoIAlign's border taps read the
+        zeros a tight canvas would give (the convolutions' biases otherwise
+        fill the padded region)."""
+        from ssl4gie_tpu_torch.models.resnet import extent_mask
+        dt = self.dtype
+        taps = self.body(x, mask_hw=mask_hw)
+        lvl_hw = [None] * 4 if mask_hw is None else [
+            (mask_hw[0] // s, mask_hw[1] // s) for s in (4, 8, 16, 32)]
+        lat = [conv_nhwc(t, conv, dt)
+               for t, conv in zip(taps, self.fpn.inner_blocks)]
+        # top-down from stride 32; a coarse padded cell lands only on fine
+        # padded cells, since the extents are exact halves
+        outs = [lat[3]]
+        for i in (2, 1, 0):
+            B, h, w, C = outs[0].shape
+            up = outs[0][:, :, None, :, None].expand(B, h, 2, w, 2, C)
+            outs.insert(0, lat[i] + up.reshape(B, 2 * h, 2 * w, C))
+        outs = [conv_nhwc(extent_mask(o, hw), conv, dt, 1)
+                for o, hw, conv in zip(outs, lvl_hw, self.fpn.layer_blocks)]
+        if mask_hw is not None:
+            outs = [extent_mask(o, hw) for o, hw in zip(outs, lvl_hw)]
+        return outs + [outs[3][:, ::2, ::2]]

@@ -74,11 +74,29 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
 
 
 def clip_boxes(boxes: torch.Tensor, height, width) -> torch.Tensor:
-    return torch.stack([
-        torch.clamp(boxes[..., 0], 0.0, width),
-        torch.clamp(boxes[..., 1], 0.0, height),
-        torch.clamp(boxes[..., 2], 0.0, width),
-        torch.clamp(boxes[..., 3], 0.0, height)], dim=-1)
+    """Clamp xyxy boxes to [0, width] x [0, height]; `height` and `width`
+    are numbers or tensors that broadcast against `boxes[..., 0]` (one
+    extent per image)."""
+    def clip(v, hi):
+        if torch.is_tensor(hi):
+            return torch.minimum(torch.clamp(v, min=0.0), hi)
+        return torch.clamp(v, 0.0, hi)
+
+    return torch.stack([clip(boxes[..., 0], width),
+                        clip(boxes[..., 1], height),
+                        clip(boxes[..., 2], width),
+                        clip(boxes[..., 3], height)], dim=-1)
+
+
+def clip_to_canvas(boxes: torch.Tensor, image_size: int,
+                   content_wh: torch.Tensor | None = None) -> torch.Tensor:
+    """Clip (B, ..., 4) boxes to the square canvas, or, given content_wh
+    (B, 2) integer (w, h) extents, each image's boxes to its own extent."""
+    if content_wh is None:
+        return clip_boxes(boxes, image_size, image_size)
+    wh = content_wh.to(boxes.dtype).reshape(
+        boxes.shape[0], *([1] * (boxes.ndim - 2)), 2)
+    return clip_boxes(boxes, wh[..., 1], wh[..., 0])
 
 
 def small_box_mask(boxes: torch.Tensor, min_size: float = 1e-3) -> torch.Tensor:

@@ -1,24 +1,191 @@
-"""Detection task wiring (port of `ssl4gie_tpu/tasks/detection.py`):
-box-aware on-device augmentation, the train step (the sum of the loss dict,
-with `accum_steps` microbatch averaging) and the synthetic data source.
+"""Detection task wiring (port of `ssl4gie_tpu/tasks/detection.py`): the
+Kvasir data source, box-aware on-device augmentation, the train step (the
+sum of the loss dict, with `accum_steps` microbatch averaging), the eval
+step and the COCO mAP evaluation, and the synthetic data source.
 
-Static-shape data contract: every image is a fixed square canvas; GT boxes
-are padded to MAX_GT with a validity mask. `DetectionSource`, `evaluate_map`
-and `DetectionTrainer` are not ported yet.
+Static-shape data contract: every image is placed on a fixed square canvas;
+GT boxes are padded to MAX_GT with a validity mask. `DetectionTrainer` is
+not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Dict, List
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ssl4gie_tpu_torch.core.train_state import apply_gradients
 from ssl4gie_tpu_torch.data.augment import (HUE, JITTER, SIGMA_RANGE,
                                             color_jitter, gaussian_blur)
+from ssl4gie_tpu_torch.data.loader import Source
+from ssl4gie_tpu_torch.metrics.detection import MeanAveragePrecision
 from ssl4gie_tpu_torch.models.faster_rcnn import MAX_GT
+from ssl4gie_tpu_torch.models.layers import default_device
 
 
-class SyntheticDetectionSource:
+def parse_kvasir_targets(input_path: str, targets: dict):
+    """`get_Kvasir_target_vals` (`train_detection.py:154-167`): the boxes
+    (n, 4) xyxy float32 and labels (n,) int32 (all 1) of an image."""
+    objects = targets[os.path.splitext(os.path.basename(input_path))[0]]["bbox"]
+    boxes = np.zeros((len(objects), 4), np.float32)
+    for i, obj in enumerate(objects):
+        boxes[i] = [obj["xmin"], obj["ymin"], obj["xmax"], obj["ymax"]]
+    labels = np.ones((len(objects),), np.int32)
+    return boxes, labels
+
+
+TV_MIN_SIZE = 800      # torchvision GeneralizedRCNNTransform defaults
+TV_MAX_SIZE = 1333     # (`fasterrcnn_resnet50_fpn`, `train_detection.py:197`)
+TV_CANVAS = 1344       # 1333 rounded up to the FPN's size_divisible=32
+
+
+def _tv_bilinear_resize(image: np.ndarray, W2: int, H2: int) -> np.ndarray:
+    """torchvision `GeneralizedRCNNTransform`'s resize: non-antialiased
+    bilinear (`F.interpolate(mode="bilinear", align_corners=False)`) of the
+    float image, rounded back to uint8. (H, W, 3) uint8 -> (H2, W2, 3)."""
+    t = torch.from_numpy(np.asarray(image, np.float32)).permute(2, 0, 1)[None]
+    out = F.interpolate(t, size=(H2, W2), mode="bilinear",
+                        align_corners=False)
+    return out[0].permute(1, 2, 0).round().clamp(0, 255).byte().numpy()
+
+
+def place_detection(image: np.ndarray, boxes: np.ndarray, labels: np.ndarray,
+                    canvas: int, resize: str = "fixed",
+                    keep_original: bool = False) -> dict:
+    """One decoded image (H, W, 3) uint8 with its boxes (n, 4) xyxy and
+    labels (n,) -> the sample on a `canvas` square (`DetectionSource`'s
+    modes). Keys: image, gt_boxes, gt_labels, gt_valid; content_size (w, h)
+    in "torchvision" mode; pad (p1, p2), scale (sx, sy) and the original
+    image with `keep_original`."""
+    boxes = np.array(boxes, np.float32)
+    H, W = image.shape[:2]
+    original = image if keep_original else None
+    if resize == "torchvision":
+        s = min(TV_MIN_SIZE / min(H, W), TV_MAX_SIZE / max(H, W))
+        # floor, as torchvision's F.interpolate(scale_factor=s,
+        # recompute_scale_factor=True) sizes its output
+        W2, H2 = int(W * s), int(H * s)
+        image = _tv_bilinear_resize(image, W2, H2)
+        boxes[:, [0, 2]] *= W2 / W      # torchvision resize_boxes: per-axis
+        boxes[:, [1, 3]] *= H2 / H      # ratios of the actual new/old sizes
+        scale = np.asarray([W2 / W, H2 / H], np.float32)
+        W, H = W2, H2
+        p1 = p2 = 0                     # top-left placement
+    else:
+        # halve if larger than the canvas (bicubic, `Data/dataset.py:84-99`)
+        scale = np.asarray([1.0, 1.0], np.float32)
+        if H > canvas or W > canvas:
+            from PIL import Image
+            if H % 2:
+                H += 1
+            if W % 2:
+                W += 1
+            image = np.asarray(Image.fromarray(image).resize(
+                (W // 2, H // 2), Image.BICUBIC), np.uint8)
+            H, W = image.shape[:2]
+            boxes = boxes / 2.0
+            scale = np.asarray([0.5, 0.5], np.float32)
+        p1 = int(np.floor((canvas - W) / 2))
+        p2 = int(np.floor((canvas - H) / 2))
+    out_img = np.zeros((canvas, canvas, 3), np.uint8)
+    out_img[p2:p2 + H, p1:p1 + W] = image
+    boxes[:, [0, 2]] += p1
+    boxes[:, [1, 3]] += p2
+
+    n = min(len(boxes), MAX_GT)
+    gt_boxes = np.zeros((MAX_GT, 4), np.float32)
+    gt_labels = np.zeros((MAX_GT,), np.int32)
+    gt_valid = np.zeros((MAX_GT,), bool)
+    gt_boxes[:n] = boxes[:n]
+    gt_labels[:n] = labels[:n]
+    gt_valid[:n] = True
+    out = {"image": out_img, "gt_boxes": gt_boxes, "gt_labels": gt_labels,
+           "gt_valid": gt_valid}
+    if resize == "torchvision":
+        # the pre-pad extent (W2, H2): torchvision clips detections to it,
+        # and the model emulates its batch-max padding from it
+        # (`FasterRCNN(content_sizes=)`). The fixed mode matches the
+        # reference's fixed_size canvas, where torchvision clips at the
+        # canvas: no key.
+        out["content_size"] = np.asarray([W, H], np.int32)
+    if keep_original:
+        out["pad"] = np.asarray([p1, p2], np.int32)
+        out["scale"] = scale                     # per-axis (sx, sy)
+        out["original"] = original
+    return out
+
+
+class DetectionSource(Source):
+    """Kvasir detection images placed on one static canvas.
+
+    resize modes:
+    - "fixed" (ViT path): a 2x bicubic downscale when larger than the
+      canvas, then centered on the square canvas: the reference's ViTDet
+      prep (`Object_detection/Data/dataset.py:82-106` + fixed_size 1024).
+    - "torchvision" (RN50 path): torchvision GeneralizedRCNNTransform
+      semantics: bilinear resize by min(800 / min side, 1333 / max side),
+      boxes scaled by the per-axis ratios of the actual sizes, the image
+      placed top-left on the canvas (1344: torchvision pads a batch to its
+      largest image rounded up to /32, which `content_size` lets the model
+      emulate).
+
+    `decode` reads an image (PIL) and its boxes; `place_detection` puts
+    them on the canvas."""
+
+    def __init__(self, paths: List[str], targets: dict, canvas: int = 1024,
+                 keep_original: bool = False, resize: str = "fixed"):
+        if resize not in ("fixed", "torchvision"):
+            raise ValueError(f"resize {resize!r} not in ('fixed', "
+                             "'torchvision')")
+        self.paths, self.targets, self.canvas = list(paths), targets, canvas
+        self.keep_original = keep_original
+        self.resize = resize
+
+    def __len__(self):
+        return len(self.paths)
+
+    def decode(self, i):
+        """(image (H, W, 3) uint8 RGB, boxes (n, 4), labels (n,))."""
+        from PIL import Image
+        path = self.paths[i]
+        boxes, labels = parse_kvasir_targets(path, self.targets)
+        with Image.open(path) as im:
+            image = np.asarray(im.convert("RGB"), np.uint8)
+        return image, boxes, labels
+
+    def get(self, i):
+        return place_detection(*self.decode(i), self.canvas, self.resize,
+                               self.keep_original)
+
+
+def clip_to_content(boxes: np.ndarray, content_size) -> np.ndarray:
+    """Clip boxes (N, 4) xyxy to an image's pre-pad size (W, H), as
+    torchvision's `RoIHeads.postprocess_detections` clips to image_shapes."""
+    cw, ch = float(content_size[0]), float(content_size[1])
+    boxes = np.asarray(boxes, np.float32)
+    return np.stack([np.clip(boxes[:, 0], 0, cw), np.clip(boxes[:, 1], 0, ch),
+                     np.clip(boxes[:, 2], 0, cw), np.clip(boxes[:, 3], 0, ch)],
+                    axis=1)
+
+
+def boxes_to_original(boxes: np.ndarray, pad: np.ndarray,
+                      scale: np.ndarray) -> np.ndarray:
+    """Map canvas boxes (N, 4) xyxy back to the original image's
+    coordinates, inverting `place_detection`: the reference's
+    `(box - pad) / scale` (`predict_detection.py:29-44`). pad (p1, p2);
+    scale per axis (sx, sy)."""
+    out = np.asarray(boxes, np.float32).copy()
+    p1, p2 = float(pad[0]), float(pad[1])
+    sx, sy = float(scale[0]), float(scale[1])
+    out[:, [0, 2]] = (out[:, [0, 2]] - p1) / sx
+    out[:, [1, 3]] = (out[:, [1, 3]] - p2) / sy
+    return out
+
+
+class SyntheticDetectionSource(Source):
     """Random uint8 canvases with 1-3 painted boxes each (the JAX package's
     `SyntheticDetectionSource`, same numpy draws)."""
 
@@ -163,3 +330,60 @@ def make_detection_full_step(accum_steps: int = 1):
                     generator)
 
     return full_step
+
+
+# ------------------------------------------------------------ evaluation
+
+def make_detection_eval_step(model):
+    """Returns eval_step(images, content_sizes=None) -> the detections of
+    `model`'s eval forward, without autograd. images (B, S, S, 3) float in
+    [0, 1]; content_sizes (B, 2) (w, h) or None."""
+
+    def eval_step(images, content_sizes=None):
+        model.eval()
+        with torch.no_grad():
+            return model(images, content_sizes=content_sizes)
+
+    return eval_step
+
+
+def evaluate_map(model, source, batch_size: int = 2,
+                 device=None) -> Dict[str, float]:
+    """Detect over every sample of `source` and return its COCO mAP
+    (`map`, `map_50`, `map_75`). The batches are made on `device`: the
+    card when none is given (no card raises), which must hold `model`."""
+    device = default_device(device)
+    eval_step = make_detection_eval_step(model)
+    metric = MeanAveragePrecision()
+    n = len(source)
+    for start in range(0, n, batch_size):
+        # every image enters the metric; the ragged tail is padded by
+        # repeating the last sample, so each batch has one shape, and the
+        # padded rows are skipped below
+        real = min(batch_size, n - start)
+        samples = [source.get(start + min(i, real - 1))
+                   for i in range(batch_size)]
+        imgs = torch.from_numpy(np.stack([s["image"] for s in samples])).to(
+            device).to(torch.float32) / 255.0
+        # torchvision-mode samples carry their pre-pad extents: the model
+        # emulates torchvision's batch-max padding from them (anchor mask,
+        # clips before each NMS), and clip_to_content below is then a no-op
+        # kept as a guard
+        cs = None
+        if all("content_size" in s for s in samples):
+            cs = torch.from_numpy(np.stack([s["content_size"]
+                                            for s in samples])).to(device)
+        det = {k: v.cpu().numpy() for k, v in eval_step(imgs, cs).items()}
+        preds, targets = [], []
+        for bi, s in enumerate(samples[:real]):
+            ok = det["valid"][bi]
+            pb = det["boxes"][bi][ok]
+            if "content_size" in s:
+                pb = clip_to_content(pb, s["content_size"])
+            preds.append({"boxes": pb, "scores": det["scores"][bi][ok],
+                          "labels": det["labels"][bi][ok]})
+            gv = s["gt_valid"]
+            targets.append({"boxes": s["gt_boxes"][gv],
+                            "labels": s["gt_labels"][gv]})
+        metric.update(preds, targets)
+    return metric.compute()

@@ -456,12 +456,3 @@ def test_synthetic_source_and_sampler():
     assert 0.001 <= p["sigma"].min() and p["sigma"].max() <= 2.0
     assert sorted(p["order"]) == [0, 1, 2, 3]
 
-
-def test_unported_detector_options_raise():
-    with pytest.raises(NotImplementedError):
-        FasterRCNN(arch="resnet50", image_size=SIZE)
-    model = FasterRCNN(image_size=SIZE, depth=1, embed_dim=64, num_heads=1,
-                       device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, SIZE, SIZE, 3),
-              content_sizes=torch.tensor([[SIZE, SIZE]]))
