@@ -100,17 +100,36 @@
    2^-6); each kernel leg's counters must grow by exactly L forwards and L
    backwards per step (the plain leg's by none); the losses must be
    finite; each leg prints its median ms/step.
-7. Prints the card's name and power limit, one JSON line of per-kernel
+7. Finetune driver: the port's `build_trainer` on the command line a user
+   gives `cli/train.py` (ViT-B/16 classification at full width, bf16 over
+   f32 masters, B=64, --learning-rate-scheduler, a synthetic split of 320
+   images: 5 train steps and 5 val and 5 test batches an epoch; the
+   checkpoint and the log in a temporary directory, removed after),
+   `fit()` for two epochs (the Loader, the pinned copies, the on-device
+   augmentation, val and test, the plateau, the best-val save), the end
+   state written as the requeue slot of a run preempted after its second
+   epoch, a second `build_trainer` with --epochs 3 that resumes at epoch 3
+   (the restored weights and AdamW moments bitwise the saved ones) and runs
+   it, then `cli.evaluate.main` on the best-val slot (mF1, mPrecision,
+   mRecall, Accuracy). The counters must grow by exactly 12 attention
+   forwards, 12 backwards and one rotation per train step and 12 forwards
+   per eval batch, nothing else; the losses must be finite and each ledger
+   payload one of the JAX Trainer's. Prints the driver's step time and
+   img/s beside the bare step's (measured just before), the Loader's
+   batches/s alone, ms per eval batch, the host copies of the state, the
+   best-val save, the checkpoint's size, the resume's load and peak memory.
+8. Prints the card's name and power limit, one JSON line of per-kernel
    results, then the last line
    `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
     python3 chip_smoke.py --profile DIR
 
 also profiles a few classification, segmentation, RN50 segmentation, ViT
-depth, ViT and RN50 detection and MAE steps and one ViT detection eval
-batch with `torch.profiler` (device time by kernel, the device's busy
-share, the NMS slot loops' span, the RN50 and depth steps' NCHW <-> NHWC
-layout conversions) and writes the tables to DIR.
+depth, ViT and RN50 detection and MAE steps, one ViT detection eval batch
+and one epoch of the finetune driver (5 train steps, the Loader and the
+copies included) with `torch.profiler` (device time by kernel, the
+device's busy share, the NMS slot loops' span, the RN50 and depth steps'
+NCHW <-> NHWC layout conversions) and writes the tables to DIR.
 
 Any failure raises (nonzero exit, no result). There is no CPU fallback.
 """
@@ -119,13 +138,17 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
+import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -135,6 +158,9 @@ import torch
 from ssl4gie_tpu_torch.benchmarks import bench_attention_kernel as bak
 from ssl4gie_tpu_torch.benchmarks import bench_rotate as brot
 from ssl4gie_tpu_torch.benchmarks import bench_window_kernel as bwk
+from ssl4gie_tpu_torch.cli import args as targs
+from ssl4gie_tpu_torch.cli import evaluate as cli_evaluate
+from ssl4gie_tpu_torch.core.config import DataConfig
 from ssl4gie_tpu_torch.core.train_state import make_adamw
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
 from ssl4gie_tpu_torch.data.augment import eval_batch, normalize
@@ -162,6 +188,7 @@ from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
                                                evaluate_map,
                                                make_detection_eval_step,
                                                make_detection_full_step)
+from ssl4gie_tpu_torch.tasks.build import build_trainer
 from ssl4gie_tpu_torch.tasks.depth import depth_task
 from ssl4gie_tpu_torch.tasks.segmentation import segmentation_task
 
@@ -1704,6 +1731,195 @@ def harness_path(card: str) -> dict:
     return dict(launches)
 
 
+# The finetune driver, as a user runs it (`cli/train.py`'s argv): ViT-B/16
+# classification at full width, B = 64, over a synthetic split of 320
+# images (5 train steps, 5 val and 5 test batches an epoch)
+DRIVER_ARGV = ["--task", "classification", "--architecture", "vit_b",
+               "--synthetic", "--batch-size", "64"]     # cli.evaluate's too
+DRIVER_SYNTHETIC = 320
+# the JAX Trainer's ledger payloads (`ssl4gie_tpu/core/trainer.py`), each
+# with the logger's wall_s; the last train step of an epoch adds max_mem_mb
+DRIVER_LEDGER_KEYS = [
+    {"epoch", "step", "loss", "lr", "images_per_sec", "step_time_ms",
+     "eta_s", "max_mem_mb", "wall_s"},
+    {"epoch", "val_perf", "wall_s"}, {"epoch", "test_perf", "wall_s"},
+    {"epoch", "new_best_val", "test_at_best", "wall_s"},
+    {"epoch", "lr_reduced_to", "wall_s"},
+    {"resumed_from_epoch", "best_val", "wall_s"}]
+
+
+def driver_config(ckpt_dir: str, epochs: int):
+    """The port's TrainConfig of DRIVER_ARGV, as `cli/train.py` makes it."""
+    p = argparse.ArgumentParser()
+    targs.add_common(p)
+    targs.add_train(p)
+    cfg = targs.to_train_config(p.parse_args(
+        DRIVER_ARGV + ["--learning-rate-scheduler", "--epochs", str(epochs),
+                       "--ckpt-dir", ckpt_dir]))
+    cfg.data.synthetic_size = DRIVER_SYNTHETIC
+    return cfg
+
+
+def timed(obj, name: str, into: list) -> None:
+    """Wrap the method `name` of `obj` so that each call appends its ms
+    (host clock, the device synchronized before and after) to `into`."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def bare_cls_ms() -> float:
+    """The bare classification step (cls_setup's full step on one resident
+    batch), ms/step: the yardstick of the driver's step time."""
+    model, optimizer, full_step, img_u8, labels, aug_gen = cls_setup()
+    for step in range(WARMUP_STEPS + TIMED_STEPS):
+        if step == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        full_step(model, optimizer, img_u8, labels, aug_gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+
+
+def _equal_states(a, b, what: str) -> None:
+    """Raise unless the two (nested) states are bitwise equal."""
+    if torch.is_tensor(a):
+        if not torch.equal(a, b.to(a.device)):
+            raise AssertionError(f"{what}: restored state differs")
+    elif isinstance(a, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{what}: keys differ")
+        for k in a:
+            _equal_states(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            _equal_states(x, y, f"{what}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{what}: {a} != {b}")
+
+
+def driver_path(card: str) -> dict:
+    """The finetune driver at full width through its entry points:
+    `build_trainer` on DRIVER_ARGV, `fit()` for two epochs; the run's end
+    state written as the requeue slot of a three-epoch run preempted after
+    its second epoch (what `Trainer._check_preempted` saves at that
+    boundary); a second `build_trainer` with --epochs 3 that resumes at
+    epoch 3 whichever epoch won on val, and runs it; then
+    `cli.evaluate.main` on the best-val slot. Checks the kernels' launches
+    (12 + 12 + 1 per train step, 12 forwards per eval batch, nothing
+    else), finite losses, the restored state bitwise, the ledger's keys and
+    the printed metrics; prints the driver's step time beside the bare
+    step's, the Loader's rate, the eval, snapshot, save and load times, the
+    checkpoint's size and peak memory. Returns the launch counts keyed
+    `<kernel>_driver`."""
+    bare_ms = bare_cls_ms()
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_driver_") as tmp:
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(driver_config(tmp, 2))
+        depth = len(trainer.model.backbone.blocks)
+        eval_ms, snap_ms, save_ms, load_ms = [], [], [], []
+        timed(trainer, "evaluate", eval_ms)
+        timed(trainer, "_ckpt_tree", snap_ms)
+        timed(trainer.ckpt, "save", save_ms)
+        trainer.fit()
+        trainer.preempt_ckpt.save(trainer._ckpt_tree(2, trainer.best_val,
+                                                     0.0))
+        size = os.path.getsize(trainer.ckpt.path)
+
+        resumed = build_trainer(driver_config(tmp, 3))
+        timed(resumed, "maybe_resume", load_ms)
+        resume = resumed.maybe_resume
+
+        def resume_and_check():
+            resume()
+            _equal_states(resumed.model.state_dict(),
+                          trainer.model.state_dict(), "model")
+            _equal_states(resumed.optimizer.state_dict(),
+                          trainer.optimizer.state_dict(), "optimizer")
+
+        resumed.maybe_resume = resume_and_check
+        timed(resumed, "evaluate", eval_ms)
+        resumed.fit()
+        if resumed.start_epoch != 3 or resumed.preempt_ckpt.exists():
+            raise AssertionError(f"resumed at epoch {resumed.start_epoch}, "
+                                 "expected 3 (and the stale requeue slot "
+                                 "deleted)")
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            results = cli_evaluate.main(
+                DRIVER_ARGV + ["--ckpt-dir", tmp, "--results-root", tmp])
+        print(out.getvalue(), end="", flush=True)
+        for key in ("mF1:", "mPrecision:", "mRecall:", "Accuracy:"):
+            if key not in out.getvalue():
+                raise AssertionError(f"cli.evaluate printed no {key}")
+        if not all(np.isfinite(list(results.values()))):
+            raise AssertionError(f"non-finite eval results {results}")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        ledger = [json.loads(ln) for ln in
+                  Path(trainer.logger.jsonl_path).read_text().splitlines()]
+        n_cli = -(-DataConfig().synthetic_size
+                  // trainer.val_loader.batch_size)
+        loader = trainer.train_loader
+        t0 = time.perf_counter()
+        n_loader = sum(1 for _ in loader.epoch(99))
+        loader_s = time.perf_counter() - t0
+
+    steps = 3 * len(trainer.train_loader)
+    evals = 3 * (len(trainer.val_loader) + len(trainer.test_loader)) + n_cli
+    ran = check_launches("driver", {
+        "dense_attention_fwd": depth * (steps + evals),
+        "dense_attention_bwd": depth * steps, "shear_rotate": steps})
+    train_lines = [p for p in ledger if "step" in p]
+    losses = [p["loss"] for p in train_lines]
+    if len(train_lines) != 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"driver losses {losses}")
+    for p in ledger:
+        if set(p) not in DRIVER_LEDGER_KEYS:
+            raise AssertionError(f"ledger payload {sorted(p)} is not one "
+                                 "of the JAX Trainer's")
+    batch = trainer.train_loader.batch_size
+    eval_batches = len(trainer.val_loader)
+    per_eval = [ms / eval_batches for ms in eval_ms]
+    print(f"[driver] launches over {steps} train steps and {evals} eval "
+          f"batches: {ran}", flush=True)
+    for p in train_lines:
+        print(f"[driver] epoch {p['epoch']}: step_time_ms "
+              f"{p['step_time_ms']:.2f}, images_per_sec "
+              f"{p['images_per_sec']:.1f} over {p['step']} steps (the "
+              f"Loader's decode and the copies included), loss "
+              f"{p['loss']:.4f}; the bare step {bare_ms:.2f} ms/step, "
+              f"{batch / bare_ms * 1e3:.1f} img/s  [{card}]", flush=True)
+    print(f"[driver] Loader alone: {n_loader / loader_s:.2f} batches/s "
+          f"({n_loader} batches of {batch} synthetic 224 px images, "
+          f"{DataConfig().num_workers} threads)  [{card}]", flush=True)
+    print(f"[driver] eval: {statistics.median(per_eval):.2f} ms per batch of "
+          f"{batch} (median of {len(per_eval)} passes of {eval_batches} "
+          f"batches; passes {[round(x, 2) for x in per_eval]})  [{card}]",
+          flush=True)
+    print(f"[driver] host copies of the state (`_ckpt_tree`, in call order:"
+          f" boundary 1, best 1, boundary 2, [best 2,] the requeue tree): "
+          f"{[round(x, 1) for x in snap_ms]} ms; best-val save "
+          f"(write + fsync + rename): {[round(x, 1) for x in save_ms]} ms; "
+          f"checkpoint {size} bytes; resume load: "
+          f"{[round(x, 1) for x in load_ms]} ms; peak memory {peak:.2f} "
+          f"GiB  [{card}]", flush=True)
+    return {f"{name}_driver": n for name, n in ran.items()}
+
+
 def profile_steps(card: str, step, n_steps: int, out_dir: str, name: str):
     """torch.profiler over `n_steps` calls of `step` (after one warm-up
     call): writes the table of device time by kernel to out_dir/name, prints
@@ -1802,6 +2018,17 @@ def profile_det_rn50(card: str, out_dir: str) -> None:
                    card)
 
 
+def profile_driver(card: str, out_dir: str) -> None:
+    """torch.profiler over one epoch of the finetune driver (its "step" is
+    the epoch: 5 train steps, the Loader's decode, the copies and the
+    loss read) after one warm-up epoch."""
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_driver_") as tmp:
+        trainer = build_trainer(driver_config(tmp, 2))
+        epochs = iter((1, 2))
+        profile_steps(card, lambda: trainer.train_epoch(next(epochs)), 1,
+                      out_dir, "driver_epoch_profile.txt")
+
+
 def profile_det_eval(card: str, out_dir: str) -> None:
     """torch.profiler over one ViT-B eval batch (EVAL_B frames placed as
     `evaluate_map` places them) after one warm-up batch."""
@@ -1852,9 +2079,9 @@ def main() -> None:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile the classification, "
                              "segmentation, RN50 segmentation, ViT depth, "
-                             "ViT and RN50 detection and MAE steps and a "
-                             "ViT detection eval batch; the tables go to "
-                             "DIR")
+                             "ViT and RN50 detection and MAE steps, a "
+                             "ViT detection eval batch and an epoch of the "
+                             "finetune driver; the tables go to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1900,7 +2127,8 @@ def main() -> None:
               ("RN50 detection path", det_rn50_path),
               ("detection eval (evaluate_map)", det_eval_path),
               ("MAE path", mae_path),
-              ("kernel A/B harnesses", harness_path)]
+              ("kernel A/B harnesses", harness_path),
+              ("finetune driver", driver_path)]
     results, launches = [], {}
     for name, phase in phases:
         t0 = time.perf_counter()
@@ -1922,6 +2150,7 @@ def main() -> None:
         profile_det_rn50(card, args.profile)
         profile_det_eval(card, args.profile)
         profile_mae(card, args.profile)
+        profile_driver(card, args.profile)
     print(card)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,22 @@ def vit_classifier_params_to_torch(params) -> dict[str, torch.Tensor]:
     return sd
 
 
+def vit_classifier_state_dict_to_params(sd) -> dict:
+    """The inverse of `vit_classifier_params_to_torch`: a port
+    `ViTClassifier` state_dict -> its param tree, nested dicts of float32
+    numpy."""
+    sd = _numpy(sd)
+    depth = sum(1 for k in sd if k.startswith("backbone.blocks.")
+                and k.endswith(".norm1.weight"))
+    norm = "fc_norm" if "backbone.fc_norm.weight" in sd else "norm"
+    layers = (_prefixed("backbone", _backbone_layers(depth)[:-1]
+                        + [((norm,), norm, "ln")])
+              + [(("lin_head",), "lin_head", "dense")])
+    return _to_flax(sd, layers, {"backbone": {
+        "cls_token": sd["backbone.cls_token"],
+        "pos_embed": sd["backbone.pos_embed"]}})
+
+
 # ------------------------------------------------------------ Faster R-CNN
 
 # each layer kind's leaves: (flax name, torch name)

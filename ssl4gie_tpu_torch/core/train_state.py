@@ -7,9 +7,13 @@ moments, and `apply_gradients` clips (when asked) and steps.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
+
+# --frozen: parameters under these top-level names get no update and no
+# decay (the JAX package's trainable predicate, `tasks/build.py:259-262`)
+FROZEN_PREFIXES = ("backbone", "encoder")
 
 
 def make_adamw(params: Iterable[torch.nn.Parameter],
@@ -57,3 +61,20 @@ def apply_gradients(optimizer: torch.optim.Optimizer) -> None:
             [p for group in optimizer.param_groups for p in group["params"]],
             bound)
     optimizer.step()
+
+
+def freeze_body(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """The rule of `make_frozen_tx` (`ssl4gie_tpu/core/train_state.py:
+    121-132`; the reference freezes the encoder, `Models/models.py:
+    138-140`): every parameter whose name starts with FROZEN_PREFIXES stops
+    requiring a gradient; returns the others, the only ones to hand to the
+    optimizer, so that frozen ones get neither an update nor weight decay
+    and the global-norm clip sees only trainable gradients. BatchNorm
+    running statistics are buffers, and still update in train mode."""
+    trainable = []
+    for name, p in model.named_parameters():
+        if name.startswith(FROZEN_PREFIXES):
+            p.requires_grad_(False)
+        else:
+            trainable.append(p)
+    return trainable

@@ -1,6 +1,6 @@
-"""The train step (port of `ssl4gie_tpu/core/trainer.py:make_train_step`).
+"""The training engine (port of `ssl4gie_tpu/core/trainer.py`).
 
-One step is the forward, the loss, the backward over `accum_steps`
+One train step is the forward, the loss, the backward over `accum_steps`
 microbatches with averaged gradients (a Python loop where the JAX package
 scans), then the optimizer step. The model runs in train mode: BatchNorm
 statistics update once per microbatch, as the JAX package threads its
@@ -8,31 +8,62 @@ batch_stats through the scan, and dropout and stochastic depth draw from
 the step's generator. `make_full_step` composes the on-device augmentation
 (classification, segmentation or depth) and that step, as the JAX
 package's bench steps do.
+
+`Trainer` runs the reference's finetune protocol around that step:
+per-epoch validation and test, ReduceLROnPlateau on the validation metric,
+best-val checkpointing with resume, preemption (save and exit for
+requeue), and images/s and step-time logging. It follows the JAX Trainer
+(`ssl4gie_tpu/core/trainer.py:115-434`) with these differences:
+- randomness: per epoch, a host `torch.Generator` seeded from (seed,
+  epoch) draws the augmentation's factors (a card generator would sync the
+  device at each `randperm(...).tolist()`), and the model's dropout and
+  stochastic depth draw from it too, or, on the card for a task with
+  dropout, from a card generator seeded the same way (a host draw of a
+  dropout mask is as large as the activation). A resumed run replays the
+  same epochs, as under JAX's `fold_in(root_key, epoch)`;
+- evaluation runs each batch at its own size, the ragged tail included:
+  eager torch needs no static shape, and the masked sums of the JAX
+  package's padded batches are the sums over the real rows;
+- the only per-step host sync is the loss read every `log_every` steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import math
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-from ssl4gie_tpu_torch.core.train_state import apply_gradients
+from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
+from ssl4gie_tpu_torch.core.logger import (MetricsLogger, Throughput,
+                                           peak_memory_mb)
+from ssl4gie_tpu_torch.core.preempt import Preempted, PreemptionGuard
+from ssl4gie_tpu_torch.core.schedule import ReduceLROnPlateau
+from ssl4gie_tpu_torch.core.train_state import (apply_gradients, get_lr,
+                                                set_lr)
 from ssl4gie_tpu_torch.data.augment import (apply_classification, apply_depth,
-                                            apply_segmentation,
+                                            apply_segmentation, eval_batch,
                                             sample_classification_params,
                                             sample_depth_params,
                                             sample_segmentation_params)
+from ssl4gie_tpu_torch.data.loader import prefetch_to_device
 
 
 @dataclasses.dataclass
 class TaskDefinition:
-    """What a task contributes to the train step. (The JAX package's
-    evaluation and selection fields come with the ported Trainer.)"""
+    """What a task contributes to the engine."""
     name: str
     aug_mode: str                       # classification | segmentation | depth
     target_key: str                     # label | mask | depth
     loss_fn: Callable                   # (outputs, targets) -> scalar loss
+    # batch_metric: (outputs, targets) -> per-sample (numerator,
+    # denominator); accumulate_preds: unused (argmax, then eval_finalize)
+    eval_metric_fn: Optional[Callable] = None
+    eval_kind: str = "batch_metric"     # batch_metric | accumulate_preds
+    select_mode: str = "max"            # plateau/selection direction
+    has_dropout: bool = False
 
 
 def make_train_step(task: TaskDefinition, accum_steps: int = 1):
@@ -67,18 +98,20 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
 
 
 def make_full_step(task: TaskDefinition, accum_steps: int = 1):
-    """Returns full_step(model, optimizer, img_u8, targets, generator):
-    sample the augmentation from `generator`, augment the uint8 batch (and,
-    for segmentation and depth, its (B, H, W, 1) mask or depth map with it)
-    on its device, then take one train step, whose dropout also draws from
-    `generator`."""
+    """Returns full_step(model, optimizer, img_u8, targets, generator,
+    model_generator=None): sample the augmentation from `generator`,
+    augment the uint8 batch (and, for segmentation and depth, its (B, H, W,
+    1) mask or depth map with it) on its device, then take one train step,
+    whose dropout and stochastic depth draw from `model_generator` (by
+    default `generator`)."""
     if task.aug_mode not in ("classification", "segmentation", "depth"):
         raise NotImplementedError(f"aug_mode {task.aug_mode!r}: only "
                                   "classification, segmentation and depth "
                                   "are ported")
     step = make_train_step(task, accum_steps)
 
-    def full_step(model, optimizer, img_u8, targets, generator):
+    def full_step(model, optimizer, img_u8, targets, generator,
+                  model_generator=None):
         B = img_u8.shape[0]
         if task.aug_mode == "segmentation":
             params = sample_segmentation_params(B, img_u8.shape[1], generator)
@@ -90,6 +123,263 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1):
             params = sample_classification_params(B, generator)
             img = apply_classification(img_u8, params)
         return step(model, optimizer, {"image": img, task.target_key: targets},
-                    generator)
+                    generator if model_generator is None else model_generator)
 
     return full_step
+
+
+def make_eval_step(task: TaskDefinition):
+    """Returns eval_step(model, batch) over a batch of any size, without
+    gradients: argmax predictions (B,) for `accumulate_preds` tasks, else
+    the batch's sums of `eval_metric_fn`'s numerators and denominators,
+    two float32 scalars on the device (the JAX package's masked sums)."""
+
+    @torch.no_grad()
+    def eval_step(model, batch):
+        outputs = model(batch["image"])
+        if task.eval_kind == "accumulate_preds":
+            return torch.argmax(outputs, dim=-1)
+        num, den = task.eval_metric_fn(outputs, batch[task.target_key])
+        return num.sum(), den.sum()
+
+    return eval_step
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The generators' seed for `epoch` of a run seeded `seed`."""
+    return int(np.random.SeedSequence([seed, epoch]).generate_state(
+        1, np.uint64)[0])
+
+
+class Trainer:
+    def __init__(self, *, task: TaskDefinition, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, device,
+                 train_loader, val_loader, test_loader,
+                 logger: MetricsLogger, ckpt: ckpt_lib.CheckpointManager,
+                 epochs: int, accum_steps: int = 1, seed: int = 42,
+                 plateau: Optional[ReduceLROnPlateau] = None,
+                 eval_finalize: Optional[Callable] = None,
+                 log_every: int = 10):
+        self.task = task
+        self.model = model
+        self.optimizer = optimizer
+        self.device = torch.device(device)
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.test_loader = test_loader
+        self.logger = logger
+        self.ckpt = ckpt
+        self.epochs = epochs
+        self.seed = seed
+        self.plateau = plateau
+        self.eval_finalize = eval_finalize   # meanF1 over accumulated preds
+        self.log_every = log_every
+        self.full_step = make_full_step(task, accum_steps)
+        self.eval_step = make_eval_step(task)
+        self.start_epoch = 1
+        self.best_val: Optional[float] = None
+        # sibling slot for preemption saves: the best-val slot keeps the
+        # BEST weights (evaluate loads it), so the requeue state lives next
+        # to it and maybe_resume picks whichever is newer
+        self.preempt_ckpt = ckpt_lib.CheckpointManager(
+            ckpt.directory, ckpt.name + ".preempt")
+        self._guard: Optional[PreemptionGuard] = None
+        # host snapshot taken at each epoch BOUNDARY: a mid-epoch preemption
+        # saves it (not the half-updated state), so the requeued run replays
+        # the interrupted epoch from clean state
+        self._boundary_snapshot = None
+        self._preempt_slot_epoch: Optional[int] = None
+
+    # -------------------------------------------------------------- epochs
+
+    def generators(self, epoch: int):
+        """(augmentation generator, model generator) of `epoch`."""
+        seed = epoch_seed(self.seed, epoch)
+        host = torch.Generator().manual_seed(seed)
+        if self.device.type == "cuda" and self.task.has_dropout:
+            return host, torch.Generator(self.device).manual_seed(seed)
+        return host, host
+
+    def train_epoch(self, epoch: int):
+        meter = Throughput()
+        last_loss = None
+        it = prefetch_to_device(self.train_loader.epoch(epoch), self.device)
+        n_steps = max(len(self.train_loader), 1)
+        aug_gen, model_gen = self.generators(epoch)
+        for step, batch in enumerate(it):
+            if self._guard is not None and self._guard.should_stop:
+                # mid-epoch preemption: the state as of the last COMPLETE
+                # epoch is what resumes (the per-epoch generators make the
+                # replay deterministic)
+                self._check_preempted(epoch - 1)
+            metrics = self.full_step(self.model, self.optimizer,
+                                     batch["image"],
+                                     batch[self.task.target_key], aug_gen,
+                                     model_gen)
+            meter.update(batch["image"].shape[0])
+            if ((step + 1) % self.log_every == 0
+                    or step + 1 == len(self.train_loader)):
+                last_loss = float(metrics["loss"])
+                if not math.isfinite(last_loss):
+                    # NaN abort, as the vendored MAE engine's
+                    # (`engine_pretrain.py:52-54`)
+                    raise FloatingPointError(
+                        f"Loss is {last_loss} at epoch {epoch} step "
+                        f"{step + 1}, stopping training")
+                payload = {"epoch": epoch, "step": step + 1,
+                           "loss": last_loss, "lr": get_lr(self.optimizer),
+                           **meter.rates(n_steps - (step + 1))}
+                if step + 1 == len(self.train_loader):
+                    mem = peak_memory_mb(self.device)
+                    if mem is not None:
+                        payload["max_mem_mb"] = mem
+                self.logger.log(payload)
+        return last_loss
+
+    def evaluate(self, loader, epoch: int, split: str) -> float:
+        """Evaluate a split with the model in eval mode (BatchNorm on its
+        running statistics, no dropout), then back in train mode. Each
+        batch counts with EQUAL weight, as the reference's test() loops,
+        which average a per-batch metric (`train_segmentation.py:90-95`);
+        classification takes meanF1 over all the predictions."""
+        it = prefetch_to_device(loader.epoch(0), self.device)
+        key = self.task.target_key
+        self.model.eval()
+        try:
+            if self.task.eval_kind == "accumulate_preds":
+                preds, targets = [], []
+                for batch in it:
+                    preds.append(self.eval_step(
+                        self.model, {"image": eval_batch(batch["image"])}))
+                    targets.append(batch[key])
+                perf = float(self.eval_finalize(torch.cat(preds),
+                                                torch.cat(targets)))
+            else:
+                sums = [torch.stack(self.eval_step(
+                    self.model, {"image": eval_batch(batch["image"]),
+                                 key: batch[key]})) for batch in it]
+                total, batches = 0.0, 0
+                for num, den in (torch.stack(sums).tolist() if sums else []):
+                    total += num / den if den != 0 else 0.0
+                    batches += 1
+                perf = total / max(batches, 1)
+        finally:
+            self.model.train()
+        self.logger.log({"epoch": epoch, f"{split}_perf": perf})
+        return perf
+
+    # -------------------------------------------------------------- ckpt
+
+    def _ckpt_tree(self, epoch, val_perf, test_perf):
+        """A host copy of the whole state and the JAX Trainer's meta."""
+        return {"model": ckpt_lib.host_copy(self.model.state_dict()),
+                "optimizer": ckpt_lib.host_copy(self.optimizer.state_dict()),
+                "meta": {"epoch": epoch, "val_perf": val_perf,
+                         "test_perf": test_perf,
+                         "plateau_best": -1.0 if self.plateau is None or
+                         self.plateau.best is None
+                         else float(self.plateau.best),
+                         "plateau_bad": 0 if self.plateau is None else
+                         self.plateau.num_bad_epochs,
+                         "lr": get_lr(self.optimizer)}}
+
+    def maybe_resume(self):
+        """Resume from the best-val slot, or from the preemption slot when it
+        is NEWER (it records a later epoch of the same run); the best-val
+        slot keeps serving evaluation either way."""
+        src = self.ckpt if self.ckpt.exists() else None
+        if self.preempt_ckpt.exists():
+            self._preempt_slot_epoch = int(self.preempt_ckpt.meta()["epoch"])
+            if (src is None or self._preempt_slot_epoch
+                    > int(self.ckpt.meta()["epoch"])):
+                src = self.preempt_ckpt
+        if src is None:
+            return
+        restored = src.restore(map_location=self.device)
+        self.model.load_state_dict(restored["model"])
+        self.optimizer.load_state_dict(restored["optimizer"])
+        meta = restored["meta"]
+        self.start_epoch = int(meta["epoch"]) + 1
+        self.best_val = float(meta["val_perf"])
+        if self.plateau is not None:
+            pb = float(meta["plateau_best"])
+            self.plateau.best = None if pb < 0 else pb
+            self.plateau.num_bad_epochs = int(meta["plateau_bad"])
+        self.logger.log({"resumed_from_epoch": self.start_epoch - 1,
+                         "best_val": self.best_val})
+
+    # -------------------------------------------------------------- driver
+
+    def fit(self):
+        self.maybe_resume()
+        try:
+            with PreemptionGuard() as self._guard:
+                return self._fit()
+        except KeyboardInterrupt:
+            # clean exit, as the reference's (`train_classification.py:
+            # 329-331`); the best-val checkpoint on disk stays valid
+            self.logger.log({"interrupted_at_epoch": -1},
+                            echo="KeyboardInterrupt — exiting cleanly")
+            return self.best_val
+        finally:
+            self._guard = None
+
+    def _check_preempted(self, epoch: int):
+        """Poll the signal latch; if set, save the requeue state and stop.
+
+        The saved meta marks `epoch` epochs COMPLETE and the relaunch starts
+        at epoch + 1. A mid-epoch signal saves the snapshot of the last
+        epoch BOUNDARY, so the interrupted epoch replays from clean state
+        and no batch is applied twice (submitit's requeue from the last
+        periodic checkpoint, `submitit_pretrain.py:60-70`)."""
+        if self._guard is None or not self._guard.should_stop:
+            return
+        tree = self._boundary_snapshot
+        if tree is None:
+            tree = self._ckpt_tree(
+                epoch, self.best_val if self.best_val is not None else 0.0,
+                0.0)
+        if ckpt_lib.is_primary():
+            self.preempt_ckpt.save(tree)
+        self._preempt_slot_epoch = int(tree["meta"]["epoch"])
+        self.logger.log({"preempted_after_epoch": epoch},
+                        echo=f"preemption signal — state saved after epoch "
+                             f"{epoch}, exiting for requeue")
+        raise Preempted()
+
+    def _fit(self):
+        for epoch in range(self.start_epoch, self.epochs + 1):
+            # the state with `epoch - 1` epochs complete: what a mid-epoch
+            # preemption saves for the requeue
+            self._boundary_snapshot = self._ckpt_tree(
+                epoch - 1, self.best_val if self.best_val is not None
+                else 0.0, 0.0)
+            self._check_preempted(epoch - 1)
+            self.train_epoch(epoch)
+            val_perf = self.evaluate(self.val_loader, epoch, "val")
+            test_perf = self.evaluate(self.test_loader, epoch, "test")
+            if self.plateau is not None:
+                lr = get_lr(self.optimizer)
+                new_lr = self.plateau.step(val_perf, lr)
+                if new_lr != lr:
+                    set_lr(self.optimizer, new_lr)   # every param group
+                    self.logger.log({"epoch": epoch, "lr_reduced_to": new_lr})
+            better = (self.best_val is None or
+                      (val_perf > self.best_val
+                       if self.task.select_mode == "max"
+                       else val_perf < self.best_val))
+            if better:
+                self.best_val = val_perf
+                if ckpt_lib.is_primary():
+                    self.ckpt.save(self._ckpt_tree(epoch, val_perf,
+                                                   test_perf))
+                self.logger.log({"epoch": epoch, "new_best_val": val_perf,
+                                 "test_at_best": test_perf})
+            # drop a stale .preempt slot once this run has trained past it,
+            # so that a later rerun never prefers it to the best-val slot
+            if (self._preempt_slot_epoch is not None
+                    and epoch > self._preempt_slot_epoch):
+                if ckpt_lib.is_primary():
+                    self.preempt_ckpt.delete()
+                self._preempt_slot_epoch = None
+        return self.best_val

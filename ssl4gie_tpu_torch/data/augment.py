@@ -217,8 +217,19 @@ def _uniform(shape, lo, hi, generator: torch.Generator) -> torch.Tensor:
 
 
 def _on(params: dict, device) -> dict:
-    return {k: v.to(device) if torch.is_tensor(v) else v
-            for k, v in params.items()}
+    """`params` on `device`. Factors drawn on the host go to the card from
+    pinned memory without blocking: a pageable copy would wait for the
+    stream, so the host would stop queueing work once a step."""
+    device = torch.device(device)
+
+    def move(v):
+        if not torch.is_tensor(v):
+            return v
+        if v.device.type == "cpu" and device.type == "cuda":
+            return v.pin_memory().to(device, non_blocking=True)
+        return v.to(device)
+
+    return {k: move(v) for k, v in params.items()}
 
 
 def _sample_jitter_blur_flips(B: int, generator: torch.Generator) -> dict:

@@ -1,26 +1,30 @@
 """Model wiring (port of `ssl4gie_tpu/models/factory.py`): the ViT dense
-model, and the ResNet-50 models the JAX factory builds
+model, the ResNet-50 models the JAX factory builds
 (`models/resnet.py:ResNetClassifier`, `ResNetDepthModel`;
 `models/deeplabv3plus.py:DeepLabV3Plus`), exported here with the same
-`generator=` / `device=` contract. The ViT classifier is
+`generator=` / `device=` contract, and `build_model`, which picks the model
+of a (task, architecture) as the JAX factory does. The ViT classifier is
 `models/vit.py:ViTClassifier`; the detector
 `models/faster_rcnn.py:FasterRCNN`."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from ssl4gie_tpu_torch.core.config import (Architecture, Pretraining,
+                                           SSLFramework, Task)
 from ssl4gie_tpu_torch.models.deeplabv3plus import DeepLabV3Plus
 from ssl4gie_tpu_torch.models.dpt import DPTDecoder
 from ssl4gie_tpu_torch.models.layers import default_device
 from ssl4gie_tpu_torch.models.resnet import ResNetClassifier, ResNetDepthModel
-from ssl4gie_tpu_torch.models.vit import DENSE_TAPS, ViTBackbone
+from ssl4gie_tpu_torch.models.vit import (DENSE_TAPS, ViTBackbone,
+                                          ViTClassifier)
 
 __all__ = ["ViTDenseModel", "DeepLabV3Plus", "ResNetClassifier",
-           "ResNetDepthModel"]
+           "ResNetDepthModel", "build_model", "pos_embed_type_for"]
 
 
 class ViTDenseModel(nn.Module):
@@ -66,3 +70,58 @@ class ViTDenseModel(nn.Module):
         dropout mask in train mode (or `dropout_mask` is that mask)."""
         taps = self.backbone(x, generator)
         return self.decoder(taps, generator, dropout_mask)
+
+
+def pos_embed_type_for(pretraining: Pretraining,
+                       framework: Optional[SSLFramework]) -> str:
+    """MoCo v3 and MAE checkpoints carry fixed 2-D sin-cos position
+    embeddings (`Models/moco_v3/vits.py:53-69`, `Models/mae/models_mae.py:
+    65-72`); supervised timm and random init use learned ones."""
+    if framework in (SSLFramework.MAE, SSLFramework.MOCOV3):
+        return "sincos"
+    return "learned"
+
+
+def build_model(task: Task, architecture: Architecture, *,
+                num_classes: int = 1,
+                pretraining: Pretraining = Pretraining.RANDOM,
+                framework: Optional[SSLFramework] = None,
+                out_token: str = "cls", img_size: int = 224,
+                dtype=torch.float32, drop_path: float = 0.0,
+                generator: torch.Generator | None = None, device=None,
+                **widths) -> nn.Module:
+    """The model of `task` and `architecture`, as the JAX factory builds it,
+    with weights drawn from `generator` and placed on `device` (the card
+    unless given). `widths` narrow the model (depth, embed_dim, num_heads,
+    DPT features and taps for the ViT; stage_sizes for the ResNet-50),
+    for tests."""
+    pet = pos_embed_type_for(pretraining, framework)
+    vit = architecture == Architecture.VIT_B
+    if drop_path > 0 and not (vit and task == Task.CLASSIFICATION):
+        # the reference threads drop_path_rate into the MAE finetune ViT
+        # only (`Models/mae/main_finetune.py:229`)
+        raise ValueError("--drop-path applies to ViT classification only")
+    kw = dict(dtype=dtype, generator=generator, device=device, **widths)
+    if task == Task.CLASSIFICATION:
+        if vit:
+            return ViTClassifier(num_classes, out_token=out_token,
+                                 pos_embed_type=pet, img_size=img_size,
+                                 drop_path_rate=drop_path, **kw)
+        return ResNetClassifier(num_classes, **kw)
+    if task == Task.SEGMENTATION:
+        if vit:
+            return ViTDenseModel(num_classes=1, dense="seg",
+                                 pos_embed_type=pet, img_size=img_size, **kw)
+        # RN50 segmentation is DeepLabV3+, as the reference's
+        # (`train_segmentation.py:153`)
+        return DeepLabV3Plus(num_classes=1, **kw)
+    if task == Task.DEPTH:
+        if vit:
+            return ViTDenseModel(num_classes=1, dense="depth",
+                                 pos_embed_type=pet, img_size=img_size, **kw)
+        return ResNetDepthModel(**kw)
+    if task == Task.DETECTION:
+        from ssl4gie_tpu_torch.models.faster_rcnn import build_detector
+        return build_detector(architecture, pos_embed_type=pet,
+                              img_size=img_size, **kw)
+    raise ValueError(f"unknown task {task}")

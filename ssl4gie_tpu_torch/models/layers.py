@@ -60,14 +60,15 @@ FUSED_MLP = os.environ.get("SSL4GIE_FUSED_MLP", "0") == "1"
 
 def default_device(device=None) -> torch.device:
     """The device an entry point builds on: `device` when given, else the
-    card. Without a card it raises rather than carry on on the CPU, which
-    only an explicit `device="cpu"` asks for."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    card. Without a card it raises (also when the card is asked for by
+    name) rather than carry on on the CPU, which only an explicit
+    `device="cpu"` asks for."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "
-                           "device='cpu' to build on the CPU")
-    return torch.device("cuda")
+                           "device='cpu' (the CLIs: --device cpu) to run on "
+                           "the CPU")
+    return device
 
 
 def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,

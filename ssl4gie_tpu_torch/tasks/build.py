@@ -1,0 +1,151 @@
+"""Assemble a Trainer from a TrainConfig (port of `ssl4gie_tpu/tasks/
+build.py` for classification, segmentation and depth): data discovery and
+the split, the model, the optimizer, the loss and metric wiring, the three
+Loaders, the logger, the checkpoint and the plateau schedule, as each
+reference build() does (`train_classification.py:128-248`,
+`train_segmentation.py:125-223`, `train_depth.py:131-251`). Detection's
+DetectionTrainer is the next slice (ROADMAP queue 1 item 4)."""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
+from ssl4gie_tpu_torch.core.config import Task, TrainConfig
+from ssl4gie_tpu_torch.core.logger import MetricsLogger
+from ssl4gie_tpu_torch.core.schedule import ReduceLROnPlateau
+from ssl4gie_tpu_torch.core.train_state import freeze_body, make_adamw
+from ssl4gie_tpu_torch.core.trainer import TaskDefinition, Trainer
+from ssl4gie_tpu_torch.data import discovery
+from ssl4gie_tpu_torch.data.loader import (ClassificationSource, DepthSource,
+                                           Loader, SegmentationSource,
+                                           SyntheticSource)
+from ssl4gie_tpu_torch.data.splits import split_ids
+from ssl4gie_tpu_torch.metrics import classification as cls_metrics
+from ssl4gie_tpu_torch.models.factory import build_model
+from ssl4gie_tpu_torch.models.layers import default_device
+from ssl4gie_tpu_torch.tasks.depth import depth_task
+from ssl4gie_tpu_torch.tasks.segmentation import segmentation_task
+
+DETECTION_WAITS = ("--task detection: the detection driver (DetectionTrainer) "
+                   "is not ported yet (ROADMAP queue 1 item 4, the next slice)")
+
+
+def _subset(lst, idx):
+    return [lst[i] for i in idx]
+
+
+def _make_sources(cfg: TrainConfig):
+    """(train_source, val_source, test_source, extras dict)."""
+    d = cfg.data
+    if d.synthetic:
+        mk = lambda seed: SyntheticSource(d.synthetic_size, d.img_size,
+                                          cfg.task.value, seed=seed)
+        extras = ({"n_class": 6, "class_weights": [1.0] * 6}
+                  if cfg.task == Task.CLASSIFICATION else {})
+        return mk(0), mk(1), mk(2), extras
+
+    if cfg.task == Task.CLASSIFICATION:
+        data = discovery.discover_classification(d.data_root, d.dataset)
+        tr, te, va = split_ids(len(data.input_paths))
+        mk = lambda idx: ClassificationSource(_subset(data.input_paths, idx),
+                                              _subset(data.targets, idx),
+                                              d.img_size)
+        return mk(tr), mk(va), mk(te), {"n_class": data.n_class,
+                                        "class_weights": data.class_weights}
+
+    if cfg.task == Task.SEGMENTATION:
+        imgs, masks = discovery.discover_segmentation(d.data_root, d.dataset)
+        tr, te, va = split_ids(len(imgs))
+        mk = lambda idx: SegmentationSource(_subset(imgs, idx),
+                                            _subset(masks, idx), d.img_size)
+        return mk(tr), mk(va), mk(te), {}
+
+    if cfg.task == Task.DEPTH:
+        splits = discovery.discover_depth(d.data_root)
+        mk = lambda s: DepthSource(*splits[s], d.img_size)
+        return mk("train"), mk("val"), mk("test"), {}
+
+    raise NotImplementedError(DETECTION_WAITS)
+
+
+def make_task_definition(cfg: TrainConfig, extras: dict, device
+                         ) -> Tuple[TaskDefinition, Optional[Callable]]:
+    """The task and, for classification, the finalizer of its accumulated
+    predictions (meanF1)."""
+    if cfg.task == Task.CLASSIFICATION:
+        n_class = extras["n_class"]
+        weights = torch.tensor(extras["class_weights"], dtype=torch.float32,
+                               device=device)
+        td = TaskDefinition(
+            name="classification", aug_mode="classification",
+            target_key="label",
+            loss_fn=functools.partial(cls_metrics.weighted_cross_entropy,
+                                      class_weights=weights),
+            eval_kind="accumulate_preds", select_mode="max",
+            has_dropout=cfg.optim.drop_path > 0)   # stochastic depth draws
+        return td, lambda preds, targets: cls_metrics.mean_f1(
+            preds, targets, n_class)
+    if cfg.task == Task.SEGMENTATION:
+        return segmentation_task(), None
+    if cfg.task == Task.DEPTH:
+        return depth_task(), None
+    raise NotImplementedError(DETECTION_WAITS)
+
+
+def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
+    """The Trainer of `cfg`, on `cfg.runtime.device` (the card unless
+    "cpu"). `widths` narrow the model (`models/factory.py:build_model`),
+    for tests."""
+    cfg.validate()
+    if cfg.task == Task.DETECTION:
+        raise NotImplementedError(DETECTION_WAITS)
+    device = default_device(cfg.runtime.device)
+    train_src, val_src, test_src, extras = _make_sources(cfg)
+    td, finalize = make_task_definition(cfg, extras, device)
+
+    dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
+             else torch.float32)
+    model = build_model(cfg.task, cfg.architecture,
+                        num_classes=extras.get("n_class", 1),
+                        pretraining=cfg.pretraining,
+                        framework=cfg.ss_framework, out_token=cfg.out_token,
+                        img_size=cfg.data.img_size, dtype=dtype,
+                        drop_path=cfg.optim.drop_path,
+                        generator=torch.Generator().manual_seed(
+                            cfg.runtime.seed),
+                        device=device, **widths)
+    # --frozen trains the heads/decoders only (the reference freezes the
+    # encoder with no_grad, `Models/models.py:138-140`)
+    params = freeze_body(model) if cfg.frozen else list(model.parameters())
+    o = cfg.optim
+    optimizer = make_adamw(params, o.learning_rate, o.b1, o.b2, o.eps,
+                           o.adamw_weight_decay, grad_clip=o.grad_clip)
+
+    bs, seed, threads = (cfg.data.batch_size, cfg.runtime.seed,
+                         cfg.data.num_workers)
+    train_loader = Loader(train_src, bs, shuffle=True, drop_last=True,
+                          seed=seed, num_threads=threads)
+    val_loader = Loader(val_src, bs, shuffle=False, drop_last=False,
+                        seed=seed, num_threads=threads)
+    test_loader = Loader(test_src, bs, shuffle=False, drop_last=False,
+                         seed=seed, num_threads=threads)
+
+    logger = MetricsLogger(cfg.log_dir, cfg.run_name(),
+                           tb=cfg.runtime.tensorboard)
+    ckpt = ckpt_lib.CheckpointManager(cfg.ckpt_dir, cfg.run_name())
+    plateau = None
+    if o.use_plateau_scheduler:
+        plateau = ReduceLROnPlateau(mode=td.select_mode,
+                                    factor=o.plateau_factor,
+                                    patience=o.plateau_patience,
+                                    min_lr=o.min_lr)
+    return Trainer(task=td, model=model, optimizer=optimizer, device=device,
+                   train_loader=train_loader, val_loader=val_loader,
+                   test_loader=test_loader, logger=logger, ckpt=ckpt,
+                   epochs=cfg.epochs, accum_steps=o.accum_steps, seed=seed,
+                   plateau=plateau, eval_finalize=finalize,
+                   log_every=cfg.runtime.log_every)

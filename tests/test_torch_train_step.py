@@ -228,16 +228,16 @@ def test_adamw_clip_with_decay_mask_matches_optax():
 
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter, the
-    detection, MAE, segmentation, ResNet-50 and depth modules and the
-    detection evaluation's among them, leaves jax, flax and optax out of
-    sys.modules."""
+    detection, MAE, segmentation, ResNet-50 and depth modules, the
+    detection evaluation's and the finetune driver's among them, leaves
+    jax, flax and optax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
         " pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 40, names\n"
         "for m in ('kernels.window_attention', 'kernels.flash_attention',"
         " 'ops.boxes', 'ops.nms', 'ops.resize', 'ops.roi_align',"
         " 'models.vitdet_fpn', 'models.rpn', 'models.roi_heads',"
@@ -246,7 +246,11 @@ def test_port_imports_no_jax():
         " 'models.dpt', 'models.factory', 'metrics.segmentation',"
         " 'tasks.segmentation', 'benchmarks.bench_rotate', 'models.resnet',"
         " 'models.deeplabv3plus', 'metrics.depth', 'tasks.depth',"
-        " 'metrics.detection', 'data.loader', 'data.discovery'):\n"
+        " 'metrics.detection', 'data.loader', 'data.discovery',"
+        " 'core.config', 'cli.args', 'data.splits', 'core.schedule',"
+        " 'core.logger', 'core.tb', 'core.preempt', 'core.checkpoint',"
+        " 'core.train_state', 'core.trainer', 'tasks.build', 'cli.train',"
+        " 'tasks.evaluate', 'cli.evaluate'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
