@@ -118,14 +118,41 @@
    img/s beside the bare step's (measured just before), the Loader's
    batches/s alone, ms per eval batch, the host copies of the state, the
    best-val save, the checkpoint's size, the resume's load and peak memory.
-8. Prints the card's name and power limit, one JSON line of per-kernel
+8. MoCo v3 path: the full-width MoCo v3 step (dim 256, mlp_dim 4096, bf16
+   over f32 masters) on vit_b (AdamW at the warmup-cosine rate, the patch
+   projection frozen), vit_s (heads 32 wide), vit_conv_b (the conv stem,
+   11 blocks) and resnet50 (LARS), each built by `build_pretraining` from
+   the config `cli/pretrain.py` makes, at B=128 (224 px crops of 256 px
+   uint8 canvases -> on-device `moco_two_crops` -> EMA -> momentum
+   encoder on both views without gradient -> encoder and predictor on
+   both -> symmetric InfoNCE -> backward -> optimizer), a few steps. The
+   counters must grow by exactly 4 x depth attention forwards and 2 x
+   depth backwards per step (48 + 24 at depth 12, 44 + 22 at 11; none for
+   RN50); losses and gradient norms must be finite; the frozen patch
+   projection must be bitwise unchanged in both encoders (a conv stem
+   must move); one more step's momentum parameters must equal m * old +
+   (1 - m) * encoder, recomputed; the bf16 projector output must agree
+   with a float32 CPU run of the same weights and statistics at B=2. The
+   kernel phase holds #1/#2 at (128, 197, 3*768), 12 x 64, and (128, 197,
+   3*384), 12 x 32 (the forward also under no_grad).
+9. Pretrain driver: `cli/pretrain.py`'s config and `run` on `--framework
+   mocov3 --arch vit_b --synthetic --batch-size 128` over 384 synthetic
+   canvases (3 steps an epoch) in a temporary directory: two epochs with
+   --keep-last 1, a second run with --epochs 3 that resumes from the
+   `.resume` slot (weights, momentum weights, statistics, AdamW state and
+   step bitwise the first run's) and runs the third, then one MAE vit_b
+   epoch. Counters per step as above (MAE 8 + 8 at Dh 32), finite losses,
+   the JAX loop's ledger keys, the slots left; prints the driver's ms/step
+   beside the bare MoCo step's, the saves' and loads' times and the slots'
+   sizes.
+10. Prints the card's name and power limit, one JSON line of per-kernel
    results, then the last line
    `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
     python3 chip_smoke.py --profile DIR
 
 also profiles a few classification, segmentation, RN50 segmentation, ViT
-depth, ViT and RN50 detection and MAE steps, one ViT detection eval batch
+depth, ViT and RN50 detection, MAE and MoCo vit_b steps, one ViT detection eval batch
 and one epoch of the finetune driver (5 train steps, the Loader and the
 copies included) with `torch.profiler` (device time by kernel, the
 device's busy share, the NMS slot loops' span, the RN50 and depth steps'
@@ -160,11 +187,16 @@ from ssl4gie_tpu_torch.benchmarks import bench_rotate as brot
 from ssl4gie_tpu_torch.benchmarks import bench_window_kernel as bwk
 from ssl4gie_tpu_torch.cli import args as targs
 from ssl4gie_tpu_torch.cli import evaluate as cli_evaluate
-from ssl4gie_tpu_torch.core.config import DataConfig
+from ssl4gie_tpu_torch.cli import pretrain as cli_pretrain
+from ssl4gie_tpu_torch.core.config import (Architecture, DataConfig,
+                                           PretrainConfig)
+from ssl4gie_tpu_torch.core.schedule import cosine_momentum
 from ssl4gie_tpu_torch.core.train_state import make_adamw
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
 from ssl4gie_tpu_torch.data.augment import eval_batch, normalize
-from ssl4gie_tpu_torch.data.ssl_augment import mae_augment, sample_mae_params
+from ssl4gie_tpu_torch.data.ssl_augment import (mae_augment, moco_two_crops,
+                                                sample_mae_params,
+                                                sample_moco_params)
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels import attention_variants as av
 from ssl4gie_tpu_torch.kernels import dense_attention as da
@@ -179,8 +211,10 @@ from ssl4gie_tpu_torch.models.factory import (DeepLabV3Plus, ResNetClassifier,
 from ssl4gie_tpu_torch.models.faster_rcnn import FasterRCNN
 from ssl4gie_tpu_torch.models.vit import ViTClassifier
 from ssl4gie_tpu_torch.ssl.mae import MAE
-from ssl4gie_tpu_torch.ssl.pretrain import (MAEPretrainConfig,
-                                            SyntheticUnlabeled,
+from ssl4gie_tpu_torch.ssl.moco_v3 import (STOP_GRAD_ARCHS, VIT_PRESETS,
+                                           MoCoEncoder)
+from ssl4gie_tpu_torch.ssl.pretrain import (PretrainRun, SyntheticUnlabeled,
+                                            build_pretraining,
                                             make_mae_full_step,
                                             make_mae_optimizer, make_schedule)
 from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
@@ -228,6 +262,14 @@ MAE_WARMUP_STEPS, MAE_TIMED_STEPS = 1, 3
 MAE_LOSS_TOL = 0.01     # fused vs unfused MLP forward: 1% of the loss
 MAE_REF_B = 2
 HARNESS_WARMUP_STEPS, HARNESS_TIMED_STEPS = 1, 5
+# MoCo v3: benchmarks/bench_moco_pretrain.py's batch, 224 px crops of 256 px
+# canvases; the four archs the phase drives (vit_conv_s shares vit_s's
+# attention shapes and vit_conv_b's stem)
+MOCO_B, MOCO_CANVAS = 128, 256
+MOCO_WARMUP_STEPS, MOCO_TIMED_STEPS = 1, 3
+MOCO_ARCHS = ("vit_b", "vit_s", "vit_conv_b", "resnet50")
+MOCO_REF_B = 2
+MOCO_MS_STEP = {}      # each arch's bare step, ms (the driver's yardstick)
 # segmentation: the batch of benchmarks/bench_segmentation.py, and the
 # random affine's rotation canvas at 224 px (image, mask, validity: 5 channels)
 SEG_B, SEG_CANVAS = 48, 352
@@ -1262,6 +1304,77 @@ def mae_kernel_phase(card: str) -> list[dict]:
     return results
 
 
+def attention_rows(tag: str, seqs: int, heads: int, dh: int,
+                   card: str) -> list[dict]:
+    """#1 and #2 at (seqs, TOKENS, 3 * heads * dh) against their plain
+    versions, the forward also through `fused_qkv_attention` under
+    no_grad (the momentum encoder's route); rows named
+    `dense_attention_{fwd,bwd}_<tag>`."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    C, scale, tol = heads * dh, dh ** -0.5, 2.0 ** -6
+    qkv = torch.randn((seqs, TOKENS, 3 * C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dout = torch.randn((seqs, TOKENS, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    out_k, lse_k = da.attention_fwd(qkv, heads, scale)
+    with torch.no_grad():
+        out_ng = da.fused_qkv_attention(qkv, heads, scale)
+    dq_k = da.attention_bwd(qkv, out_k, lse_k, dout, heads, scale)
+    torch.cuda.synchronize()
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, heads, scale)
+    err_f = max(check_close(f"attention_fwd {tag}", out_k, out_p, tol),
+                check_close(f"attention_fwd {tag} no_grad", out_ng, out_p,
+                            tol))
+    check_close(f"attention_fwd {tag} lse", lse_k, lse_p, 2.0 ** -16)
+    err_b = check_close(f"attention_bwd {tag}", dq_k,
+                        da.fused_qkv_attention_bwd_plain(qkv, dout, heads,
+                                                         scale), tol)
+    del out_p, lse_p, out_ng
+    q, k, v = heads_of(qkv, heads)
+    fwd = result(
+        f"dense_attention_fwd_{tag}", "dense_attention.cu",
+        "ssl4gie_tpu/kernels/dense_attention.py:146", err_f,
+        cuda_ms(lambda: da.attention_fwd(qkv, heads, scale)),
+        cuda_ms(lambda: da.fused_qkv_attention_plain(qkv, heads, scale)),
+        sdpa_ms(q, k, v, scale), *attn_work(seqs, heads, TOKENS, dh, False))
+    x = qkv.detach().requires_grad_(True)
+    o = da.fused_qkv_attention_plain(x, heads, scale)
+    work = attn_work(seqs, heads, TOKENS, dh, True)
+    bwd = result(
+        f"dense_attention_bwd_{tag}", "dense_attention.cu",
+        "ssl4gie_tpu/kernels/dense_attention.py:169", err_b,
+        cuda_ms(lambda: da.attention_bwd(qkv, out_k, lse_k, dout, heads,
+                                         scale)),
+        cuda_ms(lambda: torch.autograd.grad(o, x, dout, retain_graph=True)),
+        sdpa_ms(q, k, v, scale, split_heads(dout, heads)), *work)
+    del x, o
+    print(f"[kernel] attention fwd / bwd  B={seqs} N={TOKENS} H={heads} "
+          f"Dh={dh} bf16 ({tag}; the forward also under no_grad): max|err| "
+          f"{err_f:.3g} / {err_b:.3g} (tol {tol:.3g} rel); kernel "
+          f"{fwd['ms']:.4f} / {bwd['ms']:.4f} ms ({tflops(work[0], bwd['ms'])}"
+          f" bwd), plain {fwd['plain_ms']:.4f} / {bwd['plain_ms']:.4f} ms, "
+          f"sdpa {fwd['library_ms']:.4f} / {bwd['library_ms']:.4f} ms, bound "
+          f"{fwd['bound_ms']:.4f} / {bwd['bound_ms']:.4f} ms  [{card}]",
+          flush=True)
+    return [fwd, bwd]
+
+
+def moco_kernel_phase(card: str) -> list[dict]:
+    """#1/#2 at the MoCo path's shapes: B = MOCO_B images of 197 tokens,
+    ViT-B's 12 x 64 (vit_b, vit_conv_b) and ViT-S's 12 x 32 (vit_s)."""
+    rows = []
+    for arch in ("vit_b", "vit_s"):
+        preset = VIT_PRESETS[arch]
+        rows += attention_rows(f"moco_{arch}", MOCO_B, preset["num_heads"],
+                               preset["embed_dim"] // preset["num_heads"],
+                               card)
+    # vit_conv_b runs the same shapes as vit_b: its rows repeat those times
+    rows += [dict(r, name=r["name"].replace("vit_b", "vit_conv_b"))
+             for r in rows[:2]]
+    return rows
+
+
 MAE_COUNTERS = {"fused_mlp_fwd": fm.mlp_fwd, "fused_mlp_bwd": fm.mlp_bwd,
                 "dense_attention_fwd_dh32": da.attention_fwd,
                 "dense_attention_bwd_dh32": da.attention_bwd}
@@ -1272,7 +1385,7 @@ def mae_setup():
     f32 masters), its optimizer, the full step, a synthetic uint8 batch of
     256 px canvases on the card and a generator."""
     dev = torch.device("cuda")
-    cfg = MAEPretrainConfig(batch_size=MAE_B)
+    cfg = PretrainConfig(batch_size=MAE_B)
     model = MAE(img_size=cfg.img_size, mask_ratio=cfg.mask_ratio,
                 norm_pix_loss=cfg.norm_pix_loss, dtype=torch.bfloat16,
                 generator=torch.Generator().manual_seed(SEED), device=dev)
@@ -1407,6 +1520,129 @@ def mae_path(card: str) -> dict:
                              f"* {scale}")
     return counts
 
+
+
+def pretrain_config(framework: str, arch: str, ckpt_dir: str,
+                    synthetic_size: int, argv=()) -> PretrainConfig:
+    """The PretrainConfig `cli/pretrain.py` makes for `framework` on `arch`
+    at B = MOCO_B on `synthetic_size` synthetic canvases (the recipe's
+    optimizer, learning rate and weight decay), plus `argv`."""
+    p = cli_pretrain.build_parser()
+    cfg = cli_pretrain.to_pretrain_config(p, p.parse_args(
+        ["--framework", framework, "--arch", arch, "--synthetic",
+         "--batch-size", str(MOCO_B), "--ckpt-dir", ckpt_dir, *argv]))
+    cfg.data.synthetic_size = synthetic_size
+    return cfg
+
+
+def moco_steps_per_kernel(run) -> dict:
+    """A MoCo step's launches: per view, the momentum encoder's forward and
+    the encoder's forward and backward in every block of a ViT; none for
+    RN50."""
+    if run.cfg.architecture == Architecture.RESNET50:
+        return {}
+    depth = len(run.model.encoder.backbone.blocks)
+    return {"dense_attention_fwd": 4 * depth,
+            "dense_attention_bwd": 2 * depth}
+
+
+def moco_path(arch: str, card: str) -> dict:
+    """The full-width MoCo v3 step on `arch` (dim 256, mlp_dim 4096, bf16
+    over f32 masters; vit_b AdamW with its patch projection frozen, RN50
+    LARS), built by `build_pretraining` from the CLI's config, on one
+    resident batch of MOCO_B 256 px canvases, a few times. Checks each
+    kernel counter's growth, finite losses and gradient norms, the frozen
+    patch projection bitwise unchanged in both encoders, the last step's
+    momentum parameters against m * old + (1 - m) * encoder, and the bf16
+    projector output against a float32 CPU run of the same weights and
+    statistics. Returns the launch counts keyed `<kernel>_moco_<arch>`."""
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_moco_") as tmp:
+        run = build_pretraining(pretrain_config("mocov3", arch, tmp,
+                                                MOCO_B))
+    model, optimizer = run.model, run.optimizer
+    total_steps = len(run.loader) * run.cfg.epochs
+    src = SyntheticUnlabeled(MOCO_B, canvas=MOCO_CANVAS, seed=SEED)
+    img_u8 = torch.from_numpy(src.batch(range(MOCO_B))["image"]).to(dev)
+    gen = torch.Generator().manual_seed(SEED)
+    vit, frozen = arch in VIT_PRESETS, arch in STOP_GRAD_ARCHS
+    pe0 = ([p.detach().clone() for p in model.patch_embed_parameters()]
+           if vit else [])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    hist = []
+    n_steps = MOCO_WARMUP_STEPS + MOCO_TIMED_STEPS
+    for step in range(n_steps):
+        if step == MOCO_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        hist.append(run.full_step(model, optimizer, img_u8, gen, step))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tag = f"moco_{arch}"
+    ran = check_launches(tag, {k: n * n_steps for k, n in
+                               moco_steps_per_kernel(run).items()})
+    hist = [{k: float(v) for k, v in h.items()} for h in hist]
+    print(f"[{tag}] loss / grad_norm: {hist}", flush=True)
+    if not all(np.isfinite(list(h.values())).all() for h in hist):
+        raise AssertionError(f"non-finite MoCo loss or gradient norm: {hist}")
+    ms_step = dt / MOCO_TIMED_STEPS * 1e3
+    print(f"[{tag}] MoCo v3 {arch} 224 px step (two views, momentum "
+          f"encoder, {run.cfg.optimizer}), B={MOCO_B}, bf16 compute / f32 "
+          f"masters, moco_two_crops on device: {ms_step:.2f} ms/step, "
+          f"{MOCO_B * MOCO_TIMED_STEPS / dt:.1f} img/s (mean of "
+          f"{MOCO_TIMED_STEPS} steps after {MOCO_WARMUP_STEPS} warm-up), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+          f"[{card}]", flush=True)
+
+    # one more step: its EMA against m * old + (1 - m) * encoder, recomputed
+    old = [p.detach().clone() for p in model.momentum_encoder.parameters()]
+    enc = [p.detach().clone() for p in model.encoder.parameters()]
+    run.full_step(model, optimizer, img_u8, gen, n_steps)
+    m = cosine_momentum(n_steps, base_m=run.cfg.moco_momentum,
+                        total_steps=total_steps)
+    err = max(check_close(f"{tag} momentum", p.detach(), o * m + e * (1 - m),
+                          2.0 ** -22)
+              for p, o, e in zip(model.momentum_encoder.parameters(), old,
+                                 enc))
+    del old, enc
+    stem = "no patch projection (RN50)"
+    if vit:
+        mom_pe = model.momentum_encoder.backbone.patch_embed.parameters()
+        same = [torch.equal(a, b) and (not frozen or torch.equal(c, b))
+                for a, b, c in zip(model.patch_embed_parameters(), pe0,
+                                   mom_pe)]
+        if frozen != all(same):
+            raise AssertionError(f"{tag}: the patch projection "
+                                 f"{'moved' if frozen else 'did not move'}")
+        stem = ("patch projection frozen: bitwise unchanged in both "
+                "encoders" if frozen else "conv stem trained: moved")
+    print(f"[{tag}] momentum parameters vs m * old + (1 - m) * encoder "
+          f"(m = {m:.9g}): max|err| {err:.3g}; {stem}", flush=True)
+
+    # the bf16 projector output on the card against a float32 CPU run of the
+    # same weights and running statistics (eval mode)
+    x = moco_two_crops(img_u8[:MOCO_REF_B], sample_moco_params(
+        MOCO_REF_B, gen, MOCO_CANVAS))[0]
+    model.encoder.eval()
+    with torch.no_grad():
+        out = model.encoder(x).float().cpu()
+        ref_enc = MoCoEncoder(arch, run.cfg.moco_dim, run.cfg.moco_mlp_dim)
+        ref_enc.load_state_dict({k: v.cpu() for k, v in
+                                 model.encoder.state_dict().items()})
+        ref = ref_enc.eval()(x.cpu())
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"[{tag}] projector output {tuple(out.shape)} bf16 on card vs f32 "
+          f"on CPU (B={MOCO_REF_B}): max|err|={err:.4g}, max|ref|={scale:.4g}",
+          flush=True)
+    if not bool(torch.isfinite(out).all()) or err > LOGIT_TOL * scale:
+        raise AssertionError(f"{tag} projector output disagrees: {err} > "
+                             f"{LOGIT_TOL} * {scale}")
+    MOCO_MS_STEP[arch] = ms_step
+    return {f"{name}_{tag}": n for name, n in ran.items()}
 
 
 DET_COUNTERS = {"window_attention_fwd": wa.window_attention_fwd,
@@ -1920,6 +2156,122 @@ def driver_path(card: str) -> dict:
     return {f"{name}_driver": n for name, n in ran.items()}
 
 
+# the pretraining driver: MoCo v3 vit_b and MAE vit_b at B = MOCO_B over a
+# synthetic set of three batches (three steps an epoch)
+PRETRAIN_SYNTHETIC = 3 * MOCO_B
+# the JAX run_loop's ledger payloads, each with the logger's wall_s
+PRETRAIN_LEDGER_KEYS = [
+    {"epoch", "step", "loss", "grad_norm", "images_per_sec", "step_time_ms",
+     "eta_s", "wall_s"},
+    {"epoch", "max_mem_mb", "wall_s"}, {"resumed_from_epoch", "wall_s"}]
+
+
+def pretrain_driver_path(card: str) -> dict:
+    """The pretraining driver at full width through `cli/pretrain.py`'s
+    config and `run`: MoCo v3 vit_b for two epochs with --keep-last 1; a
+    second run with --epochs 3 that resumes from the `.resume` slot (its
+    restored weights, momentum weights, BatchNorm statistics, AdamW state
+    and step bitwise the first run's) and runs the third epoch; then one
+    MAE vit_b epoch. Checks the kernels' launches per step (MoCo 48 + 24,
+    MAE 8 + 8 at Dh 32, nothing else), finite losses, the ledger's keys and
+    the slots left; prints the driver's ms/step beside the bare MoCo
+    step's, the save and load times and the slots' sizes. Returns the
+    launch counts keyed `<kernel>_pretrain`."""
+    runs, save_ms, load_ms = [], [], []
+    save, resume = PretrainRun.save, PretrainRun.maybe_resume
+
+    def saving(self, epoch):
+        runs.append(self)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(self, epoch)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def resuming(self):
+        t0 = time.perf_counter()
+        resume(self)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        if self.start_epoch != 1:
+            first = runs[-1]
+            _equal_states(self.model.state_dict(), first.model.state_dict(),
+                          "model")
+            _equal_states(self.optimizer.state_dict(),
+                          first.optimizer.state_dict(), "optimizer")
+            if self.step != first.step:
+                raise AssertionError(f"resumed at step {self.step}, saved "
+                                     f"{first.step}")
+
+    PretrainRun.save, PretrainRun.maybe_resume = saving, resuming
+    try:
+        with tempfile.TemporaryDirectory(prefix="ssl4gie_pretrain_") as tmp:
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            steps = PRETRAIN_SYNTHETIC // MOCO_B
+            for fw, epochs, extra in (("mocov3", 2, ["--keep-last", "1"]),
+                                      ("mocov3", 3, ["--keep-last", "1"]),
+                                      ("mae", 1, [])):
+                cfg = pretrain_config(fw, "vit_b", tmp, PRETRAIN_SYNTHETIC,
+                                      ["--epochs", str(epochs), *extra])
+                cfg.runtime.log_every = steps
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    cli_pretrain.run(cfg)
+                print(out.getvalue(), end="", flush=True)
+                if fw == "mocov3" and epochs == 3:
+                    if not re.search(r"resuming MoCo pretraining at epoch 3",
+                                     out.getvalue()):
+                        raise AssertionError("the second run did not resume "
+                                             "at epoch 3")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            slots = sorted(f for f in os.listdir(tmp) if f.endswith(".pt"))
+            sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in slots}
+            ledger = {fw: [json.loads(ln) for ln in Path(
+                tmp, f"pretrain_{fw}_vit_b.jsonl").read_text().splitlines()]
+                for fw in ("mocov3", "mae")}
+    finally:
+        PretrainRun.save, PretrainRun.maybe_resume = save, resume
+
+    want_slots = ["checkpoint-0.pt", "checkpoint_0002.pt", "mae_vit_b.pt",
+                  "mae_vit_b.resume.pt", "mocov3_vit_b.pt",
+                  "mocov3_vit_b.resume.pt"]
+    if slots != want_slots:
+        raise AssertionError(f"slots {slots} != {want_slots}")
+    depth = VIT_PRESETS["vit_b"]["depth"]
+    moco_steps, mae_steps = 3 * steps, steps
+    ran = check_launches("pretrain", {
+        "dense_attention_fwd": 4 * depth * moco_steps + 8 * mae_steps,
+        "dense_attention_bwd": 2 * depth * moco_steps + 8 * mae_steps})
+    for fw, lines in ledger.items():
+        for p in lines:
+            if set(p) not in PRETRAIN_LEDGER_KEYS:
+                raise AssertionError(f"{fw} ledger payload {sorted(p)} is "
+                                     "not one of the JAX loop's")
+        train = [p for p in lines if "step" in p]
+        if not all(np.isfinite([p["loss"], p["grad_norm"]]).all()
+                   for p in train):
+            raise AssertionError(f"{fw} driver losses {train}")
+        for p in train:
+            bare = (f"; the bare MoCo step {MOCO_MS_STEP['vit_b']:.2f} "
+                    "ms/step" if fw == "mocov3" else "")
+            print(f"[pretrain] {fw} epoch {p['epoch']}: step_time_ms "
+                  f"{p['step_time_ms']:.2f}, images_per_sec "
+                  f"{p['images_per_sec']:.1f} over {p['step']} steps (the "
+                  f"Loader's decode and the copies included), loss "
+                  f"{p['loss']:.4f}, grad_norm {p['grad_norm']:.4g}{bare}  "
+                  f"[{card}]", flush=True)
+    print(f"[pretrain] launches over {moco_steps} MoCo and {mae_steps} MAE "
+          f"steps: {ran}; saves (host copy, export, resume and retained "
+          f"slots, in epoch order: MoCo 1, 2, 3, MAE 1) "
+          f"{[round(x, 1) for x in save_ms]} ms; resume loads "
+          f"{[round(x, 1) for x in load_ms]} ms; slot bytes {sizes}; peak "
+          f"memory {peak:.2f} GiB  [{card}]", flush=True)
+    return {f"{name}_pretrain": n for name, n in ran.items()}
+
+
 def profile_steps(card: str, step, n_steps: int, out_dir: str, name: str):
     """torch.profiler over `n_steps` calls of `step` (after one warm-up
     call): writes the table of device time by kernel to out_dir/name, prints
@@ -1981,6 +2333,20 @@ def profile_dense(tag: str, card: str, out_dir: str) -> None:
     print(f"[profile] {tag}: layout conversions (NCHW <-> NHWC, tensor "
           f"transforms) "
           f"{calls} a step, {ms:.3f} ms/step  [{card}]", flush=True)
+
+
+def profile_moco(card: str, out_dir: str) -> None:
+    """torch.profiler over MOCO_TIMED_STEPS MoCo v3 vit_b steps (the MoCo
+    path's setup: one resident batch, the driver's full step)."""
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_moco_") as tmp:
+        run = build_pretraining(pretrain_config("mocov3", "vit_b", tmp,
+                                                MOCO_B))
+    src = SyntheticUnlabeled(MOCO_B, canvas=MOCO_CANVAS, seed=SEED)
+    img_u8 = torch.from_numpy(src.batch(range(MOCO_B))["image"]).cuda()
+    gen = torch.Generator().manual_seed(SEED)
+    profile_steps(card, lambda: run.full_step(run.model, run.optimizer,
+                                              img_u8, gen, 1),
+                  MOCO_TIMED_STEPS, out_dir, "moco_vit_b_profile.txt")
 
 
 def profile_mae(card: str, out_dir: str) -> None:
@@ -2079,9 +2445,9 @@ def main() -> None:
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile the classification, "
                              "segmentation, RN50 segmentation, ViT depth, "
-                             "ViT and RN50 detection and MAE steps, a "
-                             "ViT detection eval batch and an epoch of the "
-                             "finetune driver; the tables go to DIR")
+                             "ViT and RN50 detection, MAE and MoCo vit_b "
+                             "steps, a ViT detection eval batch and an epoch "
+                             "of the finetune driver; the tables go to DIR")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2119,6 +2485,7 @@ def main() -> None:
               ("kernels (rotation, its path shapes)", rotate_kernel_phase),
               ("kernels (detection shapes)", det_kernel_phase),
               ("kernels (MAE shapes)", mae_kernel_phase),
+              ("kernels (MoCo shapes)", moco_kernel_phase),
               ("kernels (A/B variants)", variant_kernel_phase),
               ("classification path", main_path),
               *((f"{tag} path", functools.partial(dense_path, tag))
@@ -2127,8 +2494,11 @@ def main() -> None:
               ("RN50 detection path", det_rn50_path),
               ("detection eval (evaluate_map)", det_eval_path),
               ("MAE path", mae_path),
+              *((f"MoCo {arch} path", functools.partial(moco_path, arch))
+                for arch in MOCO_ARCHS),
               ("kernel A/B harnesses", harness_path),
-              ("finetune driver", driver_path)]
+              ("finetune driver", driver_path),
+              ("pretrain driver", pretrain_driver_path)]
     results, launches = [], {}
     for name, phase in phases:
         t0 = time.perf_counter()
@@ -2150,6 +2520,7 @@ def main() -> None:
         profile_det_rn50(card, args.profile)
         profile_det_eval(card, args.profile)
         profile_mae(card, args.profile)
+        profile_moco(card, args.profile)
         profile_driver(card, args.profile)
     print(card)
     print(json.dumps({"kernels": results}))

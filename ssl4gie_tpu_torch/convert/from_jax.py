@@ -2,9 +2,10 @@
 
 The inverse of `ssl4gie_tpu/convert/torch_names.py:vit_torch_to_flax` for the
 classifier, and both directions for the ViT-B Faster R-CNN, the MAE
-pretraining model, the ViT dense model and the four ResNet-50 models
+pretraining model, the ViT dense model, the four ResNet-50 models
 (classifier, DeepLabV3+, depth, the RN50 Faster R-CNN; with their BatchNorm
-statistics): flax
+statistics) and MoCo v3 (encoder, predictor, momentum encoder and both sets
+of statistics): flax
 Conv kernels (kh, kw, I, O) become torch (O, I, kh, kw) (a depthwise
 kernel (kh, kw, 1, C) becomes (C, 1, kh, kw) the same way); flax
 ConvTranspose kernels (kh, kw, I, O) become torch (I, O, kh, kw) flipped in
@@ -89,18 +90,21 @@ def vit_classifier_state_dict_to_params(sd) -> dict:
 # each layer kind's leaves: (flax name, torch name)
 _LEAVES = {
     "dense": (("kernel", "weight"), ("bias", "bias")),
+    "dense_nb": (("kernel", "weight"),),        # a Dense with no bias
     "conv": (("kernel", "weight"), ("bias", "bias")),
     "conv_nb": (("kernel", "weight"),),         # a conv with no bias
     "deconv": (("kernel", "weight"), ("bias", "bias")),
     "ln": (("scale", "weight"), ("bias", "bias")),
     "bn": (("scale", "weight"), ("bias", "bias")),
+    "bn_na": (),                    # an affine-free BatchNorm: stats only
 }
+_BN = ("bn", "bn_na")
 # a BatchNorm's batch_stats leaves
 _STATS = (("mean", "running_mean"), ("var", "running_var"))
 
 
 def _kernel_to_torch(a: np.ndarray, kind: str) -> np.ndarray:
-    if kind == "dense":
+    if kind in ("dense", "dense_nb"):
         return a.T
     if kind in ("conv", "conv_nb"):
         return a.transpose(3, 2, 0, 1)
@@ -110,7 +114,7 @@ def _kernel_to_torch(a: np.ndarray, kind: str) -> np.ndarray:
 
 
 def _kernel_to_flax(a: np.ndarray, kind: str) -> np.ndarray:
-    if kind == "dense":
+    if kind in ("dense", "dense_nb"):
         return a.T
     if kind in ("conv", "conv_nb"):
         return a.transpose(2, 3, 1, 0)
@@ -171,6 +175,8 @@ def _detector_head_layers():
 def _to_torch(tree, layers, sd=None) -> dict[str, torch.Tensor]:
     sd = {} if sd is None else sd
     for path, name, kind in layers:
+        if not _LEAVES[kind]:
+            continue
         node = tree
         for p in path:
             node = node[p]
@@ -190,6 +196,8 @@ def _numpy(sd) -> dict:
 def _to_flax(sd, layers, tree=None) -> dict:
     tree = {} if tree is None else tree
     for path, name, kind in layers:
+        if not _LEAVES[kind]:
+            continue
         node = tree
         for p in path:
             node = node.setdefault(p, {})
@@ -312,7 +320,7 @@ def _vit_dense_layers(depth: int, seg: bool):
 def _stats_to_torch(batch_stats, layers, sd) -> dict[str, torch.Tensor]:
     """Add each BatchNorm's running statistics of `layers` to `sd`."""
     for path, name, kind in layers:
-        if kind == "bn":
+        if kind in _BN:
             node = batch_stats
             for p in path:
                 node = node[p]
@@ -325,7 +333,7 @@ def _stats_to_flax(sd, layers) -> dict:
     """The batch_stats tree of the BatchNorms of `layers`."""
     stats = {}
     for path, name, kind in layers:
-        if kind == "bn":
+        if kind in _BN:
             node = stats
             for p in path:
                 node = node.setdefault(p, {})
@@ -528,3 +536,103 @@ def faster_rcnn_rn50_state_dict_to_params(sd) -> tuple[dict, dict]:
     sd = _numpy(sd)
     layers = _faster_rcnn_rn50_layers(_stage_sizes_torch(sd, "backbone.body"))
     return _to_flax(sd, layers), _stats_to_flax(sd, layers)
+
+
+# ------------------------------------------------------------ MoCo v3
+
+def _mlp_head_layers(num_layers: int):
+    """(flax path, torch module name, kind) of an `MLPHead`: bias-free
+    Dense layers, BatchNorms, the last one affine-free."""
+    layers = []
+    for l in range(num_layers):
+        layers.append(((f"fc{l}",), f"fc{l}", "dense_nb"))
+        layers.append(((f"bn{l}",), f"bn{l}",
+                       "bn_na" if l == num_layers - 1 else "bn"))
+    return layers
+
+
+def _conv_stem_layers():
+    layers = []
+    for i in range(4):
+        layers += [((f"conv{i}",), f"conv{i}", "conv_nb"),
+                   ((f"bn{i}",), f"bn{i}", "bn")]
+    return layers + [(("proj",), "proj", "conv")]
+
+
+def _moco_encoder_layers(backbone_keys, depth: int, stage_sizes):
+    """The encoder's layers: the ViT backbone (patch projection or conv
+    stem) or the RN50 under `backbone`, the projector under `projector`."""
+    if stage_sizes is not None:
+        body, proj = _resnet_layers(stage_sizes), 2
+    else:
+        body, proj = _backbone_layers(depth), 3
+        if "conv0" in backbone_keys:
+            body = ([(("patch_embed",) + p, f"patch_embed.{n}", k)
+                     for p, n, k in _conv_stem_layers()] + body[1:])
+    return (_prefixed("backbone", body)
+            + _prefixed("projector", _mlp_head_layers(proj)))
+
+
+def _moco_trees_to_torch(enc_params, enc_stats, prefix: str, sd) -> None:
+    bb = enc_params["backbone"]
+    vit = "cls_token" in bb
+    layers = _moco_encoder_layers(
+        bb.get("patch_embed", {}), _depth(bb) if vit else 0,
+        None if vit else _stage_sizes_flax(bb))
+    part = _stats_to_torch(enc_stats, layers, _to_torch(enc_params, layers))
+    if vit:
+        part["backbone.cls_token"] = _tensor(bb["cls_token"])
+        part["backbone.pos_embed"] = _tensor(bb["pos_embed"])
+    sd.update({f"{prefix}.{k}": v for k, v in part.items()})
+
+
+def moco_params_to_torch(params, batch_stats, momentum_params,
+                         momentum_batch_stats) -> dict[str, torch.Tensor]:
+    """The JAX `MoCoState`'s trees as nested dicts of arrays: params and
+    batch_stats ({"encoder": ..., "predictor": ...}), the momentum
+    encoder's params and batch_stats. Returns the port's `MoCo`
+    state_dict (float32 CPU tensors)."""
+    sd = {}
+    _moco_trees_to_torch(params["encoder"], batch_stats["encoder"],
+                         "encoder", sd)
+    _moco_trees_to_torch(momentum_params, momentum_batch_stats,
+                         "momentum_encoder", sd)
+    layers = _mlp_head_layers(2)
+    pred = _stats_to_torch(batch_stats["predictor"]["predictor"], layers,
+                           _to_torch(params["predictor"]["predictor"],
+                                     layers))
+    sd.update({f"predictor.{k}": v for k, v in pred.items()})
+    return sd
+
+
+def _moco_trees_to_flax(sd, prefix: str) -> tuple[dict, dict]:
+    part = {k[len(prefix) + 1:]: v for k, v in sd.items()
+            if k.startswith(prefix + ".")}
+    vit = "backbone.cls_token" in part
+    depth = sum(1 for k in part if k.startswith("backbone.blocks.")
+                and k.endswith(".norm1.weight"))
+    keys = {k.split(".")[2] for k in part
+            if k.startswith("backbone.patch_embed.")}
+    layers = _moco_encoder_layers(
+        keys, depth, None if vit else _stage_sizes_torch(part, "backbone"))
+    tree = {"backbone": {"cls_token": part["backbone.cls_token"],
+                         "pos_embed": part["backbone.pos_embed"]}} if vit \
+        else None
+    return _to_flax(part, layers, tree), _stats_to_flax(part, layers)
+
+
+def moco_state_dict_to_params(sd) -> tuple[dict, dict, dict, dict]:
+    """The inverse of `moco_params_to_torch`: a port `MoCo` state_dict ->
+    (params, batch_stats, momentum_params, momentum_batch_stats), nested
+    dicts of float32 numpy copies."""
+    sd = _numpy(sd)
+    enc, enc_stats = _moco_trees_to_flax(sd, "encoder")
+    mom, mom_stats = _moco_trees_to_flax(sd, "momentum_encoder")
+    pred = {k[len("predictor."):]: v for k, v in sd.items()
+            if k.startswith("predictor.")}
+    layers = _mlp_head_layers(2)
+    return ({"encoder": enc,
+             "predictor": {"predictor": _to_flax(pred, layers)}},
+            {"encoder": enc_stats,
+             "predictor": {"predictor": _stats_to_flax(pred, layers)}},
+            mom, mom_stats)

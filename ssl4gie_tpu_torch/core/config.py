@@ -5,9 +5,11 @@ The enums, `validate_combination` and the three config groups are the JAX
 package's, field for field, so that one command line gives the same
 fields in both packages. `RuntimeConfig.device` is the port's own: the
 card (`cuda`) unless the caller asks for the CPU. Options the port does
-not run yet raise `NotImplementedError` in `TrainConfig.validate`, naming
-the ROADMAP item that ports them; none is ignored. `PretrainConfig` waits
-for ROADMAP queue 1 item 5.
+not run yet raise `NotImplementedError` in `TrainConfig.validate` and
+`PretrainConfig.validate`, naming the ROADMAP item that ports them; none
+is ignored. `RuntimeConfig.scan_steps` and `donate_state` are read by
+nothing: the port's loops run one step at a time and torch has no
+buffer donation.
 """
 
 from __future__ import annotations
@@ -125,6 +127,17 @@ class RuntimeConfig:
     device: str = "cuda"               # "cpu" only when asked for
 
 
+def _reject_unported_runtime(runtime: RuntimeConfig) -> None:
+    if runtime.tensor_parallel > 1 or runtime.fsdp:
+        raise NotImplementedError("--tensor-parallel > 1 and --fsdp are not "
+                                  "ported yet (ROADMAP queue 1 item 6, "
+                                  "multi-GPU)")
+    if runtime.compute_dtype == "float32" and runtime.device != "cpu":
+        raise NotImplementedError("--compute-dtype float32 runs on the CPU "
+                                  "only: the card's kernels take bfloat16 "
+                                  "(ROADMAP queue 2 C)")
+
+
 @dataclasses.dataclass
 class TrainConfig:
     task: Task = Task.CLASSIFICATION
@@ -177,20 +190,12 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"{flag} is not ported yet (ROADMAP queue 1 item 5, the "
                     "SSL recipes)")
-        if self.runtime.tensor_parallel > 1 or self.runtime.fsdp:
-            raise NotImplementedError("--tensor-parallel > 1 and --fsdp are "
-                                      "not ported yet (ROADMAP queue 1 item "
-                                      "6, multi-GPU)")
+        _reject_unported_runtime(self.runtime)
         if self.checkpoint or self.pretraining == Pretraining.IMAGENET_CLASS:
             raise NotImplementedError("--checkpoint and --pretraining "
                                       "ImageNet_class are not ported yet "
                                       "(ROADMAP queue 1 item 7, checkpoint "
                                       "ingestion)")
-        if (self.runtime.compute_dtype == "float32"
-                and self.runtime.device != "cpu"):
-            raise NotImplementedError("--compute-dtype float32 runs on the "
-                                      "CPU only: the card's kernels take "
-                                      "bfloat16 (ROADMAP queue 2 C)")
 
     def run_name(self) -> str:
         """Checkpoint/log base name, the reference's scheme
@@ -202,3 +207,45 @@ class TrainConfig:
             pre = f"{pre}_{self.ss_framework.value}"
         return (f"{self.architecture.value}-{pre}_init-frozen_{self.frozen}"
                 f"-dataset_{self.data.dataset}")
+
+
+@dataclasses.dataclass
+class PretrainConfig:
+    """SSL pretraining config (MoCo v3 / MAE on Hyperkvasir-unlabelled),
+    the JAX package's fields and defaults."""
+    framework: SSLFramework = SSLFramework.MAE
+    architecture: Architecture = Architecture.VIT_B
+    epochs: int = 400
+    warmup_epochs: int = 40
+    base_lr: float = 1.5e-4            # MAE blr; scaled by batch/256
+    weight_decay: float = 0.05
+    batch_size: int = 768
+    img_size: int = 224
+    mask_ratio: float = 0.75           # MAE
+    norm_pix_loss: bool = True         # MAE
+    moco_dim: int = 256
+    moco_mlp_dim: int = 4096
+    moco_momentum: float = 0.99
+    moco_temperature: float = 0.2
+    moco_stop_grad_patch_embed: bool = True   # --stop-grad-conv1 (ViT recipe)
+    optimizer: str = "adamw"           # adamw | lars
+    # retained numbered checkpoints every `save_every` epochs (None: MoCo
+    # every epoch, `main_moco.py:310-316`; MAE every 20 and the last,
+    # `main_pretrain.py:197`); keep_last prunes to the newest N (0: keep
+    # all, the reference's behaviour)
+    save_every: Optional[int] = None
+    keep_last: int = 0
+    # MAE size overrides and remat, MoCo stage_sizes (tests narrow models)
+    model_kwargs: dict = dataclasses.field(default_factory=dict)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+    ckpt_dir: str = "Pretrained models"
+
+    def effective_lr(self) -> float:
+        """The base learning rate scaled by batch / 256."""
+        return self.base_lr * self.batch_size / 256.0
+
+    def validate(self) -> "PretrainConfig":
+        """Raise on what the port does not run (yet)."""
+        _reject_unported_runtime(self.runtime)
+        return self

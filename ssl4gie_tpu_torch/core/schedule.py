@@ -1,7 +1,6 @@
-"""Host-side plateau LR schedule (port of `ReduceLROnPlateau` in
-`ssl4gie_tpu/core/schedule.py`).
+"""Host-side schedules (port of `ssl4gie_tpu/core/schedule.py`).
 
-A behavioural match of `torch.optim.lr_scheduler.ReduceLROnPlateau` as the
+`ReduceLROnPlateau` is a behavioural match of `torch.optim.lr_scheduler.ReduceLROnPlateau` as the
 reference uses it (factor 0.5, patience 10, min_lr 1e-6, mode max or min,
 stepped once per epoch on the validation metric,
 `train_classification.py:287-310`), kept as the JAX package's copy so that
@@ -13,7 +12,12 @@ pretraining are in `ssl/pretrain.py`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
+
+import numpy as np
+
+_f32 = np.float32
 
 
 @dataclasses.dataclass
@@ -51,3 +55,23 @@ class ReduceLROnPlateau:
     def load_state_dict(self, d: dict) -> None:
         self.best = d.get("best")
         self.num_bad_epochs = int(d.get("num_bad_epochs", 0))
+
+
+def cosine_warmup_lr(step, *, base_lr: float, warmup_steps: int,
+                     total_steps: int, min_lr: float = 0.0) -> float:
+    """Per-step linear warmup, then half-cosine decay to `min_lr`."""
+    s = _f32(step)
+    if s < warmup_steps:
+        return float(_f32(base_lr) * s / _f32(max(warmup_steps, 1)))
+    progress = (s - _f32(warmup_steps)) / _f32(max(total_steps - warmup_steps,
+                                                   1))
+    return float(_f32(min_lr) + _f32((base_lr - min_lr) * 0.5)
+                 * (_f32(1.0) + np.cos(_f32(math.pi) * progress)))
+
+
+def cosine_momentum(step, *, base_m: float, total_steps: int) -> float:
+    """MoCo v3's EMA momentum, rising from `base_m` to 1 along a half
+    cosine over `total_steps` (`main_moco.py:431-434`)."""
+    s = _f32(step)
+    return float(_f32(1.0) - _f32((1.0 - base_m) * 0.5)
+                 * (_f32(1.0) + np.cos(_f32(math.pi) * s / _f32(total_steps))))

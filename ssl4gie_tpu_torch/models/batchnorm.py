@@ -26,18 +26,22 @@ EPS = 1e-5
 
 
 class BatchNorm(nn.Module):
+    """`affine=False`: no scale and no bias (flax's `use_scale=False,
+    use_bias=False`; the last BatchNorm of MoCo v3's heads)."""
+
     def __init__(self, channels: int, momentum: float = MOMENTUM,
-                 eps: float = EPS, dtype=torch.float32):
+                 eps: float = EPS, dtype=torch.float32, affine: bool = True):
         super().__init__()
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if affine else None
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def reset_parameters(self) -> None:
-        nn.init.ones_(self.weight)
-        nn.init.zeros_(self.bias)
+        if self.weight is not None:
+            nn.init.ones_(self.weight)
+            nn.init.zeros_(self.bias)
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
@@ -54,5 +58,7 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(m).add_((1.0 - m) * var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean) * mul + self.bias).to(self.dtype)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is None:
+            return ((xf - mean) * mul).to(self.dtype)
+        return ((xf - mean) * (mul * self.weight) + self.bias).to(self.dtype)

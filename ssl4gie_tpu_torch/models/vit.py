@@ -19,8 +19,10 @@ Ported so far:
 - mode "dense" (the DPT decoder's input), at 224 px: the token sequences
   (B, 1 + N, C), cls included and no final norm (the module has none),
   after blocks `dense_taps` (DENSE_TAPS, as the JAX field's default).
-Other pooled or dense image sizes, the conv stem and the probe BatchNorm
-raise.
+- stem "conv" (`ConvStem`, MoCo v3's `vit_conv_*`) in place of the 16 x 16
+  patch projection, under the same name `patch_embed`; its BatchNorms
+  follow the module's train/eval mode.
+Other pooled or dense image sizes and the probe BatchNorm raise.
 """
 
 from __future__ import annotations
@@ -28,17 +30,58 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ssl4gie_tpu_torch.models.batchnorm import BatchNorm
+from ssl4gie_tpu_torch.models.dpt import init_conv
 from ssl4gie_tpu_torch.models.layers import (Block, PatchEmbed,
                                              default_device,
                                              get_2d_sincos_pos_embed,
                                              init_lecun, interpolate_pos_embed,
                                              layer_norm, trunc_normal_)
+from ssl4gie_tpu_torch.models.vitdet_fpn import conv_nhwc
 
 BASE_GRID = 14         # position embedding stored at the pretraining grid
 OUT_TOKENS = ("cls", "spatial", "global_pool")
 DENSE_TAPS = (2, 5, 8, 11)           # dense mode: the DPT decoder's taps
 GLOBAL_ATTN_BLOCKS = (2, 5, 8, 11)   # det mode: the rest are windowed
 DET_WINDOW = 16
+
+
+class ConvStem(nn.Module):
+    """The 4-stage convolutional patchify of MoCo v3's `vit_conv_*`
+    (`Models/moco_v3/vits.py:75-115`; port of
+    `ssl4gie_tpu/models/layers.py:ConvStem`): four 3 x 3 stride-2
+    convolutions without bias (`conv0`-`conv3`), each followed by a
+    BatchNorm (`bn0`-`bn3`, flax semantics) and ReLU, with widths E/8, E/4,
+    E/2, E, then a biased 1 x 1 projection `proj`. Total stride 16: the
+    patch projection's token grid. Inits are flax's defaults."""
+
+    def __init__(self, embed_dim: int = 768, dtype=torch.float32):
+        super().__init__()
+        if embed_dim % 8:
+            raise ValueError(f"ConvStem needs embed_dim % 8 == 0, got "
+                             f"{embed_dim}")
+        self.dtype = dtype
+        cin, d = 3, embed_dim // 8
+        for i in range(4):
+            self.add_module(f"conv{i}", nn.Conv2d(cin, d, 3, stride=2,
+                                                  padding=1, bias=False))
+            self.add_module(f"bn{i}", BatchNorm(d, dtype=dtype))
+            cin, d = d, 2 * d
+        self.proj = nn.Conv2d(embed_dim, embed_dim, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for i in range(4):
+            init_conv(getattr(self, f"conv{i}"), generator)
+            getattr(self, f"bn{i}").reset_parameters()
+        init_conv(self.proj, generator)
+
+    def forward(self, x):  # (B, H, W, 3) NHWC
+        for i in range(4):
+            x = conv_nhwc(x, getattr(self, f"conv{i}"), self.dtype, 1)
+            x = torch.relu(getattr(self, f"bn{i}")(x))
+        x = conv_nhwc(x, self.proj, self.dtype)
+        B, gh, gw, C = x.shape
+        return x.reshape(B, gh * gw, C), (gh, gw)
 
 
 class ViTBackbone(nn.Module):
@@ -58,8 +101,8 @@ class ViTBackbone(nn.Module):
             raise NotImplementedError(
                 f"img_size {img_size}: only the {BASE_GRID}x{BASE_GRID} grid "
                 "(224 px) is ported; position-embedding interpolation is not")
-        if stem != "patch":
-            raise NotImplementedError(f"stem {stem!r}: only 'patch' is ported")
+        if stem not in ("patch", "conv"):
+            raise ValueError(f"stem {stem!r} not in ('patch', 'conv')")
         if out_token not in OUT_TOKENS:
             raise ValueError(f"out_token {out_token!r} not in {OUT_TOKENS}")
         if pos_embed_type not in ("learned", "sincos"):
@@ -69,7 +112,9 @@ class ViTBackbone(nn.Module):
         self.out_token = out_token
         self.pos_embed_type = pos_embed_type
         self.dtype = dtype
-        self.patch_embed = PatchEmbed(patch_size, embed_dim, dtype=dtype)
+        self.patch_embed = (ConvStem(embed_dim, dtype=dtype) if stem == "conv"
+                            else PatchEmbed(patch_size, embed_dim,
+                                            dtype=dtype))
         if not det:
             self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(

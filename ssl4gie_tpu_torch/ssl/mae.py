@@ -23,6 +23,11 @@ noise whose argsort picks the kept patches (`draw_noise` draws it from a
 
 Compute dtype as the JAX package: the encoder and decoder run in `dtype`,
 LayerNorm statistics in float32, `decoder_pred` and the loss in float32.
+`remat=True` recomputes each block's activations in the backward
+(`torch.utils.checkpoint`, non-reentrant; the JAX package's `nn.remat`
+on the encoder's and the decoder's blocks): a memory lever for vit_l and
+vit_h, whose kernels then launch their forwards twice.
+
 Attention routes as `models/layers.py` does: the encoder's 50 tokens take
 the plain path (N < 160), the decoder's 197 tokens the packed-QKV kernel at
 Dh = 32 (512 / 16).
@@ -33,6 +38,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ssl4gie_tpu_torch.models.layers import (Block, PatchEmbed,
                                              default_device,
@@ -95,12 +101,13 @@ class MAE(nn.Module):
                  decoder_embed_dim: int = 512, decoder_depth: int = 8,
                  decoder_num_heads: int = 16, mlp_ratio: float = 4.0,
                  norm_pix_loss: bool = True, mask_ratio: float = 0.75,
-                 dtype=torch.float32,
+                 dtype=torch.float32, remat: bool = False,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         device = default_device(device)
         self.img_size, self.patch_size = img_size, patch_size
         self.norm_pix_loss = norm_pix_loss
+        self.remat = remat
         self.mask_ratio = mask_ratio
         self.dtype = dtype
         grid = img_size // patch_size
@@ -141,6 +148,11 @@ class MAE(nn.Module):
         for lin in (self.decoder_embed, self.decoder_pred):
             init_lecun(lin, lin.in_features, generator)
 
+    def _block(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, x, use_reentrant=False)
+        return blk(x)
+
     def draw_noise(self, batch: int, generator: torch.Generator):
         """The masking noise U[0, 1) (B, L) on the generator's device."""
         return torch.rand((batch, self.num_patches), generator=generator,
@@ -159,7 +171,7 @@ class MAE(nn.Module):
         cls = (self.cls_token + self.pos_embed[:, :1]).to(dt)
         x = torch.cat([cls.expand(B, 1, C), x], dim=1)
         for blk in self.blocks:
-            x = blk(x)
+            x = self._block(blk, x)
         latent = layer_norm(x, self.norm, dt)
 
         # decoder (`forward_decoder`, models_mae.py:172-196)
@@ -172,7 +184,7 @@ class MAE(nn.Module):
         y_ = torch.gather(y_, 1, ids_restore[..., None].expand(B, L, D))
         y = torch.cat([y[:, :1], y_], dim=1) + self.decoder_pos_embed.to(dt)
         for blk in self.decoder_blocks:
-            y = blk(y)
+            y = self._block(blk, y)
         y = layer_norm(y, self.decoder_norm, dt)
         pred = F.linear(y.float(), self.decoder_pred.weight,
                         self.decoder_pred.bias)[:, 1:]

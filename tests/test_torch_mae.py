@@ -17,6 +17,7 @@ from ssl4gie_tpu.ssl import mae as jmae
 from ssl4gie_tpu.ssl import pretrain as jpre
 from ssl4gie_tpu_torch.convert.from_jax import (mae_params_to_torch,
                                                 mae_state_dict_to_params)
+from ssl4gie_tpu_torch.core.config import PretrainConfig
 from ssl4gie_tpu_torch.data import ssl_augment as taug
 from ssl4gie_tpu_torch.kernels import dense_attention as da
 from ssl4gie_tpu_torch.kernels import fused_mlp as fm
@@ -156,7 +157,7 @@ def test_two_optimizer_steps_match_optax():
 
     tmodel = _port_mae(size, params)
     p0 = {k: v.clone() for k, v in tmodel.state_dict().items()}
-    cfg = tpre.MAEPretrainConfig(weight_decay=0.05)
+    cfg = PretrainConfig(weight_decay=0.05)
     opt = tpre.make_mae_optimizer(tmodel, cfg)
     assert [g["weight_decay"] for g in opt.param_groups] == [0.05, 0.0]
     assert all(p.ndim > 1 for p in opt.param_groups[0]["params"])
@@ -200,9 +201,9 @@ def test_schedule_matches_optax(warmup, total):
 
 def test_pretrain_config_defaults_and_lr_scaling():
     """The MAE defaults of the JAX `PretrainConfig` and `base_lr * B / 256`."""
-    from ssl4gie_tpu.core.config import PretrainConfig
-    ref = PretrainConfig()
-    cfg = tpre.MAEPretrainConfig()
+    from ssl4gie_tpu.core.config import PretrainConfig as JaxPretrainConfig
+    ref = JaxPretrainConfig()
+    cfg = PretrainConfig()
     for f in ("base_lr", "weight_decay", "batch_size", "img_size",
               "mask_ratio", "norm_pix_loss"):
         assert getattr(cfg, f) == getattr(ref, f), f
@@ -337,7 +338,7 @@ def test_full_step_runs_on_cpu_without_kernels():
     from one generator; finite loss and gradient norm, parameters moved at
     step 1, and no kernel launch counted."""
     model = tmae.MAE(device="cpu", **SMALL[224])
-    opt = tpre.make_mae_optimizer(model, tpre.MAEPretrainConfig())
+    opt = tpre.make_mae_optimizer(model, PretrainConfig())
     full = tpre.make_mae_full_step(tpre.make_schedule(1e-3, 1, 10))
     img = torch.from_numpy(tpre.SyntheticUnlabeled(B).batch(range(B))[
         "image"])

@@ -229,8 +229,9 @@ def test_adamw_clip_with_decay_mask_matches_optax():
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter, the
     detection, MAE, segmentation, ResNet-50 and depth modules, the
-    detection evaluation's and the finetune driver's among them, leaves
-    jax, flax and optax out of sys.modules."""
+    detection evaluation's, the finetune driver's and the pretraining
+    driver's (MoCo v3, LARS, the pretrain CLI) among them, leaves jax,
+    flax and optax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -250,7 +251,8 @@ def test_port_imports_no_jax():
         " 'core.config', 'cli.args', 'data.splits', 'core.schedule',"
         " 'core.logger', 'core.tb', 'core.preempt', 'core.checkpoint',"
         " 'core.train_state', 'core.trainer', 'tasks.build', 'cli.train',"
-        " 'tasks.evaluate', 'cli.evaluate'):\n"
+        " 'tasks.evaluate', 'cli.evaluate', 'ssl.moco_v3', 'ssl.lars',"
+        " 'cli.pretrain'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

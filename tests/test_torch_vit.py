@@ -172,10 +172,12 @@ def test_init_std_matches_flax(init):
 
 
 def test_unported_options_raise():
+    """Options the port does not run raise; the conv stem is ported (its
+    test is in test_torch_moco.py) and an unknown stem raises."""
     with pytest.raises(NotImplementedError):
         ViTBackbone(img_size=256, depth=1, embed_dim=DIM, num_heads=HEADS)
-    with pytest.raises(NotImplementedError):
-        ViTBackbone(stem="conv", depth=1, embed_dim=DIM, num_heads=HEADS)
+    with pytest.raises(ValueError):
+        ViTBackbone(stem="hybrid", depth=1, embed_dim=DIM, num_heads=HEADS)
     with pytest.raises(NotImplementedError):
         ViTClassifier(CLASSES, probe_bn=True, depth=1, embed_dim=DIM,
                       num_heads=HEADS)
