@@ -145,8 +145,37 @@
    the JAX loop's ledger keys, the slots left; prints the driver's ms/step
    beside the bare MoCo step's, the saves' and loads' times and the slots'
    sizes.
-10. Prints the card's name and power limit, one JSON line of per-kernel
-   results, then the last line
+10. Exact warp: one classification (ViT-B/16, B=64) and one
+   segmentation (ViT-B + DPT, B=48) full step with `exact=True`, factors
+   from a host generator: no rotation launch, 12 + 12 attention launches
+   each, and every warp on the card (`affine_sample`'s one-pass nearest
+   gather, bf16) equal element for element to the same op on the CPU at
+   the same matrix.
+11. Detection driver: 24 Kvasir-like frames written as JPEGs in the Kvasir
+   layout (`images/`, `bounding-boxes.json`; `split_ids`: 20 train, 2
+   val, 2 test) and `build_trainer` on a `cli/train.py --task detection`
+   command line: the ViT-B detector (1024 px, fixed placement, B=4, the
+   full proposal counts, bf16 over f32 masters) `fit()` for two epochs,
+   the end state written as a requeue slot after epoch 2, a second build
+   with --epochs 3 that resumes bitwise and runs epoch 3; exactly 8 window
+   + 8 + 4 flash + 4 launches in every train step and 8 + 4 forwards in
+   every eval batch, read around each call. Then `cli.evaluate.main` on the
+   ViT-B slot, with the test frames' ground truth made of the slot's own
+   best detections: its mAP dict equal to `evaluate_map` on the slot
+   restored by hand, mAP@50 at least 0.9. The three renders of
+   `tasks/predict.py` on the card held to float32 on the CPU (detection on
+   two test frames from the slot, its class bias shifted so that boxes
+   pass 0.5, box for box by score and IoU, 8 + 4 forwards an image;
+   segmentation and depth from ViT-B + DPT slots of random weights, 12
+   forwards an image) and `cli.predict.main` writing their PNGs, then the
+   RN50-FPN
+   through the same trainer for one epoch (1344 px, torchvision
+   placement, no kernel). Prints the driver's ms/step beside the bare
+   steps', ms per eval batch, the host copies, the save, the slot's bytes,
+   the resume's load and peak memory.
+12. Prints the card's name and power limit, one JSON line of per-kernel
+   results (the detection kernels' rows also carry the detection driver's
+   launches per train step and per eval batch), then the last line
    `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
     python3 chip_smoke.py --profile DIR
@@ -189,7 +218,7 @@ from ssl4gie_tpu_torch.cli import args as targs
 from ssl4gie_tpu_torch.cli import evaluate as cli_evaluate
 from ssl4gie_tpu_torch.cli import pretrain as cli_pretrain
 from ssl4gie_tpu_torch.core.config import (Architecture, DataConfig,
-                                           PretrainConfig)
+                                           PretrainConfig, Task)
 from ssl4gie_tpu_torch.core.schedule import cosine_momentum
 from ssl4gie_tpu_torch.core.train_state import make_adamw
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
@@ -207,7 +236,8 @@ from ssl4gie_tpu_torch.kernels import window_attention as wa
 from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
 from ssl4gie_tpu_torch.models import layers
 from ssl4gie_tpu_torch.models.factory import (DeepLabV3Plus, ResNetClassifier,
-                                              ResNetDepthModel, ViTDenseModel)
+                                              ResNetDepthModel, ViTDenseModel,
+                                              build_model)
 from ssl4gie_tpu_torch.models.faster_rcnn import FasterRCNN
 from ssl4gie_tpu_torch.models.vit import ViTClassifier
 from ssl4gie_tpu_torch.ssl.mae import MAE
@@ -219,6 +249,7 @@ from ssl4gie_tpu_torch.ssl.pretrain import (PretrainRun, SyntheticUnlabeled,
                                             make_mae_optimizer, make_schedule)
 from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
                                                SyntheticDetectionSource,
+                                               boxes_to_original,
                                                evaluate_map,
                                                make_detection_eval_step,
                                                make_detection_full_step)
@@ -1704,6 +1735,7 @@ def det_path(card: str) -> dict:
     if not all(np.isfinite(list(d.values())).all() for d in losses):
         raise AssertionError(f"non-finite detection loss: {losses}")
     ms_step = dt / DET_TIMED_STEPS * 1e3
+    DET_MS_STEP["vit_b"] = ms_step
     print(f"[det] ViT-B Faster R-CNN {DET_IMG} px train step, B={DET_B}, bf16 "
           f"compute / f32 AdamW, detection_augment on device: "
           f"{ms_step:.2f} ms/step, {DET_B * DET_TIMED_STEPS / dt:.2f} img/s "
@@ -1774,6 +1806,7 @@ def det_rn50_path(card: str) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check_launches("det_rn50", {})
+    DET_MS_STEP["resnet50"] = dt / DET_TIMED_STEPS * 1e3
     losses = [{k: float(v) for k, v in d.items()} for d in losses]
     print(f"[det_rn50] losses: {losses}", flush=True)
     if not all(np.isfinite(list(d.values())).all() for d in losses):
@@ -2272,6 +2305,588 @@ def pretrain_driver_path(card: str) -> dict:
     return {f"{name}_pretrain": n for name, n in ran.items()}
 
 
+# the detection driver: Kvasir-like frames (w, h) written as JPEGs in the
+# Kvasir layout, 24 of them (`split_ids`: 20 train, 2 val, 2 test, so 5
+# steps an epoch at B = DET_B); the two widest exceed the 1024 px canvas
+# (the ViT placement halves them)
+DET_DRIVER_SIZES = ((622, 529), (576, 720), (1000, 800), (720, 576),
+                    (1280, 1024), (652, 489), (768, 576), (1350, 1080))
+DET_DRIVER_FRAMES, DET_DRIVER_STEPS = 24, 5
+# the finetune driver's ledger keys for detection (JAX `DetectionTrainer`)
+DET_DRIVER_LEDGER_KEYS = [
+    {"epoch", "step", "loss", "images_per_sec", "step_time_ms", "wall_s"},
+    {"epoch", "val_map", "val_map50", "wall_s"},
+    {"epoch", "test_map", "test_map50", "wall_s"},
+    {"epoch", "new_best_val_map", "test_map_at_best", "wall_s"},
+    {"epoch", "lr_reduced_to", "wall_s"},
+    {"resumed_from_epoch", "best_val", "wall_s"}]
+# the dense predictors' slots: random ViT-B + DPT weights, 224 px
+PREDICT_DENSE = {"segmentation": "seg", "depth": "depth"}
+DET_MS_STEP = {}      # the bare detection step, ms (the driver's yardstick)
+# the cli.evaluate check makes the test frames' ground truth of this many
+# best detections over both
+DET_ORACLE_GT = 6
+
+
+def write_kvasir(root: str) -> None:
+    """DET_DRIVER_FRAMES random frames with one to three painted boxes each
+    (FrameSource's draws), as `images/frameNN.jpg` and
+    `bounding-boxes.json`, the Kvasir-SEG detection layout."""
+    from PIL import Image
+    os.makedirs(os.path.join(root, "images"))
+    src = FrameSource([DET_DRIVER_SIZES[i % len(DET_DRIVER_SIZES)]
+                       for i in range(DET_DRIVER_FRAMES)], DET_IMG, "fixed")
+    targets = {}
+    for i in range(DET_DRIVER_FRAMES):
+        img, boxes, _ = src.decode(i)
+        Image.fromarray(img).save(os.path.join(root, "images",
+                                               f"frame{i:02d}.jpg"),
+                                  quality=90)
+        targets[f"frame{i:02d}"] = {"bbox": [
+            dict(zip(("xmin", "ymin", "xmax", "ymax"), map(float, b)))
+            for b in boxes]}
+    with open(os.path.join(root, "bounding-boxes.json"), "w") as f:
+        json.dump(targets, f)
+
+
+def det_driver_argv(root: str, ckpt_dir: str, arch: str) -> list:
+    return ["--task", "detection", "--architecture", arch, "--dataset",
+            "Kvasir", "--data-root", root, "--batch-size", str(DET_B),
+            "--ckpt-dir", ckpt_dir]
+
+
+def det_driver_config(root: str, ckpt_dir: str, arch: str, epochs: int):
+    """The port's TrainConfig of a `cli/train.py` detection command line
+    (plateau on, the loss logged once an epoch)."""
+    p = argparse.ArgumentParser()
+    targs.add_common(p)
+    targs.add_train(p)
+    cfg = targs.to_train_config(p.parse_args(
+        det_driver_argv(root, ckpt_dir, arch)
+        + ["--learning-rate-scheduler", "--epochs", str(epochs)]))
+    cfg.runtime.log_every = DET_DRIVER_STEPS
+    return cfg
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """IoU of every box of `a` (n, 4) with every box of `b` (m, 4), xyxy."""
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(rb - lt, 0, None), axis=-1)
+    area = lambda x: np.prod(x[:, 2:] - x[:, :2], axis=-1)
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return inter / np.maximum(union, 1e-9)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.abs(x))) - 7)
+
+
+def _logit(p: np.ndarray) -> np.ndarray:
+    p = np.asarray(p, np.float64)
+    return np.log(p) - np.log1p(-p)
+
+
+def _score_cut(scores: np.ndarray, k: int) -> float:
+    """The score midway, in logits, between the k-th and the (k + 1)-th
+    highest of `scores` (one logit below the last when there are no more
+    than k)."""
+    z = np.sort(_logit(scores))[::-1]
+    if len(z) < k:
+        raise AssertionError(f"{len(z)} detections, fewer than {k}")
+    t = (z[k - 1] + z[k]) / 2 if len(z) > k else z[-1] - 1.0
+    return float(1.0 / (1.0 + np.exp(-t)))
+
+
+def _widest_cut(scores: np.ndarray, lo: int, hi: int) -> float:
+    """`_score_cut` at the k in [lo, hi] whose k-th and (k + 1)-th highest
+    scores lie furthest apart in logits."""
+    z = np.sort(_logit(scores))[::-1]
+    ks = range(lo, min(hi, len(z) - 1) + 1)
+    if not ks:
+        raise AssertionError(f"{len(z)} detections, fewer than {lo + 1}")
+    return _score_cut(scores, max(ks, key=lambda k: z[k - 1] - z[k]))
+
+
+def _held(boxes, z, other_boxes, other_z, tol: float) -> np.ndarray:
+    """For each box of one side (logits `z`): its best IoU with a box of
+    the other side whose logit lies within `tol` of its own; 0 where
+    there is none."""
+    if not len(boxes) or not len(other_boxes):
+        return np.zeros(len(boxes))
+    close = np.abs(z[:, None] - other_z[None, :]) <= tol
+    return np.where(close, _iou(boxes, other_boxes), 0.0).max(axis=1)
+
+
+def hold_detection_render(model, sample: dict, tag: str) -> np.ndarray:
+    """The detection render on the card against the float32 detector on
+    the CPU (the same weights). A detector trained for a few steps scores
+    every box below the render's 0.5, so the box head's class bias is
+    shifted alike on both, to put 0.5 in the widest logit gap between two
+    of the CPU's 3rd to 11th best scores. The render's own detections
+    (`detect`, with the sample's content size) then agree, in logits of
+    the scores, within LOGIT_TOL of the largest logit of the CPU's
+    unshifted detections (the tolerance of the segmentation render): every
+    box that the CPU keeps (score > 0.5) beyond that band around 0.5 has a
+    box kept on the card, and every box kept on the card has one kept on
+    the CPU or inside the band, each with a logit within the tolerance
+    and an IoU of at least 0.5, the box NMS threshold (when two near-equal
+    scores swap their order, NMS keeps the other box of the pair, which
+    overlaps by more than that). Nothing kept on either side fails, and so
+    does a render without predicted boxes or of another shape than the
+    original. Returns the card render."""
+    from ssl4gie_tpu_torch.tasks import predict as P
+    ref_model = FasterRCNN(arch=model.arch, image_size=model.image_size,
+                           dtype=torch.float32, device="cpu")
+    ref_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    _, ref_scores = P.detect(ref_model, sample)
+    tol = LOGIT_TOL * float(np.abs(_logit(ref_scores)).max())
+    shift = -float(_logit(_widest_cut(ref_scores, 3, 10)))
+    bias = model.roi_heads.box_predictor.cls_score.bias
+    saved = bias.detach().clone()
+    with torch.no_grad():
+        bias.add_(torch.tensor([-shift / 2, shift / 2], dtype=bias.dtype,
+                               device=bias.device))
+        ref_model.roi_heads.box_predictor.cls_score.bias.copy_(bias.cpu())
+    try:
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        boxes, scores = P.detect(model, sample)
+        check_launches(tag, {"window_attention_fwd": 8,
+                             "flash_attention_fwd": 4})
+        out = P.draw_detections(sample, boxes[scores > 0.5])
+    finally:
+        with torch.no_grad():
+            bias.copy_(saved)
+    ref_boxes, ref_scores = P.detect(ref_model, sample)
+    z, ref_z = _logit(scores), _logit(ref_scores)
+    keep, ref_keep = z > 0, ref_z > 0
+    sure, near = ref_z > tol, ref_z > -tol
+    iou = np.concatenate([
+        _held(ref_boxes[sure], ref_z[sure], boxes[keep], z[keep], tol),
+        _held(boxes[keep], z[keep], ref_boxes[near], ref_z[near], tol)])
+    # each kept box's score against its best-overlapping CPU box, in bf16
+    # ulps of the CPU's score and in logits
+    gap_ulps = gap_z = 0.0
+    if keep.any() and ref_keep.any():
+        j = _iou(boxes[keep], ref_boxes).argmax(axis=1)
+        gap_ulps = float(np.max(np.abs(scores[keep] - ref_scores[j])
+                                / _bf16_ulp(ref_scores[j])))
+        gap_z = float(np.max(np.abs(z[keep] - ref_z[j])))
+    drawn = int((out == P.PRED_COLOR).all(-1).sum())
+    print(f"[{tag}] render {out.shape}: class logits shifted by "
+          f"{shift:.4f}; kept {int(keep.sum())} on the card, "
+          f"{int(ref_keep.sum())} in f32 on the CPU ({int(sure.sum())} "
+          f"beyond the band), of {len(z)} and {len(ref_z)} detections; held "
+          f"at IoU >= 0.5 with logits within {tol:.4f}: "
+          f"{int((iou >= 0.5).sum())} of {len(iou)} ({int((iou >= 0.9).sum())}"
+          f" at IoU >= 0.9, the least "
+          f"{iou.min() if len(iou) else float('nan'):.4f}); largest gap to "
+          f"the best-overlapping CPU box {gap_z:.4f} in logits, "
+          f"{gap_ulps:.2f} bf16 ulps of the score; {drawn} predicted-box "
+          f"pixels drawn", flush=True)
+    if not keep.any() or not sure.any() or (iou < 0.5).any() or \
+            not drawn or out.shape != sample["original"].shape:
+        raise AssertionError(f"{tag}: the card's detections disagree with "
+                             "the f32 CPU run's")
+    return out
+
+
+def _cmap_index(rgb: np.ndarray, name: str) -> np.ndarray:
+    """The entry of colormap `name` nearest each pixel of `rgb`."""
+    from ssl4gie_tpu_torch.tasks.colormaps import COLORMAPS
+    table = COLORMAPS[name].astype(np.int32)
+    d = np.abs(rgb.astype(np.int32)[..., None, :] - table).sum(-1)
+    return d.argmin(-1)
+
+
+def hold_dense_render(task: str, model, sample: dict, tag: str) -> float:
+    """`render_segmentation` / `render_depth` on the card against the same
+    render of the float32 model on the CPU: the masks agree wherever the
+    CPU logit is beyond LOGIT_TOL of the largest from 0; the colormaps'
+    entries agree within LOGIT_TOL of the 256 entries (plus one: the
+    floor). Returns the share of excepted pixels."""
+    from ssl4gie_tpu_torch.tasks import predict as P
+    from ssl4gie_tpu_torch.tasks.evaluate import _forward_fn
+    ref_model = ViTDenseModel(dense=PREDICT_DENSE[task],
+                              dtype=torch.float32, device="cpu")
+    ref_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    if task == "segmentation":
+        out, ref = (P.render_segmentation(m, sample)
+                    for m in (model, ref_model))
+        logits = _forward_fn(ref_model)[0](sample["image"][None])
+        logits = logits[0, :, :, 0].numpy()
+        tie = np.abs(logits) <= LOGIT_TOL * np.abs(logits).max()
+        bad = (out != ref) & ~tie
+        share = float(tie.mean())
+    else:
+        outs, refs = (P.render_depth(m, sample) for m in (model, ref_model))
+        reach = int(math.ceil(LOGIT_TOL * 256)) + 1
+        bad = np.zeros(outs[0].shape[:2], bool)
+        for o, r, name in zip(outs, refs, ("magma", "bone")):
+            bad |= np.abs(_cmap_index(o, name) - _cmap_index(r, name)) > reach
+        share = 0.0
+    print(f"[{tag}] {task} render bf16 on card vs f32 on CPU: "
+          f"{int(bad.sum())} pixels disagree ({share:.4f} of the mask within "
+          f"the tolerance of 0, excepted)", flush=True)
+    if bad.any():
+        raise AssertionError(f"{tag}: the {task} render disagrees")
+    return share
+
+
+def exact_affine_path(card: str) -> dict:
+    """One classification and one segmentation full step with `exact=True`
+    at full width (ViT-B/16; ViT-B + DPT), factors from a host generator:
+    no rotation launch (the warp is `affine_sample`'s one-pass gather), the
+    attention launches of the models; each warp on the card equals
+    `affine_sample` on the CPU at the same matrix, element for element."""
+    from ssl4gie_tpu_torch.data import augment as taug
+    calls = []
+    gather = taug.affine_sample
+
+    def recording(img, matrix, fill, mode="nearest"):
+        out = gather(img, matrix, fill, mode)
+        calls.append((img.detach().clone(), matrix.detach().clone(), fill,
+                      mode, out.detach().clone()))
+        return out
+
+    def cls_case():
+        model, optimizer, _, img_u8, labels, _ = cls_setup()
+        return model, optimizer, CLS_TASK, img_u8, labels
+
+    def seg_case():
+        model, optimizer, _, img_u8, masks, _ = dense_setup("seg")
+        return model, optimizer, segmentation_task(), img_u8, masks
+
+    attention = {"dense_attention_fwd": 12, "dense_attention_bwd": 12}
+    out = {}
+    taug.affine_sample = recording
+    try:
+        for tag, setup, expected in (("cls", cls_case, attention),
+                                     ("seg", seg_case, attention)):
+            model, optimizer, task, img_u8, targets = setup()
+            step = make_full_step(task, exact=True, per_image_jitter=False)
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            calls.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(model, optimizer, img_u8, targets,
+                        torch.Generator().manual_seed(SEED),
+                        torch.Generator(device="cuda").manual_seed(SEED))
+            loss = float(loss["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+            ran = check_launches(f"exact {tag}", expected)
+            if not np.isfinite(loss):
+                raise AssertionError(f"exact {tag}: loss {loss}")
+            for img, m, fill, mode, got in calls:
+                ref = gather(img.cpu(), m.cpu(), fill, mode)
+                if not torch.equal(got.cpu(), ref):
+                    raise AssertionError(f"exact {tag}: the card's warp "
+                                         "differs from the CPU's")
+            print(f"[exact {tag}] exact affine full step B={img_u8.shape[0]}"
+                  f": {len(calls)} warps ({tuple(calls[0][0].shape)}, "
+                  f"{calls[0][0].dtype}) equal to the CPU's element for "
+                  f"element, no rotation launch, loss {loss:.4f}, "
+                  f"{ms:.2f} ms (first step, build included)  [{card}]",
+                  flush=True)
+            out.update({f"{k}_exact_{tag}": v for k, v in ran.items()})
+            del model, optimizer
+    finally:
+        taug.affine_sample = gather
+    return out
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def _launched_since(before: dict) -> dict:
+    """The launches of each kernel since `before` (those that moved)."""
+    return {name: fn.launches - before[name] for name, fn in COUNTERS.items()
+            if fn.launches != before[name]}
+
+
+def watch_det_driver(trainer, steps: list, evals: list) -> None:
+    """Wrap the trainer's full step and its evaluate: each step appends
+    its launches to `steps`; each evaluate appends (its ms on the host
+    clock with the device synchronized, its batches, its launches) to
+    `evals`."""
+    step, evaluate = trainer.full_step, trainer.evaluate
+
+    def full_step(*args, **kwargs):
+        before = _launch_counts()
+        out = step(*args, **kwargs)
+        steps.append(_launched_since(before))
+        return out
+
+    def watched_evaluate(source, epoch, split):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(source, epoch, split)
+        torch.cuda.synchronize()
+        evals.append(((time.perf_counter() - t0) * 1e3,
+                      -(-len(source) // min(2, len(source))),
+                      _launched_since(before)))
+        return out
+
+    trainer.full_step, trainer.evaluate = full_step, watched_evaluate
+
+
+def det_driver_path(card: str) -> dict:
+    """The detection driver at full width through its entry points, on
+    JPEG files in the Kvasir layout: `build_trainer` on a `cli/train.py`
+    command line for the ViT-B detector (1024 px, fixed placement, B =
+    DET_B), `fit()` for two epochs; the end state written as the requeue
+    slot of a three-epoch run preempted after its second epoch; a second
+    `build_trainer` with --epochs 3 that resumes at epoch 3 (weights and
+    AdamW state bitwise the saved ones) and runs it. The launches of every
+    train step and every eval batch are read around each call. Then
+    `cli.evaluate.main` on the ViT-B slot against `evaluate_map` on the
+    slot restored by hand; the three renders of `tasks/predict.py` on the
+    card held to float32 on the CPU (detection on two test frames from the
+    ViT-B slot; segmentation and depth from ViT-B + DPT slots of random
+    weights), with their launch counts, and `cli.predict.main` writing
+    PNGs for each; the RN50-FPN through the same trainer (1344 px,
+    torchvision placement) for one epoch. Returns the launch counts per
+    train step and per eval batch, as measured, keyed
+    `<kernel>_det_driver_step` / `_det_driver_eval`."""
+    from ssl4gie_tpu_torch.cli import predict as cli_predict
+    from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
+    from ssl4gie_tpu_torch.tasks import predict as P
+    per_step = {"window_attention_fwd": 8, "window_attention_bwd": 8,
+                "flash_attention_fwd": 4, "flash_attention_bwd": 4}
+    per_eval = {"window_attention_fwd": 8, "flash_attention_fwd": 4}
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_det_driver_") as tmp:
+        root, ckpt_dir = os.path.join(tmp, "Kvasir"), os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        write_kvasir(root)
+        print(f"[det_driver] {DET_DRIVER_FRAMES} JPEG frames written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(det_driver_config(root, ckpt_dir, "vit_b", 2))
+        n_train = len(trainer.train_loader)
+        if (n_train, len(trainer.train_loader.source)) != (DET_DRIVER_STEPS,
+                                                          20):
+            raise AssertionError(f"split {n_train} steps of "
+                                 f"{len(trainer.train_loader.source)}")
+        step_runs, eval_runs = [], []
+        snap_ms, save_ms, load_ms = [], [], []
+        watch_det_driver(trainer, step_runs, eval_runs)
+        timed(trainer, "_ckpt_tree", snap_ms)
+        timed(trainer.ckpt, "save", save_ms)
+        trainer.fit()
+        trainer.preempt_ckpt.save(trainer._ckpt_tree(2, trainer.best_val,
+                                                     0.0))
+        size = os.path.getsize(trainer.preempt_ckpt.path)
+
+        resumed = build_trainer(det_driver_config(root, ckpt_dir, "vit_b",
+                                                  3))
+        timed(resumed, "maybe_resume", load_ms)
+        resume = resumed.maybe_resume
+
+        def resume_and_check():
+            resume()
+            _equal_states(resumed.model.state_dict(),
+                          trainer.model.state_dict(), "model")
+            _equal_states(resumed.optimizer.state_dict(),
+                          trainer.optimizer.state_dict(), "optimizer")
+
+        resumed.maybe_resume = resume_and_check
+        watch_det_driver(resumed, step_runs, eval_runs)
+        resumed.fit()
+        if resumed.start_epoch != 3 or resumed.preempt_ckpt.exists():
+            raise AssertionError(f"resumed at epoch {resumed.start_epoch}, "
+                                 "expected 3 (and the requeue slot deleted)")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # every step and every eval batch launched what it should, and
+        # nothing launched outside them
+        steps = len(step_runs)
+        evals = sum(n for _, n, _ in eval_runs)
+        if steps != 3 * n_train or any(r != per_step for r in step_runs):
+            raise AssertionError(f"train step launches {step_runs}")
+        for _, n, ran in eval_runs:
+            if ran != {k: n * v for k, v in per_eval.items()}:
+                raise AssertionError(f"eval launches {ran} over {n} batches")
+        ran = check_launches("det_driver", {
+            k: steps * per_step[k] + evals * per_eval.get(k, 0)
+            for k in per_step})
+        measured = {}
+        for name in per_step:
+            measured[f"{name}_det_driver_step"] = sum(
+                r.get(name, 0) for r in step_runs) // steps
+            measured[f"{name}_det_driver_eval"] = sum(
+                r.get(name, 0) for _, _, r in eval_runs) // evals
+        ledger = [json.loads(ln) for ln in
+                  Path(trainer.logger.jsonl_path).read_text().splitlines()]
+        for p in ledger:
+            if set(p) not in DET_DRIVER_LEDGER_KEYS:
+                raise AssertionError(f"ledger payload {sorted(p)} is not one "
+                                     "of the JAX DetectionTrainer's")
+        train_lines = [p for p in ledger if "step" in p]
+        if len(train_lines) != 3 or not all(
+                np.isfinite([p["loss"] for p in train_lines])):
+            raise AssertionError(f"driver losses {train_lines}")
+        for p in train_lines:
+            print(f"[det_driver] epoch {p['epoch']}: step_time_ms "
+                  f"{p['step_time_ms']:.2f}, images_per_sec "
+                  f"{p['images_per_sec']:.2f} over {p['step']} steps (JPEG "
+                  f"decode, placement and copies included), loss "
+                  f"{p['loss']:.4f}; the bare step (det path) "
+                  f"{DET_MS_STEP['vit_b']:.2f} ms/step  [{card}]", flush=True)
+        batch_ms = [ms / n for ms, n, _ in eval_runs]
+        kinds = {kind: {k.split("_det_driver_")[0]: v
+                        for k, v in measured.items()
+                        if k.endswith(kind) and v}
+                 for kind in ("_step", "_eval")}
+        print(f"[det_driver] launches measured around each of {steps} train "
+              f"steps and {len(eval_runs)} evaluate calls ({evals} eval "
+              f"batches): per step {kinds['_step']}, per eval batch "
+              f"{kinds['_eval']}; "
+              f"eval {statistics.median(batch_ms):.2f} ms per batch of 2 "
+              f"(median over {len(batch_ms)} evaluate calls; "
+              f"{[round(x, 2) for x in batch_ms]}); host copies "
+              f"(`_ckpt_tree`) {[round(x, 1) for x in snap_ms]} ms; best-val "
+              f"saves {[round(x, 1) for x in save_ms]} ms; slot {size} "
+              f"bytes; resume load {[round(x, 1) for x in load_ms]} ms; "
+              f"peak memory {peak:.2f} GiB  [{card}]", flush=True)
+
+        # cli.evaluate on the ViT-B best-val slot against evaluate_map on
+        # the slot restored by hand (build_model and the state dict) over
+        # the trainer's own test source. The test frames' ground truth is
+        # first replaced by the restored model's DET_ORACLE_GT best
+        # detections over both frames, so that the two routes agree, and
+        # mAP@50 is near 1, only if both load the slot, place the frames
+        # and map the boxes to and from the originals alike.
+        direct = build_model(Task.DETECTION, Architecture.VIT_B,
+                             img_size=DET_IMG, dtype=torch.bfloat16,
+                             device="cuda")
+        direct.load_state_dict(torch.load(
+            trainer.ckpt.path, map_location="cuda",
+            weights_only=True)["model"])
+        test = trainer.test_source
+        test.keep_original = True
+        samples = [test.get(i) for i in range(len(test))]
+        dets = [P.detect(direct, s) for s in samples]
+        cut = _score_cut(np.concatenate([sc for _, sc in dets]),
+                         DET_ORACLE_GT)
+        targets = json.loads(Path(root, "bounding-boxes.json").read_text())
+        for path, s, (boxes, scores) in zip(test.paths, samples, dets):
+            gt = boxes_to_original(boxes[scores > cut], s["pad"], s["scale"])
+            targets[Path(path).stem] = {"bbox": [
+                dict(zip(("xmin", "ymin", "xmax", "ymax"), map(float, b)))
+                for b in gt]}
+        Path(root, "bounding-boxes.json").write_text(json.dumps(targets))
+        argv = det_driver_argv(root, ckpt_dir, "vit_b")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = cli_evaluate.main(argv + ["--results-root", tmp])
+        print(text.getvalue(), end="", flush=True)
+        want = evaluate_map(direct, DetectionSource(test.paths, targets,
+                                                    DET_IMG))
+        print(f"[det_driver] cli.evaluate {res}; evaluate_map on the slot "
+              f"restored by hand {want}; ground truth: the {DET_ORACLE_GT} "
+              f"best of {sum(len(sc) for _, sc in dets)} detections over "
+              f"the two test frames (score > {cut:.4f})", flush=True)
+        if res != want or not np.isfinite(list(res.values())).all() or \
+                res["map_50"] < 0.9 or "mAP@75:" not in text.getvalue():
+            raise AssertionError(f"cli.evaluate {res} != evaluate_map "
+                                 f"{want}, or mAP@50 below 0.9")
+        del direct
+
+        # the detection render from the slot (the predict CLI's route),
+        # two test frames (8 window and 4 flash forwards each)
+        cfg = det_driver_config(root, ckpt_dir, "vit_b", 1)
+        model, _ = cli_evaluate.load_eval_state(cfg)
+        src = cli_evaluate.make_test_source(cfg)
+        src.keep_original = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(2):
+            hold_detection_render(model, src.get(i), "det_driver predict")
+        print(f"[det_driver] predict_detection: two renders with their f32 "
+              f"CPU references in {time.perf_counter() - t0:.2f} s", flush=True)
+        out_dir = os.path.join(tmp, "pred_det")
+        with contextlib.redirect_stdout(io.StringIO()):
+            written = cli_predict.main(argv + ["--idx", "0,1", "--out-dir",
+                                               out_dir])
+        if [os.path.basename(p) for p in written] != ["det_0.png",
+                                                      "det_1.png"]:
+            raise AssertionError(f"cli.predict wrote {written}")
+        del model, trainer, resumed
+
+        # the segmentation and depth renders from random-weight slots
+        for task in PREDICT_DENSE:
+            pargv = ["--task", task, "--architecture", "vit_b",
+                     "--synthetic", "--ckpt-dir", ckpt_dir]
+            p = argparse.ArgumentParser()
+            targs.add_common(p)
+            targs.add_train(p)
+            pcfg = targs.to_train_config(p.parse_args(pargv))
+            dense = ViTDenseModel(dense=PREDICT_DENSE[task],
+                                  dtype=torch.bfloat16,
+                                  generator=torch.Generator().manual_seed(SEED),
+                                  device="cuda")
+            ckpt_lib.CheckpointManager(ckpt_dir, pcfg.run_name()).save(
+                {"model": ckpt_lib.host_copy(dense.state_dict()),
+                 "meta": {"epoch": 0}})
+            del dense
+            model, _ = cli_evaluate.load_eval_state(pcfg)
+            psrc = cli_evaluate.make_test_source(pcfg)
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            for i in range(2):
+                hold_dense_render(task, model, psrc.get(i),
+                                  "det_driver predict")
+            check_launches(f"predict {task}", {"dense_attention_fwd": 24})
+            with contextlib.redirect_stdout(io.StringIO()):
+                written = cli_predict.main(pargv + [
+                    "--idx", "0,1", "--out-dir",
+                    os.path.join(tmp, f"pred_{task}")])
+            if len(written) != (2 if task == "segmentation" else 4):
+                raise AssertionError(f"cli.predict {task} wrote {written}")
+            del model
+
+        # the RN50-FPN through the same trainer, one epoch
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rn50 = build_trainer(det_driver_config(root, os.path.join(tmp, "rn"),
+                                               "resnet50", 1))
+        t0 = time.perf_counter()
+        rn50.fit()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check_launches("det_driver rn50", {})
+        lines = [json.loads(ln) for ln in
+                 Path(rn50.logger.jsonl_path).read_text().splitlines()]
+        step = [p for p in lines if "step" in p]
+        if len(step) != 1 or not np.isfinite(step[0]["loss"]):
+            raise AssertionError(f"RN50 driver losses {step}")
+        if rn50.model.image_size != TV_CANVAS or \
+                rn50.train_loader.source.resize != "torchvision":
+            raise AssertionError("the RN50 driver's canvas or placement")
+        print(f"[det_driver] RN50-FPN {TV_CANVAS} px (torchvision "
+              f"placement), one epoch: step_time_ms "
+              f"{step[0]['step_time_ms']:.2f} over {step[0]['step']} steps "
+              f"(its first included), loss {step[0]['loss']:.4f}; the bare "
+              f"step (det_rn50 path) {DET_MS_STEP['resnet50']:.2f} ms/step; "
+              f"the epoch with val, test and "
+              f"the save {dt:.2f} s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+              f"[{card}]", flush=True)
+    return measured
+
+
 def profile_steps(card: str, step, n_steps: int, out_dir: str, name: str):
     """torch.profiler over `n_steps` calls of `step` (after one warm-up
     call): writes the table of device time by kernel to out_dir/name, prints
@@ -2498,7 +3113,9 @@ def main() -> None:
                 for arch in MOCO_ARCHS),
               ("kernel A/B harnesses", harness_path),
               ("finetune driver", driver_path),
-              ("pretrain driver", pretrain_driver_path)]
+              ("pretrain driver", pretrain_driver_path),
+              ("exact affine", exact_affine_path),
+              ("detection driver", det_driver_path)]
     results, launches = [], {}
     for name, phase in phases:
         t0 = time.perf_counter()
@@ -2511,6 +3128,12 @@ def main() -> None:
               flush=True)
     for r in results:
         r["launches"] = launches[r["name"]]
+        # the detection driver's launches of the same kernel, per train
+        # step and per eval batch
+        for kind in ("step", "eval"):
+            key = f"{r['name'].removesuffix('_eval')}_det_driver_{kind}"
+            if key in launches:
+                r[f"det_driver_launches_per_{kind}"] = launches[key]
     if args.profile:
         profile_cls(card, args.profile)
         profile_dense("seg", card, args.profile)

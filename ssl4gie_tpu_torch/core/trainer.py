@@ -25,12 +25,17 @@ requeue), and images/s and step-time logging. It follows the JAX Trainer
   eager torch needs no static shape, and the masked sums of the JAX
   package's padded batches are the sums over the real rows;
 - the only per-step host sync is the loss read every `log_every` steps.
+With `SSL4GIE_HOST_AUG=1` a classification epoch is augmented on the host
+by the C++ loader (`data/native_loader.py:augment_classification`, one
+seed a step from the epoch's generator) before the copy to the device, as
+the JAX Trainer's switch; a failed build of that library raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,6 +50,8 @@ from ssl4gie_tpu_torch.core.train_state import (apply_gradients, get_lr,
                                                 set_lr)
 from ssl4gie_tpu_torch.data.augment import (apply_classification, apply_depth,
                                             apply_segmentation, eval_batch,
+                                            exact_affine_enabled,
+                                            per_image_jitter_enabled,
                                             sample_classification_params,
                                             sample_depth_params,
                                             sample_segmentation_params)
@@ -97,31 +104,39 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
     return train_step
 
 
-def make_full_step(task: TaskDefinition, accum_steps: int = 1):
+def make_full_step(task: TaskDefinition, accum_steps: int = 1,
+                   exact: Optional[bool] = None,
+                   per_image_jitter: Optional[bool] = None):
     """Returns full_step(model, optimizer, img_u8, targets, generator,
     model_generator=None): sample the augmentation from `generator`,
     augment the uint8 batch (and, for segmentation and depth, its (B, H, W,
     1) mask or depth map with it) on its device, then take one train step,
     whose dropout and stochastic depth draw from `model_generator` (by
-    default `generator`)."""
+    default `generator`). `exact` (the one-pass warp) and
+    `per_image_jitter` default to `SSL4GIE_EXACT_AFFINE` and
+    `SSL4GIE_PER_IMAGE_JITTER`, read here."""
     if task.aug_mode not in ("classification", "segmentation", "depth"):
         raise NotImplementedError(f"aug_mode {task.aug_mode!r}: only "
                                   "classification, segmentation and depth "
                                   "are ported")
+    exact = exact_affine_enabled() if exact is None else exact
+    per_image = (per_image_jitter_enabled() if per_image_jitter is None
+                 else per_image_jitter)
     step = make_train_step(task, accum_steps)
 
     def full_step(model, optimizer, img_u8, targets, generator,
                   model_generator=None):
         B = img_u8.shape[0]
         if task.aug_mode == "segmentation":
-            params = sample_segmentation_params(B, img_u8.shape[1], generator)
-            img, targets = apply_segmentation(img_u8, targets, params)
+            params = sample_segmentation_params(B, img_u8.shape[1], generator,
+                                                per_image)
+            img, targets = apply_segmentation(img_u8, targets, params, exact)
         elif task.aug_mode == "depth":
-            params = sample_depth_params(B, generator)
+            params = sample_depth_params(B, generator, per_image)
             img, targets = apply_depth(img_u8, targets, params)
         else:
-            params = sample_classification_params(B, generator)
-            img = apply_classification(img_u8, params)
+            params = sample_classification_params(B, generator, per_image)
+            img = apply_classification(img_u8, params, exact)
         return step(model, optimizer, {"image": img, task.target_key: targets},
                     generator if model_generator is None else model_generator)
 
@@ -174,8 +189,9 @@ class Trainer:
         self.plateau = plateau
         self.eval_finalize = eval_finalize   # meanF1 over accumulated preds
         self.log_every = log_every
-        self.full_step = make_full_step(task, accum_steps)
-        self.eval_step = make_eval_step(task)
+        self.accum_steps = accum_steps
+        self.full_step, self.eval_step = self._steps(accum_steps)
+        self._native_aug_pool = None
         self.start_epoch = 1
         self.best_val: Optional[float] = None
         # sibling slot for preemption saves: the best-val slot keeps the
@@ -190,6 +206,14 @@ class Trainer:
         self._boundary_snapshot = None
         self._preempt_slot_epoch: Optional[int] = None
 
+    # the ledger's keys of a new best epoch: (val metric, test at best)
+    BEST_KEYS = ("new_best_val", "test_at_best")
+
+    def _steps(self, accum_steps: int):
+        """(full step, eval step) of the task."""
+        return (make_full_step(self.task, accum_steps),
+                make_eval_step(self.task))
+
     # -------------------------------------------------------------- epochs
 
     def generators(self, epoch: int):
@@ -200,22 +224,45 @@ class Trainer:
             return host, torch.Generator(self.device).manual_seed(seed)
         return host, host
 
+    def _host_augmented(self, batches, seeds):
+        """The epoch's batches with their images augmented on the host by
+        the C++ loader's pool, one seed a batch: float32, normalized."""
+        from ssl4gie_tpu_torch.data import native_loader
+        if self._native_aug_pool is None:
+            self._native_aug_pool = native_loader.NativeBatchLoader()
+        for batch, seed in zip(batches, seeds):
+            yield dict(batch, image=native_loader.augment_classification(
+                self._native_aug_pool, batch["image"], seed))
+
     def train_epoch(self, epoch: int):
         meter = Throughput()
         last_loss = None
-        it = prefetch_to_device(self.train_loader.epoch(epoch), self.device)
+        batches = self.train_loader.epoch(epoch)
         n_steps = max(len(self.train_loader), 1)
         aug_gen, model_gen = self.generators(epoch)
+        key = self.task.target_key
+        host_aug = (self.task.aug_mode == "classification"
+                    and os.environ.get("SSL4GIE_HOST_AUG") == "1")
+        if host_aug:
+            seeds = torch.randint(0, 2**31 - 1, (n_steps,),
+                                  generator=aug_gen).tolist()
+            batches = self._host_augmented(batches, seeds)
+            train_step = make_train_step(self.task, self.accum_steps)
+        it = prefetch_to_device(batches, self.device)
         for step, batch in enumerate(it):
             if self._guard is not None and self._guard.should_stop:
                 # mid-epoch preemption: the state as of the last COMPLETE
                 # epoch is what resumes (the per-epoch generators make the
                 # replay deterministic)
                 self._check_preempted(epoch - 1)
-            metrics = self.full_step(self.model, self.optimizer,
-                                     batch["image"],
-                                     batch[self.task.target_key], aug_gen,
-                                     model_gen)
+            if host_aug:
+                metrics = train_step(self.model, self.optimizer,
+                                     {"image": batch["image"],
+                                      key: batch[key]}, model_gen)
+            else:
+                metrics = self.full_step(self.model, self.optimizer,
+                                         batch["image"], batch[key], aug_gen,
+                                         model_gen)
             meter.update(batch["image"].shape[0])
             if ((step + 1) % self.log_every == 0
                     or step + 1 == len(self.train_loader)):
@@ -373,8 +420,9 @@ class Trainer:
                 if ckpt_lib.is_primary():
                     self.ckpt.save(self._ckpt_tree(epoch, val_perf,
                                                    test_perf))
-                self.logger.log({"epoch": epoch, "new_best_val": val_perf,
-                                 "test_at_best": test_perf})
+                best_key, test_key = self.BEST_KEYS
+                self.logger.log({"epoch": epoch, best_key: val_perf,
+                                 test_key: test_perf})
             # drop a stale .preempt slot once this run has trained past it,
             # so that a later rerun never prefers it to the best-val slot
             if (self._preempt_slot_epoch is not None

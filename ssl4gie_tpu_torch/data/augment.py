@@ -23,7 +23,9 @@ is float32, the mask or depth map keeps its dtype.
 
 from __future__ import annotations
 
+import itertools
 import math
+import os
 
 import torch
 
@@ -129,17 +131,34 @@ def _adjust_hue(img, f):
     return _hsv_to_rgb(torch.remainder(h + f, 1.0), s, v)
 
 
-def color_jitter(img, brightness, contrast, saturation, hue, order):
+# the 24 orders of the four jitter ops, in the JAX package's order
+JITTER_PERMS = tuple(itertools.permutations(range(4)))
+
+
+def color_jitter(img, brightness, contrast, saturation, hue, order,
+                 per_image: bool = False):
     """Apply the four jitter ops in `order` (a permutation of 0..3 for
-    brightness, contrast, saturation, hue) with per-image factors (B,)."""
+    brightness, contrast, saturation, hue) with per-image factors (B,).
+    With `per_image`, `order` is a (B, 4) tensor, one permutation per
+    image: each of the four steps evaluates every op and keeps, per image,
+    the one at that step of its order (the JAX package's per-image
+    jitter, four times the op evaluations)."""
     B = img.shape[0]
     f4 = lambda f: f.to(img.dtype).reshape(B, 1, 1, 1)
     ops = (lambda x: _adjust_brightness(x, f4(brightness)),
            lambda x: _adjust_contrast(x, f4(contrast)),
            lambda x: _adjust_saturation(x, f4(saturation)),
            lambda x: _adjust_hue(x, hue.to(img.dtype).reshape(B, 1, 1)))
-    for idx in order:
-        img = ops[idx](img)
+    if not per_image:
+        for idx in order:
+            img = ops[idx](img)
+        return img
+    for step in range(4):
+        outs = [op(img) for op in ops]
+        idx = order[:, step].reshape(B, 1, 1, 1)
+        img = outs[-1]
+        for j in range(len(outs) - 2, -1, -1):
+            img = torch.where(idx == j, outs[j], img)
     return img
 
 
@@ -232,43 +251,92 @@ def _on(params: dict, device) -> dict:
     return {k: move(v) for k, v in params.items()}
 
 
-def _sample_jitter_blur_flips(B: int, generator: torch.Generator) -> dict:
+def exact_affine_enabled() -> bool:
+    """The exact one-pass warp (`SSL4GIE_EXACT_AFFINE=1`): the
+    classification rotation and the segmentation affine through
+    `affine_sample`'s nearest gather, torchvision's `F.rotate`/`F.affine`
+    semantics, instead of the Paeth shears and the factorized warp."""
+    return os.environ.get("SSL4GIE_EXACT_AFFINE", "0") == "1"
+
+
+def per_image_jitter_enabled() -> bool:
+    """One ColorJitter op order per image (`SSL4GIE_PER_IMAGE_JITTER=1`),
+    as torchvision's, instead of one per batch."""
+    return os.environ.get("SSL4GIE_PER_IMAGE_JITTER", "0") == "1"
+
+
+def _sample_jitter_blur_flips(B: int, generator: torch.Generator,
+                              per_image_jitter: bool = False) -> dict:
     """Jitter factors U[1-x, 1+x] (hue U[-h, h]) and one op order per batch
-    (`color_jitter`), blur sigma U[0.001, 2] (`gaussian_blur`), flips with
-    probability 0.5 (`random_flips`)."""
+    (`color_jitter`), or with `per_image_jitter` one of the 24 orders per
+    image ((B, 4) int64), blur sigma U[0.001, 2] (`gaussian_blur`), flips
+    with probability 0.5 (`random_flips`)."""
     dev = generator.device
     params = {name: _uniform((B,), 1 - x, 1 + x, generator)
               for name, x in JITTER.items()}
+    if per_image_jitter:
+        pick = torch.randint(len(JITTER_PERMS), (B,), generator=generator,
+                             device=dev)
+        order = torch.tensor(JITTER_PERMS, device=dev)[pick]
+    else:
+        order = torch.randperm(4, generator=generator, device=dev).tolist()
     params.update(
         hue=_uniform((B,), -HUE, HUE, generator),
-        order=torch.randperm(4, generator=generator, device=dev).tolist(),
+        order=order,
         sigma=_uniform((B,), *SIGMA_RANGE, generator),
         hflip=torch.rand((B,), generator=generator, device=dev) > 0.5,
         vflip=torch.rand((B,), generator=generator, device=dev) > 0.5)
     return params
 
 
-def sample_classification_params(B: int, generator: torch.Generator) -> dict:
+def sample_classification_params(B: int, generator: torch.Generator,
+                                 per_image_jitter: bool = False) -> dict:
     """Draw every random factor of the classification augmentation on the
     generator's device, with the JAX package's ranges: jitter, blur and
     flips (`_sample_jitter_blur_flips`), then the angle U[-180, 180)
     (`_augment_train_batch`)."""
-    params = _sample_jitter_blur_flips(B, generator)
+    params = _sample_jitter_blur_flips(B, generator, per_image_jitter)
     params["angle"] = _uniform((B,), -DEGREES, DEGREES, generator)
     return params
 
 
-def apply_classification(img_u8: torch.Tensor, params: dict) -> torch.Tensor:
+def _jitter(img: torch.Tensor, p: dict) -> torch.Tensor:
+    """`color_jitter` at the factors of `p`: per image when its order is a
+    (B, 4) tensor."""
+    return color_jitter(img, p["brightness"], p["contrast"], p["saturation"],
+                        p["hue"], p["order"],
+                        per_image=torch.is_tensor(p["order"]))
+
+
+def rotation_matrix(angle_deg: torch.Tensor) -> torch.Tensor:
+    """The (B, 6) inverse matrix of a rotation by `angle_deg` (B,) about
+    the image center, as the JAX package's exact classification branch
+    builds it."""
+    B = angle_deg.shape[0]
+    return inverse_affine_matrix(
+        angle_deg.to(torch.float32),
+        torch.zeros((B, 2), dtype=torch.float32, device=angle_deg.device),
+        torch.ones((B,), dtype=torch.float32, device=angle_deg.device),
+        torch.zeros((B,), dtype=torch.float32, device=angle_deg.device))
+
+
+def apply_classification(img_u8: torch.Tensor, params: dict,
+                         exact: bool = False) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> normalized float32 (B, H, W, 3): jitter + blur ->
-    flips -> rotation (fill 0) -> normalize, with the factors of `params`."""
+    flips -> rotation (fill 0) -> normalize, with the factors of `params`.
+    `exact` rotates by `affine_sample`'s one-pass nearest gather (its
+    matrix made where the factors were drawn, so the card and the CPU
+    sample the same pixels) instead of the rotation kernel."""
     dt = torch.bfloat16 if img_u8.is_cuda else torch.float32
     p = _on(params, img_u8.device)
     img = img_u8.to(dt) / 255.0
-    img = color_jitter(img, p["brightness"], p["contrast"], p["saturation"],
-                       p["hue"], p["order"])
-    img = gaussian_blur(img, p["sigma"])
+    img = gaussian_blur(_jitter(img, p), p["sigma"])
     img = random_flips(img, p["hflip"], p["vflip"])
-    img = rotate_nearest_shear(img, p["angle"], fill=0.0)
+    if exact:
+        m = _on({"m": rotation_matrix(params["angle"])}, img.device)["m"]
+        img = affine_sample(img, m, 0.0, "nearest")
+    else:
+        img = rotate_nearest_shear(img, p["angle"], fill=0.0)
     return normalize(img.to(torch.float32))
 
 
@@ -293,6 +361,64 @@ def inverse_affine_matrix(angle_deg, translate, scale, shear_deg):
     m02 = m00 * (-tx) + m01 * (-ty)
     m12 = m10 * (-tx) + m11 * (-ty)
     return torch.stack([m00, m01, m02, m10, m11, m12], dim=-1)
+
+
+def affine_sample(img: torch.Tensor, matrix: torch.Tensor, fill: float,
+                  mode: str = "nearest") -> torch.Tensor:
+    """Warp (B, H, W, C) by per-image inverse matrices (B, 6) (centered
+    output -> centered input coordinates): each output pixel reads its
+    source point, nearest (round half to even) or bilinear over its four
+    neighbours; a read outside the image gives `fill`. The JAX package's
+    `affine_sample`, one gather per tap."""
+    if mode not in ("nearest", "bilinear"):
+        raise ValueError(f"mode {mode!r} not in ('nearest', 'bilinear')")
+    B, H, W, C = img.shape
+    dev = img.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev) - (H - 1) / 2.0
+    xs = torch.arange(W, dtype=torch.float32, device=dev) - (W - 1) / 2.0
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")             # (H, W)
+    m = matrix.to(torch.float32).reshape(B, 6, 1, 1)
+    src_x = (m[:, 0] * gx + m[:, 1] * gy + m[:, 2]) + (W - 1) / 2.0
+    src_y = (m[:, 3] * gx + m[:, 4] * gy + m[:, 5]) + (H - 1) / 2.0
+    flat = img.reshape(B, H * W, C)
+    fill_t = torch.tensor(fill, dtype=img.dtype, device=dev)
+
+    def tap(iy, ix):
+        valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+        idx = iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)
+        g = torch.gather(flat, 1, idx.reshape(B, H * W, 1).expand(
+            B, H * W, C)).reshape(B, H, W, C)
+        return torch.where(valid[..., None], g, fill_t)
+
+    if mode == "nearest":
+        return tap(torch.round(src_y).to(torch.int64),
+                   torch.round(src_x).to(torch.int64))
+    x0, y0 = torch.floor(src_x), torch.floor(src_y)
+    wx, wy = (src_x - x0)[..., None], (src_y - y0)[..., None]
+    ix, iy = x0.to(torch.int64), y0.to(torch.int64)
+    top = tap(iy, ix) * (1 - wx) + tap(iy, ix + 1) * wx
+    bot = tap(iy + 1, ix) * (1 - wx) + tap(iy + 1, ix + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def random_affine(img: torch.Tensor, target: torch.Tensor | None,
+                  params: dict, *, img_fill: float = IMG_FILL,
+                  target_fill: float = TARGET_FILL, mode: str = "nearest"):
+    """The JAX package's `random_affine` at the factors of `params`
+    (`sample_affine_params`, the same ranges): one inverse matrix per
+    image, made where the factors were drawn (on the host for a host
+    generator, so the card and the CPU sample the same pixels), then
+    `affine_sample` of the image (fill `img_fill`) and of its target (fill
+    `target_fill`). Returns (img, target or None)."""
+    m = inverse_affine_matrix(params["angle"].to(torch.float32),
+                              params["translate"].to(torch.float32),
+                              params["scale"].to(torch.float32),
+                              params["shear"].to(torch.float32))
+    m = _on({"m": m}, img.device)["m"]
+    out_img = affine_sample(img, m, img_fill, mode)
+    out_tgt = (affine_sample(target, m, target_fill, mode)
+               if target is not None else None)
+    return out_img, out_tgt
 
 
 def sample_affine_params(B: int, size: int, generator: torch.Generator
@@ -388,11 +514,12 @@ def apply_affine(img: torch.Tensor, target: torch.Tensor | None,
 
 
 def sample_segmentation_params(B: int, size: int,
-                               generator: torch.Generator) -> dict:
+                               generator: torch.Generator,
+                               per_image_jitter: bool = False) -> dict:
     """Every random factor of the segmentation augmentation: jitter, blur
     and flips (`_sample_jitter_blur_flips`), then the affine
     (`sample_affine_params`)."""
-    params = _sample_jitter_blur_flips(B, generator)
+    params = _sample_jitter_blur_flips(B, generator, per_image_jitter)
     params.update(sample_affine_params(B, size, generator))
     return params
 
@@ -404,28 +531,31 @@ def _dense_photometric_flips(img_u8: torch.Tensor, target: torch.Tensor,
     target in its own)."""
     dt = torch.bfloat16 if img_u8.is_cuda else torch.float32
     img = img_u8.to(dt) / 255.0
-    img = color_jitter(img, p["brightness"], p["contrast"], p["saturation"],
-                       p["hue"], p["order"])
-    img = normalize(gaussian_blur(img, p["sigma"]))
+    img = normalize(gaussian_blur(_jitter(img, p), p["sigma"]))
     return (random_flips(img, p["hflip"], p["vflip"]),
             random_flips(target, p["hflip"], p["vflip"]))
 
 
 def apply_segmentation(img_u8: torch.Tensor, mask: torch.Tensor,
-                       params: dict):
+                       params: dict, exact: bool = False):
     """(B, H, W, 3) uint8 and its (B, H, W, Ct) mask -> (normalized float32
     image, mask in its dtype): jitter + blur -> normalize -> joint flips ->
-    joint affine (fill -1 image, 0 mask), with the factors of `params`."""
+    joint affine (fill -1 image, 0 mask), with the factors of `params`:
+    `apply_affine`, or with `exact` the one-pass `random_affine`."""
     p = _on(params, img_u8.device)
     img, mask = _dense_photometric_flips(img_u8, mask, p)
-    img, mask = apply_affine(img, mask, p)
+    if exact:
+        img, mask = random_affine(img, mask, params)
+    else:
+        img, mask = apply_affine(img, mask, p)
     return img.to(torch.float32), mask
 
 
-def sample_depth_params(B: int, generator: torch.Generator) -> dict:
+def sample_depth_params(B: int, generator: torch.Generator,
+                        per_image_jitter: bool = False) -> dict:
     """Every random factor of the depth augmentation: jitter, blur and flips
     (`_sample_jitter_blur_flips`)."""
-    return _sample_jitter_blur_flips(B, generator)
+    return _sample_jitter_blur_flips(B, generator, per_image_jitter)
 
 
 def apply_depth(img_u8: torch.Tensor, depth: torch.Tensor, params: dict):

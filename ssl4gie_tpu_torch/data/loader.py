@@ -8,13 +8,18 @@ one permutation per epoch from `np.random.default_rng((seed, epoch))`, the
 same `drop_last`. `prefetch_to_device` keeps two batches in flight: on the
 card each uint8 batch is copied from pinned memory on a side stream,
 without blocking the host. PIL is imported inside the file sources only,
-so that the synthetic source needs no PIL.
+so that the synthetic source needs no PIL. `SSL4GIE_NATIVE_LOADER=1`
+decodes and resizes through the port's C++ loader
+(`data/native_loader.py`, libjpeg/libpng with the GIL released) instead
+of PIL, as the JAX package's switch does.
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import os
+import threading
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -31,7 +36,28 @@ class Source:
         raise NotImplementedError
 
 
+_native = None
+_native_lock = threading.Lock()
+
+
+def _native_loader():
+    """The process's `NativeBatchLoader`, made (and the library built) at
+    first use; a failed build raises."""
+    global _native
+    with _native_lock:
+        if _native is None:
+            from ssl4gie_tpu_torch.data.native_loader import NativeBatchLoader
+            _native = NativeBatchLoader()
+        return _native
+
+
 def _open_rgb(path: str, size: Optional[int], make_square: bool = False):
+    if size is not None and os.environ.get("SSL4GIE_NATIVE_LOADER") == "1":
+        loader = _native_loader()   # a failed build or load raises
+        try:
+            return loader.load([path], size, make_square)[0]
+        except IOError:
+            pass   # a format it does not decode (16-bit TIFF): PIL, as JAX
     from PIL import Image
     im = Image.open(path)
     if im.mode != "RGB":

@@ -1,10 +1,9 @@
 """Assemble a Trainer from a TrainConfig (port of `ssl4gie_tpu/tasks/
-build.py` for classification, segmentation and depth): data discovery and
-the split, the model, the optimizer, the loss and metric wiring, the three
-Loaders, the logger, the checkpoint and the plateau schedule, as each
-reference build() does (`train_classification.py:128-248`,
-`train_segmentation.py:125-223`, `train_depth.py:131-251`). Detection's
-DetectionTrainer is the next slice (ROADMAP queue 1 item 4)."""
+build.py`): data discovery and the split, the model, the optimizer, the
+loss and metric wiring, the Loaders, the logger, the checkpoint and the
+plateau schedule, as each reference build() does
+(`train_classification.py:128-248`, `train_segmentation.py:125-223`,
+`train_depth.py:131-251`, `train_detection.py:169-300`)."""
 
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
-from ssl4gie_tpu_torch.core.config import Task, TrainConfig
+from ssl4gie_tpu_torch.core.config import Architecture, Task, TrainConfig
 from ssl4gie_tpu_torch.core.logger import MetricsLogger
 from ssl4gie_tpu_torch.core.schedule import ReduceLROnPlateau
 from ssl4gie_tpu_torch.core.train_state import freeze_body, make_adamw
@@ -28,10 +27,17 @@ from ssl4gie_tpu_torch.metrics import classification as cls_metrics
 from ssl4gie_tpu_torch.models.factory import build_model
 from ssl4gie_tpu_torch.models.layers import default_device
 from ssl4gie_tpu_torch.tasks.depth import depth_task
+from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
+                                               DetectionTrainer,
+                                               SyntheticDetectionSource)
 from ssl4gie_tpu_torch.tasks.segmentation import segmentation_task
 
-DETECTION_WAITS = ("--task detection: the detection driver (DetectionTrainer) "
-                   "is not ported yet (ROADMAP queue 1 item 4, the next slice)")
+# the reduced proposal counts of a synthetic (256 px) detection run, train
+# and test, and the test-time half of them (`cli/evaluate.py`)
+SYNTHETIC_DET_TEST = dict(rpn_pre_nms_top_n_test=100,
+                          rpn_post_nms_top_n_test=50, detections_per_img=10)
+SYNTHETIC_DET = dict(rpn_pre_nms_top_n_train=200, rpn_post_nms_top_n_train=100,
+                     box_batch_size_per_image=64, **SYNTHETIC_DET_TEST)
 
 
 def _subset(lst, idx):
@@ -69,7 +75,7 @@ def _make_sources(cfg: TrainConfig):
         mk = lambda s: DepthSource(*splits[s], d.img_size)
         return mk("train"), mk("val"), mk("test"), {}
 
-    raise NotImplementedError(DETECTION_WAITS)
+    raise ValueError(f"no finetune sources for {cfg.task}")
 
 
 def make_task_definition(cfg: TrainConfig, extras: dict, device
@@ -93,7 +99,7 @@ def make_task_definition(cfg: TrainConfig, extras: dict, device
         return segmentation_task(), None
     if cfg.task == Task.DEPTH:
         return depth_task(), None
-    raise NotImplementedError(DETECTION_WAITS)
+    raise ValueError(f"no task definition for {cfg.task}")
 
 
 def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
@@ -102,7 +108,7 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
     for tests."""
     cfg.validate()
     if cfg.task == Task.DETECTION:
-        raise NotImplementedError(DETECTION_WAITS)
+        return _build_detection_trainer(cfg, **widths)
     device = default_device(cfg.runtime.device)
     train_src, val_src, test_src, extras = _make_sources(cfg)
     td, finalize = make_task_definition(cfg, extras, device)
@@ -149,3 +155,64 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
                    epochs=cfg.epochs, accum_steps=o.accum_steps, seed=seed,
                    plateau=plateau, eval_finalize=finalize,
                    log_every=cfg.runtime.log_every)
+
+
+def detection_canvas(cfg: TrainConfig) -> tuple[int, str]:
+    """(canvas, placement) of a detection run: ViT-B on the reference's
+    1024 px fixed canvas (`train_detection.py:250`); RN50 with torchvision's
+    min/max resize onto the 1344 px canvas (`train_detection.py:197-204`);
+    synthetic data on 256 px (a multiple of the ViT's 16-token window), or
+    min(img_size, 256) for RN50."""
+    vit = cfg.architecture == Architecture.VIT_B
+    if cfg.data.synthetic:
+        return (256 if vit else min(cfg.data.img_size, 256)), "fixed"
+    return (1024, "fixed") if vit else (TV_CANVAS, "torchvision")
+
+
+def _build_detection_trainer(cfg: TrainConfig, **widths) -> DetectionTrainer:
+    """The detection build (JAX `tasks/build.py:_build_detection_trainer`,
+    `train_detection.py:169-300`): the Kvasir boxes JSON and the split,
+    Faster R-CNN, AdamW, the mAP-selected checkpoint. `widths` narrow the
+    ViT (`FasterRCNN(depth=, embed_dim=, num_heads=)`), for tests."""
+    d = cfg.data
+    device = default_device(cfg.runtime.device)
+    canvas, resize = detection_canvas(cfg)
+    if d.synthetic:
+        mk = lambda seed: SyntheticDetectionSource(d.synthetic_size, canvas,
+                                                   seed)
+        train_src, val_src, test_src = mk(0), mk(1), mk(2)
+    else:
+        paths, targets = discovery.discover_detection(d.data_root, d.dataset)
+        tr, te, va = split_ids(len(paths))
+        mk = lambda idx: DetectionSource(_subset(paths, idx), targets, canvas,
+                                         resize=resize)
+        train_src, val_src, test_src = mk(tr), mk(va), mk(te)
+
+    dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
+             else torch.float32)
+    model = build_model(cfg.task, cfg.architecture,
+                        pretraining=cfg.pretraining,
+                        framework=cfg.ss_framework, img_size=canvas,
+                        dtype=dtype,
+                        generator=torch.Generator().manual_seed(
+                            cfg.runtime.seed),
+                        device=device,
+                        **(SYNTHETIC_DET if d.synthetic else {}), **widths)
+    o = cfg.optim
+    optimizer = make_adamw(model.parameters(), o.learning_rate, o.b1, o.b2,
+                           o.eps, o.adamw_weight_decay, grad_clip=o.grad_clip)
+    logger = MetricsLogger(cfg.log_dir, cfg.run_name(),
+                           tb=cfg.runtime.tensorboard)
+    ckpt = ckpt_lib.CheckpointManager(cfg.ckpt_dir, cfg.run_name())
+    plateau = None
+    if o.use_plateau_scheduler:
+        plateau = ReduceLROnPlateau(mode="max", factor=o.plateau_factor,
+                                    patience=o.plateau_patience,
+                                    min_lr=o.min_lr)
+    return DetectionTrainer(model=model, optimizer=optimizer, device=device,
+                            train_source=train_src, val_source=val_src,
+                            test_source=test_src, logger=logger, ckpt=ckpt,
+                            epochs=cfg.epochs, batch_size=d.batch_size,
+                            accum_steps=o.accum_steps, seed=cfg.runtime.seed,
+                            num_threads=d.num_workers, plateau=plateau,
+                            log_every=cfg.runtime.log_every)

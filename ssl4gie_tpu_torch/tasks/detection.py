@@ -1,11 +1,11 @@
 """Detection task wiring (port of `ssl4gie_tpu/tasks/detection.py`): the
 Kvasir data source, box-aware on-device augmentation, the train step (the
 sum of the loss dict, with `accum_steps` microbatch averaging), the eval
-step and the COCO mAP evaluation, and the synthetic data source.
+step and the COCO mAP evaluation, the synthetic data source, and
+`DetectionTrainer`, the epoch driver around them.
 
 Static-shape data contract: every image is placed on a fixed square canvas;
-GT boxes are padded to MAX_GT with a validity mask. `DetectionTrainer` is
-not ported yet.
+GT boxes are padded to MAX_GT with a validity mask.
 """
 
 from __future__ import annotations
@@ -17,10 +17,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssl4gie_tpu_torch.core.logger import Throughput
 from ssl4gie_tpu_torch.core.train_state import apply_gradients
+from ssl4gie_tpu_torch.core.trainer import TaskDefinition, Trainer
 from ssl4gie_tpu_torch.data.augment import (HUE, JITTER, SIGMA_RANGE,
                                             color_jitter, gaussian_blur)
-from ssl4gie_tpu_torch.data.loader import Source
+from ssl4gie_tpu_torch.data.loader import Loader, Source, prefetch_to_device
 from ssl4gie_tpu_torch.metrics.detection import MeanAveragePrecision
 from ssl4gie_tpu_torch.models.faster_rcnn import MAX_GT
 from ssl4gie_tpu_torch.models.layers import default_device
@@ -317,17 +319,19 @@ def make_detection_train_step(accum_steps: int = 1):
 
 
 def make_detection_full_step(accum_steps: int = 1):
-    """Returns full_step(model, optimizer, batch, generator): sample the
-    augmentation from `generator`, augment the uint8 batch on its device,
-    then take one train step (the sampler noise from the same generator)."""
+    """Returns full_step(model, optimizer, batch, generator,
+    model_generator=None): sample the augmentation from `generator`,
+    augment the uint8 batch on its device, then take one train step, whose
+    sampler noise comes from `model_generator` (by default `generator`)."""
     step = make_detection_train_step(accum_steps)
 
-    def full_step(model, optimizer, batch: dict, generator: torch.Generator):
+    def full_step(model, optimizer, batch: dict, generator: torch.Generator,
+                  model_generator: torch.Generator | None = None):
         params = sample_detection_params(batch["image"].shape[0], generator)
         img, boxes = detection_augment(batch["image"], batch["gt_boxes"],
                                        params)
         return step(model, optimizer, dict(batch, image=img, gt_boxes=boxes),
-                    generator)
+                    generator if model_generator is None else model_generator)
 
     return full_step
 
@@ -387,3 +391,81 @@ def evaluate_map(model, source, batch_size: int = 2,
                             "labels": s["gt_labels"][gv]})
         metric.update(preds, targets)
     return metric.compute()
+
+
+# ------------------------------------------------------------ trainer
+
+# The engine's view of detection: the model returns its loss dict, so no
+# loss_fn; selection on val mAP; `has_dropout` because the samplers draw
+# noise inside the model (per anchor), which on the card comes from a card
+# generator seeded as the host one (`Trainer.generators`).
+DETECTION_TASK = TaskDefinition(name="detection", aug_mode="detection",
+                                target_key="gt_boxes", loss_fn=None,
+                                select_mode="max", has_dropout=True)
+
+
+class DetectionTrainer(Trainer):
+    """The detection engine (JAX `tasks/detection.py:DetectionTrainer`):
+    loss-dict training with `accum_steps` microbatches, COCO mAP on val and
+    test each epoch (`train_detection.py:330`), the plateau on val mAP, the
+    best-val checkpoint, resume and preemption. The epoch bookkeeping
+    (`fit`, `maybe_resume`, `_check_preempted`, `_ckpt_tree`) is
+    `Trainer`'s, as the JAX class mirrors it; the model's state dict holds
+    the RN50 body's frozen statistics as buffers. Randomness per epoch as
+    `Trainer`'s: the augmentation from a host generator seeded from
+    (seed, epoch), so `sample_detection_params`' `randperm(...).tolist()`
+    never waits for the card, and the samplers' noise from the card
+    generator seeded the same (the host one on the CPU)."""
+
+    BEST_KEYS = ("new_best_val_map", "test_map_at_best")
+
+    def __init__(self, *, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, device, train_source,
+                 val_source, test_source, logger, ckpt, epochs: int,
+                 batch_size: int, accum_steps: int = 1, seed: int = 42,
+                 num_threads: int = 8, plateau=None, log_every: int = 10):
+        train_loader = Loader(train_source, batch_size, shuffle=True,
+                              drop_last=True, seed=seed,
+                              num_threads=num_threads)
+        super().__init__(task=DETECTION_TASK, model=model,
+                         optimizer=optimizer, device=device,
+                         train_loader=train_loader, val_loader=val_source,
+                         test_loader=test_source, logger=logger, ckpt=ckpt,
+                         epochs=epochs, accum_steps=accum_steps, seed=seed,
+                         plateau=plateau, log_every=log_every)
+
+    @property
+    def val_source(self):
+        return self.val_loader
+
+    @property
+    def test_source(self):
+        return self.test_loader
+
+    def _steps(self, accum_steps: int):
+        return make_detection_full_step(accum_steps), None
+
+    def train_epoch(self, epoch: int):
+        meter = Throughput()
+        it = prefetch_to_device(self.train_loader.epoch(epoch), self.device)
+        aug_gen, model_gen = self.generators(epoch)
+        last_loss = None
+        for step, batch in enumerate(it):
+            if self._guard is not None and self._guard.should_stop:
+                self._check_preempted(epoch - 1)
+            metrics = self.full_step(self.model, self.optimizer, batch,
+                                     aug_gen, model_gen)
+            meter.update(batch["image"].shape[0])
+            if (step + 1) % self.log_every == 0:
+                last_loss = float(metrics["loss"])
+                self.logger.log({"epoch": epoch, "step": step + 1,
+                                 "loss": last_loss, **meter.rates()})
+        return last_loss
+
+    def evaluate(self, source, epoch: int, split: str) -> float:
+        res = evaluate_map(self.model, source,
+                           batch_size=min(2, len(source)),
+                           device=self.device)
+        self.logger.log({"epoch": epoch, f"{split}_map": res["map"],
+                         f"{split}_map50": res["map_50"]})
+        return res["map"]

@@ -229,9 +229,10 @@ def test_adamw_clip_with_decay_mask_matches_optax():
 def test_port_imports_no_jax():
     """Importing every module of the port in a fresh interpreter, the
     detection, MAE, segmentation, ResNet-50 and depth modules, the
-    detection evaluation's, the finetune driver's and the pretraining
-    driver's (MoCo v3, LARS, the pretrain CLI) among them, leaves jax,
-    flax and optax out of sys.modules."""
+    detection evaluation's, the finetune driver's, the pretraining
+    driver's (MoCo v3, LARS, the pretrain CLI), the predictors, the
+    predict CLI and the native loader among them, leaves jax, flax and
+    optax out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -252,7 +253,8 @@ def test_port_imports_no_jax():
         " 'core.logger', 'core.tb', 'core.preempt', 'core.checkpoint',"
         " 'core.train_state', 'core.trainer', 'tasks.build', 'cli.train',"
         " 'tasks.evaluate', 'cli.evaluate', 'ssl.moco_v3', 'ssl.lars',"
-        " 'cli.pretrain'):\n"
+        " 'cli.pretrain', 'tasks.predict', 'tasks.colormaps', 'cli.predict',"
+        " 'data.native_loader', 'data.augment'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
