@@ -145,13 +145,38 @@
    the JAX loop's ledger keys, the slots left; prints the driver's ms/step
    beside the bare MoCo step's, the saves' and loads' times and the slots'
    sizes.
-10. Exact warp: one classification (ViT-B/16, B=64) and one
+10. SSL finetune recipes: an MAE ViT-B and a MoCo v3 ViT-B export
+   written by the port's pretraining code (`build_pretraining`,
+   `PretrainRun.export`) from seeded init at full width, then through
+   `cli/train.py`'s config and `build_trainer`, B=64, two epochs over the
+   finetune driver's 320 synthetic images each: MAE's finetune recipe
+   (--checkpoint the MAE export, --layer-decay 0.65 --drop-path 0.1
+   --mixup 0.8 --cutmix 1.0 --smoothing 0.1 --aa rand-m9-mstd0.5-inc1
+   --reprob 0.25 --out-token global_pool), the MoCo v3 linear probe and
+   the MAE linear probe. The load must give every backbone tensor the
+   export holds, bitwise, and no other (global_pool's fc_norm and MAE's
+   buffer pos_embed stay); the launches, read around every train step,
+   12 attention forwards and 12 backwards in the MAE recipe and no
+   rotation, 12 forwards and no backward in the probes (their frozen
+   backbone takes no gradient); the probes' backbones bitwise unchanged
+   and only the head (and head_bn's statistics) moved; every mixed batch's
+   soft-target rows summing to 1 within 1e-6. A reference-format copy of
+   the MoCo export ({'state_dict': {'module.base_encoder.' + name}}, the
+   projector under `head.`) and `cli.convert`'s output of it must load to
+   the same backbone bitwise. One timm batch (B=64, float32) on the card
+   against the same draws on the CPU (the erasing noise copied across):
+   at most 0.1% of the values one uint8 level apart (a bilinear value at
+   .5 within the two devices' rounding, before the requantization), the
+   rest within 1e-5; and the transfer transforms on a 32 px CIFAR-shaped
+   batch within 1e-5. Prints each recipe's ms/step after epoch 1 and the
+   timm stack's ms per batch.
+11. Exact warp: one classification (ViT-B/16, B=64) and one
    segmentation (ViT-B + DPT, B=48) full step with `exact=True`, factors
    from a host generator: no rotation launch, 12 + 12 attention launches
    each, and every warp on the card (`affine_sample`'s one-pass nearest
    gather, bf16) equal element for element to the same op on the CPU at
    the same matrix.
-11. Detection driver: 24 Kvasir-like frames written as JPEGs in the Kvasir
+12. Detection driver: 24 Kvasir-like frames written as JPEGs in the Kvasir
    layout (`images/`, `bounding-boxes.json`; `split_ids`: 20 train, 2
    val, 2 test) and `build_trainer` on a `cli/train.py --task detection`
    command line: the ViT-B detector (1024 px, fixed placement, B=4, the
@@ -173,9 +198,10 @@
    placement, no kernel). Prints the driver's ms/step beside the bare
    steps', ms per eval batch, the host copies, the save, the slot's bytes,
    the resume's load and peak memory.
-12. Prints the card's name and power limit, one JSON line of per-kernel
+13. Prints the card's name and power limit, one JSON line of per-kernel
    results (the detection kernels' rows also carry the detection driver's
-   launches per train step and per eval batch), then the last line
+   launches per train step and per eval batch, #1/#2's the recipes' per
+   train step), then the last line
    `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
     python3 chip_smoke.py --profile DIR
@@ -195,6 +221,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import functools
 import io
 import json
@@ -216,16 +243,26 @@ from ssl4gie_tpu_torch.benchmarks import bench_rotate as brot
 from ssl4gie_tpu_torch.benchmarks import bench_window_kernel as bwk
 from ssl4gie_tpu_torch.cli import args as targs
 from ssl4gie_tpu_torch.cli import evaluate as cli_evaluate
+from ssl4gie_tpu_torch.cli import convert as cli_convert
 from ssl4gie_tpu_torch.cli import pretrain as cli_pretrain
 from ssl4gie_tpu_torch.core.config import (Architecture, DataConfig,
                                            PretrainConfig, Task)
 from ssl4gie_tpu_torch.core.schedule import cosine_momentum
 from ssl4gie_tpu_torch.core.train_state import make_adamw
+from ssl4gie_tpu_torch.convert.loaders import load_vit_encoder
+from ssl4gie_tpu_torch.core.checkpoint import host_copy
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
-from ssl4gie_tpu_torch.data.augment import eval_batch, normalize
+from ssl4gie_tpu_torch.data.augment import (IMAGENET_STD, eval_batch,
+                                            normalize)
+from ssl4gie_tpu_torch.data.loader import SyntheticSource
+from ssl4gie_tpu_torch.data.randaug import (erasing_noise, sample_timm_params,
+                                            timm_train_batch)
 from ssl4gie_tpu_torch.data.ssl_augment import (mae_augment, moco_two_crops,
                                                 sample_mae_params,
                                                 sample_moco_params)
+from ssl4gie_tpu_torch.data.transfer import (sample_transfer_params,
+                                            transfer_eval_batch,
+                                            transfer_train_batch)
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels import attention_variants as av
 from ssl4gie_tpu_torch.kernels import dense_attention as da
@@ -2305,6 +2342,299 @@ def pretrain_driver_path(card: str) -> dict:
     return {f"{name}_pretrain": n for name, n in ran.items()}
 
 
+# the SSL finetune recipes through `cli/train.py`'s config and
+# `build_trainer`, at full ViT-B width, B = 64, over the finetune driver's
+# 320 synthetic images (5 train steps, 5 val and 5 test batches an epoch),
+# two epochs, each from an export of the port's pretraining code
+RECIPE_EPOCHS = 2
+RECIPES = {
+    # MAE's FINETUNE.md recipe for ViT-B
+    "mae_finetune": ("mae", [
+        "--pretraining", "Hyperkvasir", "--ss-framework", "mae",
+        "--layer-decay", "0.65", "--drop-path", "0.1", "--mixup", "0.8",
+        "--cutmix", "1.0", "--smoothing", "0.1", "--aa",
+        "rand-m9-mstd0.5-inc1", "--reprob", "0.25", "--out-token",
+        "global_pool"]),
+    "moco_probe": ("mocov3", ["--probe", "--pretraining", "Hyperkvasir",
+                              "--ss-framework", "mocov3"]),
+    "mae_probe": ("mae", ["--probe", "--pretraining", "Hyperkvasir",
+                          "--ss-framework", "mae"]),
+}
+# backbone tensors an export does not give: MAE's fixed sin-cos position
+# embedding is a buffer of the MAE model (the classifier's sin-cos init is
+# the same values), and the global_pool recipe's fc_norm starts fresh
+# while the export's `norm` goes unused (`Models/mae/models_vit.py:28-31`)
+RECIPE_UNLOADED = {"mae_finetune": {"pos_embed", "fc_norm.weight",
+                                    "fc_norm.bias"},
+                   "moco_probe": set(), "mae_probe": {"pos_embed"}}
+# one timm batch on the card against the CPU: the share of values allowed
+# one uint8 level apart (PIL's requantization floor(v + 0.5) of a bilinear
+# value at .5 within the rounding of the two devices' arithmetic), the rest
+# within TIMM_TOL; every soft-target row sums to 1 within SOFT_SUM_TOL
+TIMM_LEVEL_SHARE, TIMM_TOL, SOFT_SUM_TOL = 1e-3, 1e-5, 1e-6
+TRANSFER_TOL = 1e-5       # the transfer transforms, card against CPU
+TRANSFER_B, TRANSFER_HW = 64, 32
+
+
+def recipe_config(flags, ckpt_dir: str, checkpoint: str):
+    """The port's TrainConfig of a recipe, as `cli/train.py` makes it."""
+    p = argparse.ArgumentParser()
+    targs.add_common(p)
+    targs.add_train(p)
+    cfg = targs.to_train_config(p.parse_args(
+        DRIVER_ARGV + flags + ["--epochs", str(RECIPE_EPOCHS),
+                               "--ckpt-dir", ckpt_dir,
+                               "--checkpoint", checkpoint]))
+    cfg.data.synthetic_size = DRIVER_SYNTHETIC
+    cfg.runtime.log_every = DRIVER_SYNTHETIC // B   # once an epoch
+    return cfg
+
+
+def write_exports(tmp: str) -> dict:
+    """An MAE ViT-B and a MoCo v3 ViT-B export, each written by the port's
+    pretraining code (`build_pretraining`, `PretrainRun.export`) from its
+    seeded init at full width. Returns {framework: path}."""
+    paths = {}
+    for fw in ("mae", "mocov3"):
+        run = build_pretraining(pretrain_config(fw, "vit_b", tmp, MOCO_B))
+        run.export(0)
+        paths[fw] = run.ckpt.path
+        del run
+    torch.cuda.empty_cache()
+    return paths
+
+
+def moco_reference_copy(export: str, path: str) -> None:
+    """The MoCo export in the reference's format: {'state_dict':
+    {'module.base_encoder.' + timm name: tensor}}, the projector under
+    `head.` as the reference's base encoder holds it."""
+    params = torch.load(export, weights_only=True)["params"]
+    sd = {}
+    for k, v in params.items():
+        name = (k.removeprefix("backbone.") if k.startswith("backbone.")
+                else "head." + k.removeprefix("projector."))
+        sd["module.base_encoder." + name] = v
+    torch.save({"state_dict": sd, "epoch": 0, "arch": "vit_base"}, path)
+
+
+def zeroed_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of `module` with every parameter and buffer zero."""
+    clone = copy.deepcopy(module)
+    with torch.no_grad():
+        for t in clone.state_dict().values():
+            t.zero_()
+    return clone
+
+
+def check_same_backbone(what: str, a: torch.nn.Module,
+                        b: torch.nn.Module) -> None:
+    for (k, v), w in zip(a.state_dict().items(), b.state_dict().values(),
+                         strict=True):
+        if not torch.equal(v, w):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def recipe_run(name: str, export: str, tmp: str, card: str) -> dict:
+    """One recipe: build (the load checked complete and bitwise), two
+    epochs of `fit` with the launches read around every train step; the
+    probes' backbones bitwise unchanged and only their head (and head_bn's
+    statistics) moved; the soft-target rows. Returns the model, the count
+    loaded, the per-step launches, the train steps and eval batches run and
+    the epoch-2 step time."""
+    fw, flags = RECIPES[name]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer = build_trainer(recipe_config(flags, tmp, export))
+    print(out.getvalue(), end="", flush=True)
+    n = int(re.search(r"Loaded (\d+) converted tensors", out.getvalue())[1])
+    model = trainer.model
+    params = torch.load(export, weights_only=True)["params"]
+    if fw == "mocov3":
+        params = {k.removeprefix("backbone."): v for k, v in params.items()
+                  if k.startswith("backbone.")}
+    bb = model.backbone.state_dict()
+    if set(bb) - set(params) != RECIPE_UNLOADED[name] or \
+            n != len(set(bb) & set(params)):
+        raise AssertionError(f"[{name}] loaded {n} of the export's "
+                             f"{len(params)} tensors; not loaded "
+                             f"{sorted(set(bb) - set(params))}")
+    for k in set(bb) & set(params):
+        if not torch.equal(bb[k], params[k].to(bb[k].device)):
+            raise AssertionError(f"[{name}] {k} is not the export's")
+    before = host_copy(model.state_dict())
+
+    per_step, soft_err = [], []
+    full_step = trainer.full_step
+
+    def counted(*args, **kwargs):
+        was = {k: fn.launches for k, fn in COUNTERS.items()}
+        result = full_step(*args, **kwargs)
+        per_step.append({k: fn.launches - was[k]
+                         for k, fn in COUNTERS.items()
+                         if fn.launches != was[k]})
+        return result
+
+    trainer.full_step = counted
+    mixup_fn = trainer.task.mixup_fn
+    if mixup_fn is not None:
+        def checked(img, labels, gen):
+            img, tgt = mixup_fn(img, labels, gen)
+            soft_err.append((tgt.sum(1) - 1).abs().max())
+            return img, tgt
+        trainer.task.mixup_fn = checked
+    trainer.fit()
+    depth = len(model.backbone.blocks)
+    want = {"dense_attention_fwd": depth}
+    if name == "mae_finetune":
+        want["dense_attention_bwd"] = depth      # no rotation: timm stack
+    if any(s != want for s in per_step):
+        raise AssertionError(f"[{name}] launches per train step "
+                             f"{per_step} != {want}")
+    if soft_err:
+        err = float(torch.stack(soft_err).max())
+        if err > SOFT_SUM_TOL:
+            raise AssertionError(f"[{name}] soft-target rows sum to 1 +- "
+                                 f"{err}")
+        print(f"[recipes] {name}: every batch's soft-target rows sum to 1 "
+              f"within {err:.2e} (tol {SOFT_SUM_TOL})", flush=True)
+    after = model.state_dict()
+    if name != "mae_finetune":
+        moved = sorted(k for k, v in after.items()
+                       if not torch.equal(v.cpu(), before[k]))
+        want_moved = ["lin_head.bias", "lin_head.weight"]
+        if fw == "mae":
+            want_moved = ["head_bn.running_mean", "head_bn.running_var",
+                          *want_moved]
+        if moved != want_moved:
+            raise AssertionError(f"[{name}] moved {moved} != {want_moved}")
+    ledger = [json.loads(ln) for ln in
+              Path(trainer.logger.jsonl_path).read_text().splitlines()]
+    train = [p for p in ledger if "step" in p]
+    if len(train) != RECIPE_EPOCHS or not all(
+            np.isfinite([p["loss"] for p in train])):
+        raise AssertionError(f"[{name}] losses {train}")
+    steps = len(per_step)
+    evals = RECIPE_EPOCHS * (len(trainer.val_loader)
+                             + len(trainer.test_loader))
+    print(f"[recipes] {name}: loaded {n} tensors of the export bitwise "
+          f"(not loaded: {sorted(RECIPE_UNLOADED[name]) or 'none'}); "
+          f"{steps} train steps, launches per step {per_step[0]}; "
+          f"epoch 2 step_time_ms {train[-1]['step_time_ms']:.2f}, "
+          f"images_per_sec {train[-1]['images_per_sec']:.1f} (the Loader "
+          f"and the copies included), losses "
+          f"{[round(p['loss'], 4) for p in train]}  [{card}]", flush=True)
+    return {"model": model, "n": n, "steps": steps, "evals": evals,
+            "depth": depth, "per_step": per_step[0],
+            "ms": train[-1]["step_time_ms"]}
+
+
+def timm_card_vs_cpu(card: str) -> None:
+    """One timm batch (B = 64, 224 px, the recipe's policy and erasing) on
+    the card against the same batch on the CPU, the same draws and the
+    card's erasing noise copied across; its device ms per batch."""
+    src = SyntheticSource(B, IMG, seed=SEED)
+    img = torch.from_numpy(np.stack([src.get(i)["image"]
+                                     for i in range(B)]))
+    params = sample_timm_params(B, IMG, torch.Generator().manual_seed(SEED),
+                                "rand-m9-mstd0.5-inc1", 0.25)
+    noise = erasing_noise((B, IMG, IMG, 3), params["noise_seed"], "cuda")
+    gpu = timm_train_batch(img.cuda(), params, IMG, noise=noise)
+    cpu = timm_train_batch(img, params, IMG, noise=noise.cpu())
+    if gpu.dtype != torch.float32:
+        raise AssertionError(f"timm batch dtype {gpu.dtype}")
+    diff = (gpu.cpu() - cpu).abs()
+    level = 1.0 / 255.0 / min(IMAGENET_STD)
+    share = float((diff > TIMM_TOL).float().mean())
+    if share > TIMM_LEVEL_SHARE or float(diff.max()) > level * 1.001:
+        raise AssertionError(f"timm batch: {share:.2e} of the values off, "
+                             f"max {float(diff.max()):.4g}")
+    img_gpu = img.cuda()
+    ms = cuda_ms(lambda: timm_train_batch(img_gpu, params, IMG), runs=10)
+    print(f"[recipes] timm stack (RRC + flip + RandAugment m9 mstd0.5 inc1 "
+          f"x2 + erasing 0.25, float32) at ({B}, {IMG}, {IMG}, 3): card "
+          f"against CPU, {share:.2e} of the values off by at most one "
+          f"level (max {float(diff.max()):.4g}; allowed share "
+          f"{TIMM_LEVEL_SHARE}); {ms:.3f} ms per batch on the card (draws "
+          f"on the host, copies included)  [{card}]", flush=True)
+
+
+def transfer_card_vs_cpu(card: str) -> None:
+    """One `transfer_train_batch` at injected draws and one
+    `transfer_eval_batch` on a 32 px CIFAR-shaped batch, on the card
+    against the CPU."""
+    img = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (TRANSFER_B, TRANSFER_HW, TRANSFER_HW, 3), dtype=np.uint8))
+    params = sample_transfer_params(TRANSFER_B, TRANSFER_HW,
+                                    torch.Generator().manual_seed(SEED))
+    errs = {}
+    for what, fn in (("train", lambda x: transfer_train_batch(x, params,
+                                                               IMG)),
+                     ("eval", lambda x: transfer_eval_batch(x, IMG))):
+        gpu, cpu = fn(img.cuda()), fn(img)
+        errs[what] = float((gpu.cpu() - cpu).abs().max())
+        if gpu.shape != (TRANSFER_B, IMG, IMG, 3) or \
+                errs[what] > TRANSFER_TOL:
+            raise AssertionError(f"transfer {what}: {tuple(gpu.shape)}, "
+                                 f"max |card - CPU| {errs[what]}")
+    print(f"[recipes] transfer transforms on ({TRANSFER_B}, {TRANSFER_HW}, "
+          f"{TRANSFER_HW}, 3) -> {IMG} px, card against CPU: max |diff| "
+          f"train {errs['train']:.2e}, eval {errs['eval']:.2e} (tol "
+          f"{TRANSFER_TOL})  [{card}]", flush=True)
+
+
+def recipes_path(card: str) -> dict:
+    """The SSL finetune recipes at full width: the two exports, then the
+    MAE finetune recipe and the two probes through `build_trainer` and
+    `fit` (`recipe_run`); a reference-format copy of the MoCo export and
+    `cli.convert`'s output of it loaded to the same backbone, bitwise; the
+    timm stack and the transfer transforms on the card against the CPU.
+    Checks every kernel counter over the phase. Returns the launch counts
+    keyed `<kernel>_recipes` and the per-step ones keyed
+    `<kernel>_recipe_<name>_step`."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_recipes_") as tmp:
+        exports = write_exports(tmp)
+        for name in RECIPES:
+            runs[name] = recipe_run(name, exports[RECIPES[name][0]],
+                                    os.path.join(tmp, name), card)
+            if name == "moco_probe":
+                ref = os.path.join(tmp, "moco_reference.pth.tar")
+                moco_reference_copy(exports["mocov3"], ref)
+                conv = os.path.join(tmp, "moco_converted.pt")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli_convert.main(["--input", ref, "--output", conv])
+                # the probe left the loaded backbone bitwise as it was
+                backbone = runs[name]["model"].backbone
+                for what, path in (("reference copy", ref),
+                                   ("cli.convert output", conv)):
+                    clone = zeroed_copy(backbone)
+                    n = load_vit_encoder(path, clone)
+                    if n != runs[name]["n"]:
+                        raise AssertionError(f"MoCo {what}: {n} tensors "
+                                             f"loaded, not {runs[name]['n']}")
+                    check_same_backbone(f"MoCo {what}", clone, backbone)
+                    print(f"[recipes] MoCo export as a {what}: {n} tensors, "
+                          "the same backbone bitwise", flush=True)
+                    del clone
+            runs[name].pop("model")
+            torch.cuda.empty_cache()
+    total_fwd = sum(r["depth"] * (r["steps"] + r["evals"])
+                    for r in runs.values())
+    total_bwd = sum(r["depth"] * r["steps"] for r in runs.values()
+                    if "dense_attention_bwd" in r["per_step"])
+    ran = check_launches("recipes", {"dense_attention_fwd": total_fwd,
+                                     "dense_attention_bwd": total_bwd})
+    timm_card_vs_cpu(card)
+    transfer_card_vs_cpu(card)
+    out = {f"{k}_recipes": v for k, v in ran.items()}
+    for name, r in runs.items():
+        for k, v in r["per_step"].items():
+            out[f"{k}_recipe_{name}_step"] = v
+    return out
+
+
 # the detection driver: Kvasir-like frames (w, h) written as JPEGs in the
 # Kvasir layout, 24 of them (`split_ids`: 20 train, 2 val, 2 test, so 5
 # steps an epoch at B = DET_B); the two widest exceed the 1024 px canvas
@@ -3114,6 +3444,7 @@ def main() -> None:
               ("kernel A/B harnesses", harness_path),
               ("finetune driver", driver_path),
               ("pretrain driver", pretrain_driver_path),
+              ("SSL finetune recipes", recipes_path),
               ("exact affine", exact_affine_path),
               ("detection driver", det_driver_path)]
     results, launches = [], {}
@@ -3128,6 +3459,13 @@ def main() -> None:
               flush=True)
     for r in results:
         r["launches"] = launches[r["name"]]
+        # the SSL finetune recipes' launches of the same kernel per train
+        # step
+        per_recipe = {name: launches[key] for name in RECIPES
+                      if (key := f"{r['name']}_recipe_{name}_step")
+                      in launches}
+        if per_recipe:
+            r["recipe_launches_per_train_step"] = per_recipe
         # the detection driver's launches of the same kernel, per train
         # step and per eval batch
         for kind in ("step", "eval"):

@@ -1,8 +1,8 @@
 """CLI argument grammar (port of `ssl4gie_tpu/cli/args.py`): the JAX
 package's flags, defaults and dest names, which are the reference drivers'
 (README.md:81-119, `train_classification.py:372-411`) plus --task, and the
-port's `--device`. Flags the port does not run yet are parsed as there and
-raise in `TrainConfig.validate`."""
+port's `--device`. Flags the port does not run yet (`--tensor-parallel`,
+`--fsdp`) are parsed as there and raise in `TrainConfig.validate`."""
 
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ def add_common(p: argparse.ArgumentParser):
                    dest="checkpoint")
     p.add_argument("--frozen", action="store_true")
     p.add_argument("--probe", action="store_true",
-                   help="linear-probe protocol (not ported yet)")
+                   help="linear-probe protocol (MoCo v3 / MAE)")
     p.add_argument("--dataset", type=str, default="")
     p.add_argument("--data-root", type=str, default="", dest="data_root")
     p.add_argument("--batch-size", type=int, default=16, dest="batch_size")
@@ -59,17 +59,22 @@ def add_train(p: argparse.ArgumentParser):
     p.add_argument("--accum_iter", "--accum-iter", type=int, default=1,
                    dest="accum_iter")
     p.add_argument("--layer-decay", type=float, default=None,
-                   dest="layer_decay", help="not ported yet")
-    p.add_argument("--mixup", type=float, default=0.0, help="not ported yet")
-    p.add_argument("--cutmix", type=float, default=0.0, help="not ported yet")
+                   dest="layer_decay",
+                   help="layer-wise LR decay (MAE finetune recipe, 0.65)")
+    p.add_argument("--mixup", type=float, default=0.0,
+                   help="mixup alpha (MAE finetune recipe, 0.8)")
+    p.add_argument("--cutmix", type=float, default=0.0,
+                   help="cutmix alpha (MAE finetune recipe, 1.0)")
     p.add_argument("--smoothing", type=float, default=0.0,
-                   dest="label_smoothing", help="not ported yet")
+                   dest="label_smoothing",
+                   help="label smoothing (MAE finetune recipe, 0.1)")
     p.add_argument("--drop-path", "--drop_path", type=float, default=0.0,
                    dest="drop_path",
                    help="stochastic depth rate (ViT classification)")
-    p.add_argument("--aa", type=str, default=None, help="not ported yet")
+    p.add_argument("--aa", type=str, default=None,
+                   help="RandAugment policy, e.g. rand-m9-mstd0.5-inc1")
     p.add_argument("--reprob", type=float, default=0.0,
-                   help="not ported yet")
+                   help="random erasing probability (MAE recipe, 0.25)")
     p.add_argument("--ckpt-dir", type=str, default="Trained models",
                    dest="ckpt_dir")
     p.add_argument("--tensor-parallel", "--tp", type=int, default=1,

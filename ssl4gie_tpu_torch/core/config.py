@@ -5,7 +5,8 @@ The enums, `validate_combination` and the three config groups are the JAX
 package's, field for field, so that one command line gives the same
 fields in both packages. `RuntimeConfig.device` is the port's own: the
 card (`cuda`) unless the caller asks for the CPU. Options the port does
-not run yet raise `NotImplementedError` in `TrainConfig.validate` and
+not run yet (`--tensor-parallel`/`--fsdp`, and `--compute-dtype float32`
+on the card) raise `NotImplementedError` in `TrainConfig.validate` and
 `PretrainConfig.validate`, naming the ROADMAP item that ports them; none
 is ignored. `RuntimeConfig.scan_steps` and `donate_state` are read by
 nothing: the port's loops run one step at a time and torch has no
@@ -175,27 +176,8 @@ class TrainConfig:
                 and self.task != Task.CLASSIFICATION):
             raise ValueError("--aa/--reprob/--drop-path apply to "
                              "classification finetuning only")
-        self._reject_unported()
-        return self
-
-    def _reject_unported(self) -> None:
-        o = self.optim
-        recipe = {"--probe": self.probe, "--aa": bool(o.auto_augment),
-                  "--reprob": o.reprob > 0, "--mixup": o.mixup > 0,
-                  "--cutmix": o.cutmix > 0,
-                  "--smoothing": o.label_smoothing > 0,
-                  "--layer-decay": o.layer_decay is not None}
-        for flag, on in recipe.items():
-            if on:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet (ROADMAP queue 1 item 5, the "
-                    "SSL recipes)")
         _reject_unported_runtime(self.runtime)
-        if self.checkpoint or self.pretraining == Pretraining.IMAGENET_CLASS:
-            raise NotImplementedError("--checkpoint and --pretraining "
-                                      "ImageNet_class are not ported yet "
-                                      "(ROADMAP queue 1 item 7, checkpoint "
-                                      "ingestion)")
+        return self
 
     def run_name(self) -> str:
         """Checkpoint/log base name, the reference's scheme

@@ -3,6 +3,11 @@
 The JAX TrainState bundles params, optimizer state and `apply_gradients`; here
 the model's parameters are the float32 masters, `torch.optim.AdamW` holds the
 moments, and `apply_gradients` clips (when asked) and steps.
+
+A param group may carry an `lr_scale` (layer decay, `ssl/lr_decay.py`): its
+rate is the base rate times that scale. `get_lr` reads the base rate and
+`set_lr` writes the base rate times each group's scale, as the JAX
+package's injected rate sits before `scale_by_layer_decay`.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ def make_adamw(params: Iterable[torch.nn.Parameter],
     `adamw(..., mask=...)`: two param groups, the second with no decay).
     `grad_clip` is a global-norm bound applied by `apply_gradients` to the
     gradients of all groups together, as optax's `clip_by_global_norm`
-    before `adamw`; it is kept in each param group."""
+    before `adamw`; it is kept in each param group. `params` may be param
+    groups with an `lr_scale` each (layer decay)."""
     if decay_mask is not None:
         params = list(params)
         params = [{"params": [p for p in params if decay_mask(p)]},
@@ -38,18 +44,26 @@ def make_adamw(params: Iterable[torch.nn.Parameter],
                             weight_decay=weight_decay)
     for group in opt.param_groups:
         group["grad_clip"] = grad_clip
+    set_lr(opt, learning_rate)
     return opt
 
 
 def get_lr(optimizer: torch.optim.Optimizer) -> float:
-    return float(optimizer.param_groups[0]["lr"])
+    """The base learning rate (the first group's, over its `lr_scale`)."""
+    group = optimizer.param_groups[0]
+    return float(group.get("base_lr", group["lr"]))
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Set the learning rate of every param group (host-side, e.g. from a
-    plateau scheduler)."""
+    """Set the base learning rate (host-side, e.g. from a plateau
+    scheduler): each param group's rate becomes `lr` times its `lr_scale`
+    (1 when it has none)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if "lr_scale" in group:
+            group["base_lr"] = lr
+            group["lr"] = lr * group["lr_scale"]
+        else:
+            group["lr"] = lr
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer) -> None:
@@ -63,18 +77,24 @@ def apply_gradients(optimizer: torch.optim.Optimizer) -> None:
     optimizer.step()
 
 
-def freeze_body(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+def freeze(model: torch.nn.Module, trainable: Callable[[str], bool]
+           ) -> List[torch.nn.Parameter]:
     """The rule of `make_frozen_tx` (`ssl4gie_tpu/core/train_state.py:
-    121-132`; the reference freezes the encoder, `Models/models.py:
-    138-140`): every parameter whose name starts with FROZEN_PREFIXES stops
+    111-132`): every parameter whose name `trainable` rejects stops
     requiring a gradient; returns the others, the only ones to hand to the
     optimizer, so that frozen ones get neither an update nor weight decay
     and the global-norm clip sees only trainable gradients. BatchNorm
     running statistics are buffers, and still update in train mode."""
-    trainable = []
+    kept = []
     for name, p in model.named_parameters():
-        if name.startswith(FROZEN_PREFIXES):
-            p.requires_grad_(False)
+        if trainable(name):
+            kept.append(p)
         else:
-            trainable.append(p)
-    return trainable
+            p.requires_grad_(False)
+    return kept
+
+
+def freeze_body(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """--frozen: everything under FROZEN_PREFIXES is frozen (the reference
+    freezes the encoder, `Models/models.py:138-140`)."""
+    return freeze(model, lambda name: not name.startswith(FROZEN_PREFIXES))

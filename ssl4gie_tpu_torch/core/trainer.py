@@ -28,7 +28,9 @@ requeue), and images/s and step-time logging. It follows the JAX Trainer
 With `SSL4GIE_HOST_AUG=1` a classification epoch is augmented on the host
 by the C++ loader (`data/native_loader.py:augment_classification`, one
 seed a step from the epoch's generator) before the copy to the device, as
-the JAX Trainer's switch; a failed build of that library raises.
+the JAX Trainer's switch; a failed build of that library raises. A task
+with its own `aug_fn` or a `mixup_fn` (the SSL finetune recipes) always
+augments on the device.
 """
 
 from __future__ import annotations
@@ -71,6 +73,15 @@ class TaskDefinition:
     eval_kind: str = "batch_metric"     # batch_metric | accumulate_preds
     select_mode: str = "max"            # plateau/selection direction
     has_dropout: bool = False
+    # a replacement train transform, (img_u8, generator) -> normalized
+    # float32 image, over the aug_mode stack: the probe's RRC + hflip or
+    # the timm --aa/--reprob stack (`data/randaug.py`)
+    aug_fn: Optional[Callable] = None
+    # a train-time mixer after the augmentation, (img, targets, generator)
+    # -> (img, targets): label smoothing and mixup/cutmix
+    # (`Models/mae/main_finetune.py:219-226`); its targets are what loss_fn
+    # takes
+    mixup_fn: Optional[Callable] = None
 
 
 def make_train_step(task: TaskDefinition, accum_steps: int = 1):
@@ -110,12 +121,15 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
     """Returns full_step(model, optimizer, img_u8, targets, generator,
     model_generator=None): sample the augmentation from `generator`,
     augment the uint8 batch (and, for segmentation and depth, its (B, H, W,
-    1) mask or depth map with it) on its device, then take one train step,
+    1) mask or depth map with it) on its device (or run the task's
+    `aug_fn`), mix images and targets by its `mixup_fn` (drawing from
+    `generator` after the augmentation), then take one train step,
     whose dropout and stochastic depth draw from `model_generator` (by
     default `generator`). `exact` (the one-pass warp) and
     `per_image_jitter` default to `SSL4GIE_EXACT_AFFINE` and
     `SSL4GIE_PER_IMAGE_JITTER`, read here."""
-    if task.aug_mode not in ("classification", "segmentation", "depth"):
+    if task.aug_fn is None and task.aug_mode not in ("classification",
+                                                     "segmentation", "depth"):
         raise NotImplementedError(f"aug_mode {task.aug_mode!r}: only "
                                   "classification, segmentation and depth "
                                   "are ported")
@@ -127,7 +141,9 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
     def full_step(model, optimizer, img_u8, targets, generator,
                   model_generator=None):
         B = img_u8.shape[0]
-        if task.aug_mode == "segmentation":
+        if task.aug_fn is not None:
+            img = task.aug_fn(img_u8, generator)
+        elif task.aug_mode == "segmentation":
             params = sample_segmentation_params(B, img_u8.shape[1], generator,
                                                 per_image)
             img, targets = apply_segmentation(img_u8, targets, params, exact)
@@ -137,6 +153,8 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
         else:
             params = sample_classification_params(B, generator, per_image)
             img = apply_classification(img_u8, params, exact)
+        if task.mixup_fn is not None:
+            img, targets = task.mixup_fn(img, targets, generator)
         return step(model, optimizer, {"image": img, task.target_key: targets},
                     generator if model_generator is None else model_generator)
 
@@ -242,6 +260,8 @@ class Trainer:
         aug_gen, model_gen = self.generators(epoch)
         key = self.task.target_key
         host_aug = (self.task.aug_mode == "classification"
+                    and self.task.aug_fn is None
+                    and self.task.mixup_fn is None
                     and os.environ.get("SSL4GIE_HOST_AUG") == "1")
         if host_aug:
             seeds = torch.randint(0, 2**31 - 1, (n_steps,),

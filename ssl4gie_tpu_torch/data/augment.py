@@ -27,6 +27,7 @@ import itertools
 import math
 import os
 
+import numpy as np
 import torch
 
 from ssl4gie_tpu_torch.kernels.rotate import shear_rotate
@@ -363,13 +364,14 @@ def inverse_affine_matrix(angle_deg, translate, scale, shear_deg):
     return torch.stack([m00, m01, m02, m10, m11, m12], dim=-1)
 
 
-def affine_sample(img: torch.Tensor, matrix: torch.Tensor, fill: float,
+def affine_sample(img: torch.Tensor, matrix: torch.Tensor, fill,
                   mode: str = "nearest") -> torch.Tensor:
     """Warp (B, H, W, C) by per-image inverse matrices (B, 6) (centered
     output -> centered input coordinates): each output pixel reads its
     source point, nearest (round half to even) or bilinear over its four
-    neighbours; a read outside the image gives `fill`. The JAX package's
-    `affine_sample`, one gather per tap."""
+    neighbours; a read outside the image gives `fill`, a float or one
+    value per channel. The JAX package's `affine_sample`, one gather per
+    tap."""
     if mode not in ("nearest", "bilinear"):
         raise ValueError(f"mode {mode!r} not in ('nearest', 'bilinear')")
     B, H, W, C = img.shape
@@ -565,3 +567,62 @@ def apply_depth(img_u8: torch.Tensor, depth: torch.Tensor, params: dict):
     img, depth = _dense_photometric_flips(img_u8, depth,
                                           _on(params, img_u8.device))
     return img.to(torch.float32), depth
+
+
+# ---------------------------------------------------------------- mixup/cutmix
+
+def sample_mixup_params(generator: torch.Generator, H: int, W: int,
+                        mixup_alpha: float = 0.8, cutmix_alpha: float = 1.0,
+                        switch_prob: float = 0.5) -> dict:
+    """Draw one batch's mixer factors (timm `Mixup(mode="batch")`,
+    `Models/mae/main_finetune.py:219-226`): cutmix or mixup (a coin of
+    `switch_prob` when both alphas are positive), lam ~ Beta(alpha, alpha)
+    of the chosen one (1 when its alpha is 0), and the cutmix box centre
+    (cy, cx) uniform over the H x W pixels. Host scalars: lam comes from a
+    numpy generator seeded by one draw of `generator` (torch's Beta
+    sampler takes no generator), so every value is a function of the
+    generator's state."""
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                             device=generator.device).item())
+    coin, cy, cx = torch.rand((3,), generator=generator,
+                              device=generator.device).tolist()
+    use_cutmix = cutmix_alpha > 0 and (mixup_alpha <= 0
+                                       or coin < switch_prob)
+    alpha = cutmix_alpha if use_cutmix else mixup_alpha
+    lam = (float(np.random.default_rng(seed).beta(alpha, alpha))
+           if alpha > 0 else 1.0)
+    return {"use_cutmix": use_cutmix, "lam": lam,
+            "cy": min(int(cy * H), H - 1), "cx": min(int(cx * W), W - 1)}
+
+
+def cutmix_box(lam: float, cy: int, cx: int, H: int, W: int):
+    """The cutmix box (y0, y1, x0, x1) of Beta draw `lam` centred at (cy,
+    cx), clipped to the image, and lam corrected to the exact area kept,
+    in float32 as the JAX package computes them."""
+    ratio = np.sqrt(np.float32(1.0) - np.float32(lam))
+    cut_h, cut_w = int(np.float32(H) * ratio), int(np.float32(W) * ratio)
+    y0, y1 = np.clip([cy - cut_h // 2, cy + cut_h // 2], 0, H)
+    x0, x1 = np.clip([cx - cut_w // 2, cx + cut_w // 2], 0, W)
+    area = np.float32((y1 - y0) * (x1 - x0)) / np.float32(H * W)
+    return (int(y0), int(y1), int(x0), int(x1)), float(np.float32(1.0) - area)
+
+
+def mixup_cutmix(img: torch.Tensor, soft_targets: torch.Tensor,
+                 params: dict):
+    """Mix each sample of (B, H, W, C) `img` and (B, n) `soft_targets` with
+    its reverse-order partner (`flip(0)`) at the factors of `params`
+    (`sample_mixup_params`): mixup blends the images by lam; cutmix pastes
+    the partner's pixels into the clipped box and takes lam as the share
+    of pixels kept. The targets mix by that lam."""
+    partner = img.flip(0)
+    if params["use_cutmix"]:
+        (y0, y1, x0, x1), lam = cutmix_box(params["lam"], params["cy"],
+                                           params["cx"], img.shape[1],
+                                           img.shape[2])
+        mixed = img.clone()
+        mixed[:, y0:y1, x0:x1] = partner[:, y0:y1, x0:x1]
+    else:
+        lam = float(np.float32(params["lam"]))
+        mixed = lam * img + float(np.float32(1.0) - np.float32(lam)) * partner
+    one_m = float(np.float32(1.0) - np.float32(lam))
+    return mixed, lam * soft_targets + one_m * soft_targets.flip(0)

@@ -136,8 +136,12 @@ def random_resized_crop(img: torch.Tensor, box: torch.Tensor,
     box = box.to(device=img.device, dtype=torch.float32)
     x0, y0, w, h = box.unbind(1)
     xs = torch.arange(out_size, dtype=torch.float32, device=img.device)
-    src_x = x0[:, None] + xs[None, :] * (w / out_size)[:, None]
-    src_y = y0[:, None] + xs[None, :] * (h / out_size)[:, None]
+    # a tensor divisor: on the card, a Python-scalar divisor becomes a
+    # multiplication by its reciprocal, which rounds otherwise than the
+    # CPU's (and the JAX package's) division in half the cases
+    n = torch.full_like(w, out_size)
+    src_x = x0[:, None] + xs[None, :] * (w / n)[:, None]
+    src_y = y0[:, None] + xs[None, :] * (h / n)[:, None]
 
     def lerp(x, src, n_src, dim):
         i0, i1, f = _taps(src, n_src)

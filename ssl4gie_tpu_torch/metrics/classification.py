@@ -2,7 +2,9 @@
 
 meanF1/meanPrecision/meanRecall are per-class one-vs-rest with smooth=1e-8,
 averaged over classes, on the full prediction vector. The train loss is
-cross-entropy with optional per-class weights, computed in float32.
+cross-entropy with optional per-class weights, computed in float32; the MAE
+finetune recipe's is the soft-target cross-entropy over label-smoothed (and
+mixed) targets, and its evaluation reports accuracy@k.
 """
 
 from __future__ import annotations
@@ -52,3 +54,33 @@ def mean_recall(preds, targets, n_class: int, smooth: float = SMOOTH):
 
 def accuracy(preds, targets):
     return torch.mean((preds.reshape(-1) == targets.reshape(-1)).to(torch.float32))
+
+
+def smooth_one_hot(labels, n_class: int, smoothing: float = 0.0):
+    """Label-smoothed one-hot targets (B, n_class), float32: `smoothing /
+    n_class` off the label, `1 - smoothing + smoothing / n_class` on it
+    (timm's Mixup target transform, `Models/mae/main_finetune.py:219-226`)."""
+    off = smoothing / n_class
+    on = 1.0 - smoothing + off
+    out = torch.full((labels.shape[0], n_class), off, dtype=torch.float32,
+                     device=labels.device)
+    return out.scatter_(1, labels.long()[:, None], on)
+
+
+def soft_target_cross_entropy(logits, soft_targets):
+    """timm SoftTargetCrossEntropy in float32: the batch mean of
+    -sum(y * log_softmax(x)) (`main_finetune.py:251-254`)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return torch.mean(torch.sum(-soft_targets * logp, dim=-1))
+
+
+def accuracy_topk(logits, labels, ks=(1, 5)):
+    """timm-style accuracy@k in percent, one float32 scalar per k
+    (`engine_finetune.py:98-130`); k is capped at the class count."""
+    n_class = logits.shape[-1]
+    out = []
+    for k in ks:
+        top = torch.topk(logits, min(k, n_class), dim=-1).indices
+        hit = torch.any(top == labels.long()[:, None], dim=1)
+        out.append(100.0 * torch.mean(hit.to(torch.float32)))
+    return tuple(out)

@@ -88,25 +88,30 @@ def build_model(task: Task, architecture: Architecture, *,
                 framework: Optional[SSLFramework] = None,
                 out_token: str = "cls", img_size: int = 224,
                 dtype=torch.float32, drop_path: float = 0.0,
+                probe_bn: bool = False,
                 generator: torch.Generator | None = None, device=None,
                 **widths) -> nn.Module:
     """The model of `task` and `architecture`, as the JAX factory builds it,
     with weights drawn from `generator` and placed on `device` (the card
     unless given). `widths` narrow the model (depth, embed_dim, num_heads,
     DPT features and taps for the ViT; stage_sizes for the ResNet-50),
-    for tests."""
+    for tests. `probe_bn` adds the MAE linear probe's BatchNorm before the
+    ViT classifier's head."""
     pet = pos_embed_type_for(pretraining, framework)
     vit = architecture == Architecture.VIT_B
     if drop_path > 0 and not (vit and task == Task.CLASSIFICATION):
         # the reference threads drop_path_rate into the MAE finetune ViT
         # only (`Models/mae/main_finetune.py:229`)
         raise ValueError("--drop-path applies to ViT classification only")
+    if probe_bn and not (vit and task == Task.CLASSIFICATION):
+        raise ValueError("probe_bn applies to the ViT classifier only")
     kw = dict(dtype=dtype, generator=generator, device=device, **widths)
     if task == Task.CLASSIFICATION:
         if vit:
             return ViTClassifier(num_classes, out_token=out_token,
                                  pos_embed_type=pet, img_size=img_size,
-                                 drop_path_rate=drop_path, **kw)
+                                 drop_path_rate=drop_path, probe_bn=probe_bn,
+                                 **kw)
         return ResNetClassifier(num_classes, **kw)
     if task == Task.SEGMENTATION:
         if vit:

@@ -103,8 +103,9 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, src_grid: int,
                           dst_grid: int) -> torch.Tensor:
     """Resize the grid part of a (1, 1 + N, D) position embedding (cls row
     first) bilinearly with align_corners=True, as the reference does for
-    1024-px detection (14x14 -> 64x64). (The bicubic checkpoint-load variant
-    is not ported.)"""
+    1024-px detection (14x14 -> 64x64) and the JAX package for a pooled
+    image of another size than 224 px. (The reference's bicubic
+    checkpoint-load variant is not what the JAX package runs.)"""
     d = pos_embed.shape[-1]
     grid = resize_bilinear_ac(pos_embed[:, 1:].reshape(1, src_grid, src_grid,
                                                        d), dst_grid, dst_grid)

@@ -8,8 +8,11 @@ classifier puts them under `backbone.` beside `lin_head`.
 
 Ported so far:
 - mode "pooled" with out_token cls | spatial | global_pool and
-  pos_embed_type learned | sincos, at 224 px (the 14x14 + cls position grid
-  the embedding is stored at);
+  pos_embed_type learned | sincos, at any img_size that is a multiple of
+  the patch: the position embedding is stored at the 14x14 + cls grid of
+  224 px (so a 224 px checkpoint loads at any size) and, at another grid,
+  its grid part is interpolated bilinearly with align_corners at forward
+  time, as the JAX package does for pooled as for det mode;
 - mode "det" (ViTDet, any img_size that is a multiple of 16 * DET_WINDOW):
   no cls token and no `cls_token` parameter; the 14x14 position grid is
   interpolated bilinearly to the patch grid and its cls row dropped; blocks
@@ -22,7 +25,8 @@ Ported so far:
 - stem "conv" (`ConvStem`, MoCo v3's `vit_conv_*`) in place of the 16 x 16
   patch projection, under the same name `patch_embed`; its BatchNorms
   follow the module's train/eval mode.
-Other pooled or dense image sizes and the probe BatchNorm raise.
+Other dense image sizes raise. `ViTClassifier(probe_bn=True)` adds the MAE
+linear probe's non-affine BatchNorm `head_bn` before the head.
 """
 
 from __future__ import annotations
@@ -97,10 +101,10 @@ class ViTBackbone(nn.Module):
             raise ValueError(f"mode {mode!r} not in ('pooled', 'dense', "
                              "'det')")
         det = mode == "det"
-        if not det and img_size // patch_size != BASE_GRID:
+        if mode == "dense" and img_size // patch_size != BASE_GRID:
             raise NotImplementedError(
-                f"img_size {img_size}: only the {BASE_GRID}x{BASE_GRID} grid "
-                "(224 px) is ported; position-embedding interpolation is not")
+                f"img_size {img_size}: dense mode runs at the {BASE_GRID}x"
+                f"{BASE_GRID} grid (224 px) only")
         if stem not in ("patch", "conv"):
             raise ValueError(f"stem {stem!r} not in ('patch', 'conv')")
         if out_token not in OUT_TOKENS:
@@ -166,7 +170,10 @@ class ViTBackbone(nn.Module):
             x = layer_norm(x, self.norm, self.dtype)
             return x.reshape(B, gh, gw, C)
         cls = self.cls_token.to(self.dtype).expand(B, 1, C)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
+        pe = self.pos_embed
+        if (gh, gw) != (BASE_GRID, BASE_GRID):
+            pe = interpolate_pos_embed(pe.to(torch.float32), BASE_GRID, gh)
+        x = torch.cat([cls, x], dim=1) + pe.to(self.dtype)
         taps = []
         for i, blk in enumerate(self.blocks):
             x = blk(x, generator)
@@ -184,8 +191,9 @@ class ViTBackbone(nn.Module):
 
 
 class ViTClassifier(nn.Module):
-    """ViT backbone + linear head `lin_head`. The pooled feature, the head and
-    the logits are float32 whatever the compute dtype.
+    """ViT backbone + linear head `lin_head` (and with `probe_bn` the MAE
+    probe's `head_bn` before it). The pooled feature, the head and the
+    logits are float32 whatever the compute dtype.
 
     Weights are drawn from `generator` on the CPU (seed 0 when none is given),
     then moved to `device`: the card when none is given (no card raises;
@@ -198,15 +206,16 @@ class ViTClassifier(nn.Module):
                  embed_dim: int = 768, num_heads: int = 12,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if probe_bn:
-            raise NotImplementedError("probe_bn (linear-probe BatchNorm) is "
-                                      "not ported")
         device = default_device(device)
         self.backbone = ViTBackbone(img_size=img_size, embed_dim=embed_dim,
                                     depth=depth, num_heads=num_heads,
                                     out_token=out_token,
                                     pos_embed_type=pos_embed_type, dtype=dtype,
                                     drop_path_rate=drop_path_rate)
+        # the MAE probe's BatchNorm1d(affine=False, eps=1e-6) before the
+        # head (`main_linprobe.py:221-222`), flax semantics
+        self.head_bn = (BatchNorm(embed_dim, eps=1e-6, affine=False)
+                        if probe_bn else None)
         self.lin_head = nn.Linear(embed_dim, num_classes)
         self.reset_parameters(generator if generator is not None
                               else torch.Generator().manual_seed(0))
@@ -214,9 +223,13 @@ class ViTClassifier(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.backbone.reset_parameters(generator)
+        if self.head_bn is not None:
+            self.head_bn.reset_parameters()
         # flax Dense default: lecun_normal (truncated, fan_in), zero bias
         init_lecun(self.lin_head, self.lin_head.in_features, generator)
 
     def forward(self, x, generator: torch.Generator | None = None):
         feat = self.backbone(x, generator).to(torch.float32)
+        if self.head_bn is not None:
+            feat = self.head_bn(feat)
         return self.lin_head(feat)

@@ -261,17 +261,27 @@ class PretrainRun:
             "optimizer": self.optimizer.state_dict(),
             "step": self.step, "meta": {"epoch": epoch}})
 
+    def export(self, epoch: int, model_state: dict | None = None) -> None:
+        """Write the export of `epoch` (what `--checkpoint` loads): the
+        parameters under `export_prefix`, from `model_state` (a host copy
+        of the model's state dict) or the model."""
+        if not ckpt_lib.is_primary():
+            return
+        if model_state is None:
+            model_state = ckpt_lib.host_copy(self.model.state_dict())
+        n = len(self.export_prefix)
+        self.ckpt.save({"params": {
+            name[n:]: model_state[name]
+            for name, _ in self.model.named_parameters()
+            if name.startswith(self.export_prefix)},
+            "meta": {"epoch": epoch}})
+
     def save(self, epoch: int) -> None:
         """The export, the resume slot and the retained slot of `epoch`."""
         tree = self.state_tree(epoch)
         if not ckpt_lib.is_primary():
             return
-        n = len(self.export_prefix)
-        self.ckpt.save({"params": {
-            name[n:]: tree["model"][name]
-            for name, _ in self.model.named_parameters()
-            if name.startswith(self.export_prefix)},
-            "meta": {"epoch": epoch}})
+        self.export(epoch, tree["model"])
         self.resume_ckpt.save(tree)
         _retained_save(self.cfg, tree, epoch)
 

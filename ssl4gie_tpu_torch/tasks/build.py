@@ -3,7 +3,12 @@ build.py`): data discovery and the split, the model, the optimizer, the
 loss and metric wiring, the Loaders, the logger, the checkpoint and the
 plateau schedule, as each reference build() does
 (`train_classification.py:128-248`, `train_segmentation.py:125-223`,
-`train_depth.py:131-251`, `train_detection.py:169-300`)."""
+`train_depth.py:131-251`, `train_detection.py:169-300`), and the SSL
+finetune recipes of the JAX package (`tasks/build.py:69-118,198-240`): the
+pretrained load (`--checkpoint`, `--pretraining ImageNet_class`) before the
+optimizer is built, the linear probes (`--probe`), the timm augmentation
+(`--aa`, `--reprob`), label smoothing and mixup/cutmix with the soft-target
+loss, and AdamW with layer decay (`--layer-decay`)."""
 
 from __future__ import annotations
 
@@ -13,12 +18,17 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
-from ssl4gie_tpu_torch.core.config import Architecture, Task, TrainConfig
+from ssl4gie_tpu_torch.convert.loaders import (load_imagenet_supervised,
+                                               load_pretrained)
+from ssl4gie_tpu_torch.core.config import (Architecture, Pretraining,
+                                           SSLFramework, Task, TrainConfig)
 from ssl4gie_tpu_torch.core.logger import MetricsLogger
 from ssl4gie_tpu_torch.core.schedule import ReduceLROnPlateau
 from ssl4gie_tpu_torch.core.train_state import freeze_body, make_adamw
-from ssl4gie_tpu_torch.core.trainer import TaskDefinition, Trainer
-from ssl4gie_tpu_torch.data import discovery
+from ssl4gie_tpu_torch.core.trainer import (TaskDefinition, Trainer,
+                                            epoch_seed)
+from ssl4gie_tpu_torch.data import discovery, randaug
+from ssl4gie_tpu_torch.data.augment import mixup_cutmix, sample_mixup_params
 from ssl4gie_tpu_torch.data.loader import (ClassificationSource, DepthSource,
                                            Loader, SegmentationSource,
                                            SyntheticSource)
@@ -26,6 +36,8 @@ from ssl4gie_tpu_torch.data.splits import split_ids
 from ssl4gie_tpu_torch.metrics import classification as cls_metrics
 from ssl4gie_tpu_torch.models.factory import build_model
 from ssl4gie_tpu_torch.models.layers import default_device
+from ssl4gie_tpu_torch.ssl.lr_decay import layer_decay_groups
+from ssl4gie_tpu_torch.ssl.probe import make_probe_optimizer, reinit_head
 from ssl4gie_tpu_torch.tasks.depth import depth_task
 from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
                                                DetectionTrainer,
@@ -78,21 +90,57 @@ def _make_sources(cfg: TrainConfig):
     raise ValueError(f"no finetune sources for {cfg.task}")
 
 
+def make_mixer(n_class: int, mixup: float, cutmix: float,
+               smoothing: float) -> Callable:
+    """The MAE finetune recipe's mixer (`main_finetune.py:219-226`) as a
+    task's `mixup_fn`: labels -> label-smoothed one-hot targets, then, when
+    either alpha is positive, mixup/cutmix of images and targets at one
+    batch's draws from the generator."""
+    def mixer(img, labels, generator):
+        soft = cls_metrics.smooth_one_hot(labels, n_class, smoothing)
+        if mixup <= 0 and cutmix <= 0:
+            return img, soft
+        params = sample_mixup_params(generator, img.shape[1], img.shape[2],
+                                     mixup, cutmix)
+        return mixup_cutmix(img, soft, params)
+    return mixer
+
+
 def make_task_definition(cfg: TrainConfig, extras: dict, device
                          ) -> Tuple[TaskDefinition, Optional[Callable]]:
     """The task and, for classification, the finalizer of its accumulated
-    predictions (meanF1)."""
+    predictions (meanF1). Classification takes the probe's transform or
+    the timm stack as its `aug_fn`, and with --mixup/--cutmix/--smoothing
+    the mixer and the soft-target loss; evaluation keeps the int labels
+    and argmax meanF1."""
     if cfg.task == Task.CLASSIFICATION:
         n_class = extras["n_class"]
-        weights = torch.tensor(extras["class_weights"], dtype=torch.float32,
-                               device=device)
+        o = cfg.optim
+        size = cfg.data.img_size
+        aug_fn = None
+        if cfg.probe:
+            # RRC + hflip + normalize only (`main_lincls.py:273-274`,
+            # `main_linprobe.py:133-134`)
+            aug_fn = randaug.make_probe_aug(size)
+        elif o.auto_augment or o.reprob > 0:
+            aug_fn = randaug.make_timm_aug(size, o.auto_augment or "",
+                                           o.reprob)
+        mixup_fn = None
+        if o.mixup > 0 or o.cutmix > 0 or o.label_smoothing > 0:
+            mixup_fn = make_mixer(n_class, o.mixup, o.cutmix,
+                                  o.label_smoothing)
+            loss_fn = cls_metrics.soft_target_cross_entropy
+        else:
+            weights = torch.tensor(extras["class_weights"],
+                                   dtype=torch.float32, device=device)
+            loss_fn = functools.partial(cls_metrics.weighted_cross_entropy,
+                                        class_weights=weights)
         td = TaskDefinition(
             name="classification", aug_mode="classification",
-            target_key="label",
-            loss_fn=functools.partial(cls_metrics.weighted_cross_entropy,
-                                      class_weights=weights),
+            target_key="label", loss_fn=loss_fn,
             eval_kind="accumulate_preds", select_mode="max",
-            has_dropout=cfg.optim.drop_path > 0)   # stochastic depth draws
+            has_dropout=o.drop_path > 0,   # stochastic depth draws
+            aug_fn=aug_fn, mixup_fn=mixup_fn)
         return td, lambda preds, targets: cls_metrics.mean_f1(
             preds, targets, n_class)
     if cfg.task == Task.SEGMENTATION:
@@ -115,6 +163,7 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
 
     dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
              else torch.float32)
+    probe_bn = cfg.probe and cfg.ss_framework == SSLFramework.MAE
     model = build_model(cfg.task, cfg.architecture,
                         num_classes=extras.get("n_class", 1),
                         pretraining=cfg.pretraining,
@@ -123,13 +172,10 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
                         drop_path=cfg.optim.drop_path,
                         generator=torch.Generator().manual_seed(
                             cfg.runtime.seed),
-                        device=device, **widths)
-    # --frozen trains the heads/decoders only (the reference freezes the
-    # encoder with no_grad, `Models/models.py:138-140`)
-    params = freeze_body(model) if cfg.frozen else list(model.parameters())
+                        probe_bn=probe_bn, device=device, **widths)
+    load_backbone(cfg, model)
+    optimizer = make_optimizer(cfg, model)
     o = cfg.optim
-    optimizer = make_adamw(params, o.learning_rate, o.b1, o.b2, o.eps,
-                           o.adamw_weight_decay, grad_clip=o.grad_clip)
 
     bs, seed, threads = (cfg.data.batch_size, cfg.runtime.seed,
                          cfg.data.num_workers)
@@ -155,6 +201,42 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
                    epochs=cfg.epochs, accum_steps=o.accum_steps, seed=seed,
                    plateau=plateau, eval_finalize=finalize,
                    log_every=cfg.runtime.log_every)
+
+
+def load_backbone(cfg: TrainConfig, model: torch.nn.Module) -> None:
+    """The pretrained start: cfg.checkpoint, or the supervised ImageNet
+    file of `--pretraining ImageNet_class`, into the model's backbone
+    (`convert/loaders.py`); nothing for a random start."""
+    if cfg.checkpoint:
+        load_pretrained(cfg, model)
+    elif cfg.pretraining == Pretraining.IMAGENET_CLASS:
+        load_imagenet_supervised(cfg, model)
+
+
+# the probe head's re-init draws from its own seed, (seed, PROBE_STREAM)
+PROBE_STREAM = 7
+
+
+def make_optimizer(cfg: TrainConfig, model: torch.nn.Module
+                   ) -> torch.optim.Optimizer:
+    """The linear probe's optimizer on its re-initialised head
+    (`main_lincls.py:158-166,233-237`, `main_linprobe.py:219-252`), or
+    AdamW over the trainable parameters (the heads/decoders only with
+    --frozen, as the reference freezes the encoder, `Models/models.py:
+    138-140`), with --layer-decay in one param group per layer scale over
+    the backbone's depth."""
+    o = cfg.optim
+    if cfg.probe:
+        reinit_head(model, torch.Generator().manual_seed(
+            epoch_seed(cfg.runtime.seed, PROBE_STREAM)))
+        return make_probe_optimizer(cfg.ss_framework, model, o.learning_rate)
+    params = freeze_body(model) if cfg.frozen else list(model.parameters())
+    if o.layer_decay is not None:
+        blocks = getattr(getattr(model, "backbone", None), "blocks", ())
+        params = layer_decay_groups(model, depth=len(blocks) or 12,
+                                    decay=o.layer_decay, trainable=params)
+    return make_adamw(params, o.learning_rate, o.b1, o.b2, o.eps,
+                      o.adamw_weight_decay, grad_clip=o.grad_clip)
 
 
 def detection_canvas(cfg: TrainConfig) -> tuple[int, str]:
@@ -198,6 +280,8 @@ def _build_detection_trainer(cfg: TrainConfig, **widths) -> DetectionTrainer:
                             cfg.runtime.seed),
                         device=device,
                         **(SYNTHETIC_DET if d.synthetic else {}), **widths)
+    # the encoder lands in the ViTDet backbone or the RN50-FPN body
+    load_backbone(cfg, model)
     o = cfg.optim
     optimizer = make_adamw(model.parameters(), o.learning_rate, o.b1, o.b2,
                            o.eps, o.adamw_weight_decay, grad_clip=o.grad_clip)

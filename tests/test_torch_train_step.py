@@ -231,8 +231,10 @@ def test_port_imports_no_jax():
     detection, MAE, segmentation, ResNet-50 and depth modules, the
     detection evaluation's, the finetune driver's, the pretraining
     driver's (MoCo v3, LARS, the pretrain CLI), the predictors, the
-    predict CLI and the native loader among them, leaves jax, flax and
-    optax out of sys.modules."""
+    predict CLI, the native loader, the SSL recipes (RandAugment, layer
+    decay, the probes, the transfer datasets) and checkpoint ingestion (the
+    loaders, the facade, the convert CLI) among them, leaves jax, flax,
+    optax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -254,9 +256,12 @@ def test_port_imports_no_jax():
         " 'core.train_state', 'core.trainer', 'tasks.build', 'cli.train',"
         " 'tasks.evaluate', 'cli.evaluate', 'ssl.moco_v3', 'ssl.lars',"
         " 'cli.pretrain', 'tasks.predict', 'tasks.colormaps', 'cli.predict',"
-        " 'data.native_loader', 'data.augment'):\n"
+        " 'data.native_loader', 'data.augment', 'data.randaug',"
+        " 'data.transfer', 'ssl.lr_decay', 'ssl.probe',"
+        " 'convert.torch_names', 'convert.loaders', 'utils', 'cli.convert'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
-        "print(sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules))\n")
+        "print(sorted(m for m in ('jax', 'flax', 'optax', 'ssl4gie_tpu')"
+        " if m in sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -172,12 +172,16 @@ def test_init_std_matches_flax(init):
 
 
 def test_unported_options_raise():
-    """Options the port does not run raise; the conv stem is ported (its
-    test is in test_torch_moco.py) and an unknown stem raises."""
+    """Options the port does not run raise: dense mode at another size than
+    224 px; an unknown stem raises. The conv stem (test_torch_moco.py),
+    pooled sizes other than 224 px and the probe BatchNorm
+    (test_torch_ingest.py, test_torch_probe_lrd.py) are ported."""
     with pytest.raises(NotImplementedError):
-        ViTBackbone(img_size=256, depth=1, embed_dim=DIM, num_heads=HEADS)
+        ViTBackbone(img_size=256, mode="dense", depth=1, embed_dim=DIM,
+                    num_heads=HEADS)
     with pytest.raises(ValueError):
         ViTBackbone(stem="hybrid", depth=1, embed_dim=DIM, num_heads=HEADS)
-    with pytest.raises(NotImplementedError):
-        ViTClassifier(CLASSES, probe_bn=True, depth=1, embed_dim=DIM,
-                      num_heads=HEADS)
+    ViTBackbone(img_size=256, depth=1, embed_dim=DIM, num_heads=HEADS)
+    model = ViTClassifier(CLASSES, probe_bn=True, depth=1, embed_dim=DIM,
+                          num_heads=HEADS, device="cpu")
+    assert not list(model.head_bn.parameters())
