@@ -198,10 +198,25 @@
    placement, no kernel). Prints the driver's ms/step beside the bare
    steps', ms per eval batch, the host copies, the save, the slot's bytes,
    the resume's load and peak memory.
-13. Prints the card's name and power limit, one JSON line of per-kernel
+13. Multi-GPU (one card): (a) `build_trainer`'s ViT-B/16 classification
+   trainer (B=64) under DDP through NCCL at world size 1 (a FileStore
+   group) against the same trainer without a group, from the same
+   weights, batches and generators: 5 steps bitwise equal (losses and
+   parameters), 12 + 12 + 1 launches a step, both ms/step; (c) the ViT-B
+   detection step at 1024 px under DDP at world size 1, 8 + 8 + 4 + 4
+   launches a step; (b) two ranks on the one card over gloo with CUDA
+   tensors (`chip_smoke.py --mgpu-rank R`, spawned): the same trainer as
+   DP (32 images a rank), tensor-parallel over both ranks (#1/#2 on 6 of
+   the 12 heads a rank) and FSDP2, 3 steps each, 12 + 12 + 1 launches a
+   step on each rank and the first loss within 2^-6 of (a)'s; and MAE's
+   encoder MLP (B=256) through the fused route (#8/#9) under TP, 1536
+   hidden units a rank, one launch each way, within 2^-6 of the whole MLP
+   unfused. Per-rank launches and ms/step on their own lines.
+14. Prints the card's name and power limit, one JSON line of per-kernel
    results (the detection kernels' rows also carry the detection driver's
    launches per train step and per eval batch, #1/#2's the recipes' per
-   train step), then the last line
+   train step, and the multi-GPU phase's per step as `mgpu_<leg>_...`),
+   then the last line
    `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
     python3 chip_smoke.py --profile DIR
@@ -254,7 +269,7 @@ from ssl4gie_tpu_torch.core.checkpoint import host_copy
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, make_full_step
 from ssl4gie_tpu_torch.data.augment import (IMAGENET_STD, eval_batch,
                                             normalize)
-from ssl4gie_tpu_torch.data.loader import SyntheticSource
+from ssl4gie_tpu_torch.data.loader import SyntheticSource, prefetch_to_device
 from ssl4gie_tpu_torch.data.randaug import (erasing_noise, sample_timm_params,
                                             timm_train_batch)
 from ssl4gie_tpu_torch.data.ssl_augment import (mae_augment, moco_two_crops,
@@ -3217,6 +3232,284 @@ def det_driver_path(card: str) -> dict:
     return measured
 
 
+# ------------------------------------------------------------ multi-GPU
+
+MGPU_WARMUP, MGPU_TIMED = 2, 3      # (a): the driver's 5 train batches
+MGPU_RANK_STEPS = 3                 # (b): 1 warm-up + 2 timed, each leg
+MGPU_LOSS_TOL = 2 ** -6             # a bf16 step's loss, relative
+# the two-rank legs: DDP, tensor parallelism over both ranks, FSDP2 (gloo
+# carries FSDP's reduce-scatter and all-gather on CUDA tensors)
+MGPU_LEGS = {"dp": {}, "tp2": {"tensor_parallel": 2}, "fsdp": {"fsdp": True}}
+MGPU_TIMEOUT = 600
+
+
+def mgpu_steps(trainer, n_steps: int, warmup: int):
+    """`n_steps` full steps of `trainer` on its first train batches at
+    epoch 1's generators; (losses, ms/step over the steps after
+    `warmup`, launches per step of every kernel that ran)."""
+    dev = trainer.device
+    aug_gen, model_gen = trainer.generators(1)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    losses = []
+    it = prefetch_to_device(trainer.train_loader.epoch(1), dev)
+    for step in range(n_steps):
+        if step == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        batch = next(it)
+        losses.append(trainer.full_step(trainer.model, trainer.optimizer,
+                                        batch["image"], batch["label"],
+                                        aug_gen, model_gen)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (n_steps - warmup) * 1e3
+    per_step = {name: fn.launches / n_steps for name, fn in COUNTERS.items()
+                if fn.launches}
+    return [float(x) for x in losses], ms, per_step
+
+
+def mgpu_expect(tag: str, per_step: dict, want: dict) -> None:
+    print(f"[mgpu] {tag}: launches per step {per_step} (expected {want})",
+          flush=True)
+    if per_step != want:
+        raise AssertionError(f"{tag}: the step did not run through the "
+                             f"kernels as expected: {per_step} != {want}")
+
+
+def mgpu_fused_mlp_tp() -> dict:
+    """MAE's encoder MLP (768 -> 3072 over MAE_B x 50 tokens, bf16) through
+    the fused route (#8/#9) under TP over the two ranks, 1536 hidden units
+    a rank with a zero fc2 bias and the bias added after the sum, against
+    the whole MLP unfused (cuBLAS) on the same input: the output's and the
+    input gradient's largest error relative to the largest value, and the
+    launches."""
+    from torch import nn
+    from ssl4gie_tpu_torch.parallel.tp import make_place_fn, make_tp_mesh
+    dev = torch.device("cuda")
+    whole = layers.Mlp(768, 3072, dtype=torch.bfloat16)
+    whole.reset_parameters(torch.Generator().manual_seed(SEED))
+    model = nn.Module()
+    model.blocks = nn.ModuleList([nn.Module()])
+    model.blocks[0].mlp = copy.deepcopy(whole)
+    whole.to(dev)
+    make_place_fn(make_tp_mesh(2), tp=True)(model.to(dev))
+    x = torch.randn((MAE_B, 50, 768), generator=torch.Generator().manual_seed(
+        SEED + 1)).to(dev, torch.bfloat16)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    fused, layers.FUSED_MLP = layers.FUSED_MLP, True
+    try:
+        xt = x.clone().requires_grad_()
+        y = model.blocks[0].mlp(xt)
+        y.float().square().mean().backward()
+    finally:
+        layers.FUSED_MLP = fused
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in COUNTERS.items()
+                if fn.launches}
+    xr = x.clone().requires_grad_()
+    yr = whole(xr)
+    yr.float().square().mean().backward()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    return {"launches": launches, "err_y": rel(y, yr),
+            "err_dx": rel(xt.grad, xr.grad),
+            "hidden": model.blocks[0].mlp.fc1.weight.shape[0]}
+
+
+def mgpu_worker(rank: int, port: int, out: str) -> None:
+    """One of two ranks on the one card, over gloo with CUDA tensors: the
+    classification trainer of (a) built by `build_trainer` under a group
+    of two, as DP (32 images a rank of the global 64), as TP over two
+    ranks (6 heads a rank, the whole batch) and as FSDP2 (32 images a
+    rank), a few steps each; writes the losses, ms/step and launches per
+    step to `out`."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    res = {}
+    for leg, runtime in MGPU_LEGS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = driver_config(tmp, 1)
+            for k, v in runtime.items():
+                setattr(cfg.runtime, k, v)
+            trainer = build_trainer(cfg)
+            losses, ms, per_step = mgpu_steps(trainer, MGPU_RANK_STEPS, 1)
+            heads = {m.num_heads // m.tp_size for m in trainer.model.modules()
+                     if isinstance(m, layers.Attention)}
+            res[leg] = {"losses": losses, "ms": ms, "launches": per_step,
+                        "heads_per_rank": sorted(heads),
+                        "model": type(trainer.model).__name__}
+            del trainer
+            torch.cuda.empty_cache()
+    res["fused_mlp_tp2"] = mgpu_fused_mlp_tp()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def multi_gpu_path(card: str) -> dict:
+    """(a) DDP through NCCL at world size 1: `build_trainer`'s ViT-B/16
+    classification trainer (B=64) under a one-rank group, against the
+    same trainer without a group, on the same weights, batches and
+    generators; (c) the ViT-B detection step at 1024 px under DDP at
+    world size 1; (b) two ranks on the one card over gloo (DP, TP and
+    FSDP legs, `mgpu_worker`), held to (a)'s world-size-1 step."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+    from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
+    from ssl4gie_tpu_torch.core.mesh import make_mesh
+    from ssl4gie_tpu_torch.parallel.tp import make_place_fn
+    n_steps = MGPU_WARMUP + MGPU_TIMED
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = build_trainer(driver_config(tmp, 1))
+        depth = len(plain.model.backbone.blocks)
+        want = {"dense_attention_fwd": depth, "dense_attention_bwd": depth,
+                "shear_rotate": 1}
+        p_losses, p_ms, p_launch = mgpu_steps(plain, n_steps, MGPU_WARMUP)
+        mgpu_expect("(a) no group", p_launch, want)
+        p_state = host_copy(plain.model.state_dict())
+        del plain
+        torch.cuda.empty_cache()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            ddp = build_trainer(driver_config(tmp, 1))
+            if not isinstance(ddp.model, DistributedDataParallel):
+                raise AssertionError(f"not DDP: {type(ddp.model)}")
+            d_losses, d_ms, d_launch = mgpu_steps(ddp, n_steps, MGPU_WARMUP)
+            mgpu_expect("(a) DDP, NCCL, world 1", d_launch, want)
+            launches.update({f"{k}_mgpu_ddp": v for k, v in d_launch.items()})
+            d_state = ckpt_lib.state_dicts(ddp.model)[0]
+            del ddp
+            torch.cuda.empty_cache()
+            print(f"[mgpu] (a) losses without a group {p_losses}, under DDP "
+                  f"{d_losses}", flush=True)
+            diff = max((d_state[k].float() - v.float()).abs().max().item()
+                       for k, v in p_state.items())
+            same = d_losses == p_losses and diff == 0.0
+            print(f"[mgpu] (a) DDP at world size 1 against no group: "
+                  f"{'bitwise' if same else 'not bitwise'}; largest "
+                  f"parameter difference after {n_steps} steps {diff:.3g} "
+                  f"(DDP averages the gradient over one rank in its "
+                  f"buckets: the same sums)", flush=True)
+            if not same:
+                raise AssertionError(f"DDP at world size 1 differs: losses "
+                                     f"{d_losses} vs {p_losses}, {diff}")
+            print(f"[mgpu] (a) ViT-B/16 classification step, B={B}: "
+                  f"{p_ms:.2f} ms/step without a group, {d_ms:.2f} ms/step "
+                  f"under DDP (NCCL, world 1), mean of {MGPU_TIMED} after "
+                  f"{MGPU_WARMUP}  [{card}]", flush=True)
+
+            # (c) the detection step under DDP at world size 1
+            model, _, full_step, batch, gen = det_setup()
+            n_windowed = sum(b.attn.window_size is not None
+                             for b in model.backbone.blocks)
+            n_global = len(model.backbone.blocks) - n_windowed
+            model = make_place_fn(make_mesh(device="cuda"))(model)
+            optimizer = make_adamw(model.parameters(), LR)
+            for fn in COUNTERS.values():
+                fn.launches = 0
+            det_losses = []
+            for step in range(DET_WARMUP_STEPS + DET_TIMED_STEPS):
+                if step == DET_WARMUP_STEPS:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                det_losses.append(float(full_step(model, optimizer, batch,
+                                                  gen)["loss"]))
+            torch.cuda.synchronize()
+            det_ms = (time.perf_counter() - t0) / DET_TIMED_STEPS * 1e3
+            steps = DET_WARMUP_STEPS + DET_TIMED_STEPS
+            per_step = {name: fn.launches / steps
+                        for name, fn in COUNTERS.items() if fn.launches}
+            mgpu_expect("(c) ViT-B detection under DDP, world 1", per_step,
+                        {"window_attention_fwd": n_windowed,
+                         "window_attention_bwd": n_windowed,
+                         "flash_attention_fwd": n_global,
+                         "flash_attention_bwd": n_global})
+            launches.update({f"{k}_mgpu_det": v for k, v in per_step.items()})
+            if not all(np.isfinite(det_losses)):
+                raise AssertionError(f"non-finite detection loss "
+                                     f"{det_losses}")
+            print(f"[mgpu] (c) ViT-B Faster R-CNN {DET_IMG} px, B={DET_B}, "
+                  f"under DDP (NCCL, world 1): {det_ms:.2f} ms/step (bare "
+                  f"step {DET_MS_STEP.get('vit_b', float('nan')):.2f}), "
+                  f"losses {det_losses}  [{card}]", flush=True)
+            del model, optimizer
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # (b) two ranks on the one card over gloo
+        with socket_port() as port:
+            pass
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--mgpu-rank", str(r), "--mgpu-port",
+                                   str(port), "--mgpu-out", tmp])
+                 for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=MGPU_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if rcs != [0, 0]:
+            raise AssertionError(f"the two-rank legs failed: {rcs}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(2)]
+    for leg, runtime in MGPU_LEGS.items():
+        for r, res in enumerate(ranks):
+            got = res[leg]
+            mgpu_expect(f"(b) {leg} rank {r}", got["launches"], want)
+            launches.update({f"{k}_mgpu_{leg}": v
+                             for k, v in got["launches"].items()})
+            heads = HEADS // runtime.get("tensor_parallel", 1)
+            if got["heads_per_rank"] != [heads]:
+                raise AssertionError(f"{leg}: {got['heads_per_rank']} heads "
+                                     f"a rank, not {heads}")
+            err = abs(got["losses"][0] - p_losses[0]) / abs(p_losses[0])
+            print(f"[mgpu] (b) {leg} rank {r} ({got['model']}, "
+                  f"{got['heads_per_rank'][0]} heads a rank): losses "
+                  f"{got['losses']}, first against world 1's "
+                  f"{p_losses[0]:.6f}: rel {err:.3g}; {got['ms']:.2f} "
+                  f"ms/step (mean of {MGPU_RANK_STEPS - 1} after 1; both "
+                  f"ranks on one card, gloo through the host)  [{card}]",
+                  flush=True)
+            if not np.isfinite(got["losses"]).all() or err > MGPU_LOSS_TOL:
+                raise AssertionError(f"{leg} rank {r}: loss {got['losses']} "
+                                     f"vs {p_losses[0]}")
+    for r, res in enumerate(ranks):
+        got = res["fused_mlp_tp2"]
+        print(f"[mgpu] (b) fused MLP under TP, rank {r}: {got['hidden']} "
+              f"hidden units a rank, launches {got['launches']}, against "
+              f"the whole MLP unfused: output {got['err_y']:.3g}, input "
+              f"gradient {got['err_dx']:.3g} of the largest value",
+              flush=True)
+        if (got["launches"] != {"fused_mlp_fwd": 1, "fused_mlp_bwd": 1}
+                or got["hidden"] != 1536
+                or max(got["err_y"], got["err_dx"]) > MGPU_LOSS_TOL):
+            raise AssertionError(f"fused MLP under TP, rank {r}: {got}")
+        launches.update({f"{k}_encoder_mgpu_tp2_fused": v
+                         for k, v in got["launches"].items()})
+    return launches
+
+
+@contextlib.contextmanager
+def socket_port():
+    """A free TCP port on localhost (released on exit, for the ranks)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        yield s.getsockname()[1]
+
+
 def profile_steps(card: str, step, n_steps: int, out_dir: str, name: str):
     """torch.profiler over `n_steps` calls of `step` (after one warm-up
     call): writes the table of device time by kernel to out_dir/name, prints
@@ -3393,7 +3686,14 @@ def main() -> None:
                              "ViT and RN50 detection, MAE and MoCo vit_b "
                              "steps, a ViT detection eval batch and an epoch "
                              "of the finetune driver; the tables go to DIR")
+    # one rank of the multi-GPU phase's two-rank legs (`mgpu_worker`)
+    parser.add_argument("--mgpu-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mgpu-port", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--mgpu-out", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.mgpu_rank is not None:
+        mgpu_worker(args.mgpu_rank, args.mgpu_port, args.mgpu_out)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs only on a CUDA device")
@@ -3446,7 +3746,8 @@ def main() -> None:
               ("pretrain driver", pretrain_driver_path),
               ("SSL finetune recipes", recipes_path),
               ("exact affine", exact_affine_path),
-              ("detection driver", det_driver_path)]
+              ("detection driver", det_driver_path),
+              ("multi-GPU", multi_gpu_path)]
     results, launches = [], {}
     for name, phase in phases:
         t0 = time.perf_counter()
@@ -3472,6 +3773,10 @@ def main() -> None:
             key = f"{r['name'].removesuffix('_eval')}_det_driver_{kind}"
             if key in launches:
                 r[f"det_driver_launches_per_{kind}"] = launches[key]
+        # the multi-GPU phase's launches per step (per rank in (b))
+        for leg in ("ddp", "det", *MGPU_LEGS, "tp2_fused"):
+            if (key := f"{r['name']}_mgpu_{leg}") in launches:
+                r[f"mgpu_{leg}_launches_per_step"] = launches[key]
     if args.profile:
         profile_cls(card, args.profile)
         profile_dense("seg", card, args.profile)

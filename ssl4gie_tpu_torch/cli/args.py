@@ -1,8 +1,7 @@
 """CLI argument grammar (port of `ssl4gie_tpu/cli/args.py`): the JAX
 package's flags, defaults and dest names, which are the reference drivers'
 (README.md:81-119, `train_classification.py:372-411`) plus --task, and the
-port's `--device`. Flags the port does not run yet (`--tensor-parallel`,
-`--fsdp`) are parsed as there and raise in `TrainConfig.validate`."""
+port's `--device`."""
 
 from __future__ import annotations
 
@@ -78,8 +77,12 @@ def add_train(p: argparse.ArgumentParser):
     p.add_argument("--ckpt-dir", type=str, default="Trained models",
                    dest="ckpt_dir")
     p.add_argument("--tensor-parallel", "--tp", type=int, default=1,
-                   dest="tensor_parallel", help="1 only (not ported yet)")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+                   dest="tensor_parallel",
+                   help="Megatron-style tensor parallelism over this many "
+                        "GPUs (ViT tasks; must divide the head count)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP2: shard parameters, gradients and optimizer "
+                        "state over the data-parallel ranks")
 
 
 def to_train_config(args) -> TrainConfig:

@@ -7,7 +7,11 @@ and checks, plus `--device`.
   python -m ssl4gie_tpu_torch.cli.pretrain --framework mocov3 --arch vit_s \\
       --synthetic --device cpu --compute-dtype float32 --epochs 1
 
-Runs on the card unless `--device cpu`. On a preemption signal the process
+Runs on the card unless `--device cpu`; on N GPUs under torchrun (or
+SLURM / OpenMPI), one process each:
+  torchrun --nproc-per-node 2 -m ssl4gie_tpu_torch.cli.pretrain \\
+      --framework mae --arch vit_b --synthetic --batch-size 64 --tp 2
+On a preemption signal the process
 exits with code 42 (after the epoch's save, or mid-epoch without one);
 relaunching the same command resumes from the `.resume` slot.
 """
@@ -19,6 +23,7 @@ import argparse
 from ssl4gie_tpu_torch.core.config import (Architecture, DataConfig,
                                            PretrainConfig, RuntimeConfig,
                                            SSLFramework)
+from ssl4gie_tpu_torch.core.mesh import maybe_init_distributed
 from ssl4gie_tpu_torch.core.preempt import REQUEUE_EXIT_CODE, Preempted
 from ssl4gie_tpu_torch.ssl.pretrain import run_pretraining
 
@@ -66,8 +71,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = keep all, the reference behavior)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tensor-parallel", "--tp", type=int, default=1,
-                   dest="tensor_parallel", help="1 only (not ported yet)")
-    p.add_argument("--fsdp", action="store_true", help="not ported yet")
+                   dest="tensor_parallel",
+                   help="Megatron-style tensor parallelism over this many "
+                        "GPUs (ViT archs; must divide every head count)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="FSDP2: shard parameters, gradients and optimizer "
+                        "state over the data-parallel ranks")
     p.add_argument("--remat", action="store_true",
                    help="recompute MAE block activations in the backward "
                         "(torch.utils.checkpoint; memory lever for "
@@ -135,7 +144,9 @@ def run(cfg: PretrainConfig) -> str:
 
 def main(argv=None) -> str:
     p = build_parser()
-    return run(to_pretrain_config(p, p.parse_args(argv)))
+    args = p.parse_args(argv)
+    maybe_init_distributed(args.device)
+    return run(to_pretrain_config(p, args))
 
 
 if __name__ == "__main__":

@@ -4,11 +4,13 @@
 The enums, `validate_combination` and the three config groups are the JAX
 package's, field for field, so that one command line gives the same
 fields in both packages. `RuntimeConfig.device` is the port's own: the
-card (`cuda`) unless the caller asks for the CPU. Options the port does
-not run yet (`--tensor-parallel`/`--fsdp`, and `--compute-dtype float32`
-on the card) raise `NotImplementedError` in `TrainConfig.validate` and
-`PretrainConfig.validate`, naming the ROADMAP item that ports them; none
-is ignored. `RuntimeConfig.scan_steps` and `donate_state` are read by
+card (`cuda`) unless the caller asks for the CPU. `tensor_parallel`,
+`fsdp`, `mesh_shape` and `mesh_axes` lay out the ranks of a multi-GPU
+run (`tasks/build.py:make_run_mesh`, `parallel/tp.py`). The one option
+the port does not run yet, `--compute-dtype float32` on the card, raises
+`NotImplementedError` in `TrainConfig.validate` and
+`PretrainConfig.validate`, naming the ROADMAP item that ports it; none is
+ignored. `RuntimeConfig.scan_steps` and `donate_state` are read by
 nothing: the port's loops run one step at a time and torch has no
 buffer donation.
 """
@@ -129,10 +131,6 @@ class RuntimeConfig:
 
 
 def _reject_unported_runtime(runtime: RuntimeConfig) -> None:
-    if runtime.tensor_parallel > 1 or runtime.fsdp:
-        raise NotImplementedError("--tensor-parallel > 1 and --fsdp are not "
-                                  "ported yet (ROADMAP queue 1 item 6, "
-                                  "multi-GPU)")
     if runtime.compute_dtype == "float32" and runtime.device != "cpu":
         raise NotImplementedError("--compute-dtype float32 runs on the CPU "
                                   "only: the card's kernels take bfloat16 "

@@ -16,6 +16,8 @@ from typing import Callable, Iterable, List, Optional
 
 import torch
 
+from ssl4gie_tpu_torch.parallel.tp import clip_grad_norm, set_foreach
+
 # --frozen: parameters under these top-level names get no update and no
 # decay (the JAX package's trainable predicate, `tasks/build.py:259-262`)
 FROZEN_PREFIXES = ("backbone", "encoder")
@@ -40,8 +42,9 @@ def make_adamw(params: Iterable[torch.nn.Parameter],
         params = [{"params": [p for p in params if decay_mask(p)]},
                   {"params": [p for p in params if not decay_mask(p)],
                    "weight_decay": 0.0}]
-    opt = torch.optim.AdamW(params, lr=learning_rate, betas=(b1, b2), eps=eps,
-                            weight_decay=weight_decay)
+    opt = set_foreach(torch.optim.AdamW(params, lr=learning_rate,
+                                        betas=(b1, b2), eps=eps,
+                                        weight_decay=weight_decay))
     for group in opt.param_groups:
         group["grad_clip"] = grad_clip
     set_lr(opt, learning_rate)
@@ -68,10 +71,12 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 def apply_gradients(optimizer: torch.optim.Optimizer) -> None:
     """Clip the gradients of every param group by one global norm to
-    `grad_clip` (if set), then take one optimizer step."""
+    `grad_clip` (if set), then take one optimizer step. The norm is that
+    of the whole gradients, also where a placement holds shards of them
+    (FSDP over the data group, TP over the model group)."""
     bound = optimizer.param_groups[0].get("grad_clip")
     if bound is not None:
-        torch.nn.utils.clip_grad_norm_(
+        clip_grad_norm(
             [p for group in optimizer.param_groups for p in group["params"]],
             bound)
     optimizer.step()

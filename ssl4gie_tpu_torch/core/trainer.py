@@ -25,6 +25,18 @@ requeue), and images/s and step-time logging. It follows the JAX Trainer
   eager torch needs no static shape, and the masked sums of the JAX
   package's padded batches are the sums over the real rows;
 - the only per-step host sync is the loss read every `log_every` steps.
+Under data parallelism (a model placed by `parallel/tp.py:make_place_fn`)
+each rank trains on its rows of the global batch (`Loader(shard=)`), the
+samplers draw for the global batch and each rank keeps its rows
+(`distributed.draw_global`), so W ranks draw what one process draws; the
+backward reduces the gradients only after the last microbatch (DDP's
+`no_sync`, FSDP's gradient sync), the logged loss is the global one,
+evaluation gathers every rank's predictions or sums, so that the plateau
+and the best-val choice see one number on every rank, a preemption signal
+on any rank stops all of them at the same step, and the checkpoints hold
+the full state (`core/checkpoint.py:state_dicts`), written by rank 0.
+`aug_mode="none"` normalizes the uint8 batch without augmentation, as
+the JAX Trainer's.
 With `SSL4GIE_HOST_AUG=1` a classification epoch is augmented on the host
 by the C++ loader (`data/native_loader.py:augment_classification`, one
 seed a step from the epoch's generator) before the copy to the device, as
@@ -36,6 +48,7 @@ augments on the device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Callable, Optional
@@ -58,13 +71,14 @@ from ssl4gie_tpu_torch.data.augment import (apply_classification, apply_depth,
                                             sample_depth_params,
                                             sample_segmentation_params)
 from ssl4gie_tpu_torch.data.loader import prefetch_to_device
+from ssl4gie_tpu_torch.parallel import distributed as dist_lib
 
 
 @dataclasses.dataclass
 class TaskDefinition:
     """What a task contributes to the engine."""
     name: str
-    aug_mode: str                       # classification | segmentation | depth
+    aug_mode: str                # classification | segmentation | depth | none
     target_key: str                     # label | mask | depth
     loss_fn: Callable                   # (outputs, targets) -> scalar loss
     # batch_metric: (outputs, targets) -> per-sample (numerator,
@@ -75,7 +89,8 @@ class TaskDefinition:
     has_dropout: bool = False
     # a replacement train transform, (img_u8, generator) -> normalized
     # float32 image, over the aug_mode stack: the probe's RRC + hflip or
-    # the timm --aa/--reprob stack (`data/randaug.py`)
+    # the timm --aa/--reprob stack (`data/randaug.py`), drawing for the
+    # global batch
     aug_fn: Optional[Callable] = None
     # a train-time mixer after the augmentation, (img, targets, generator)
     # -> (img, targets): label smoothing and mixup/cutmix
@@ -88,7 +103,10 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
     """Returns train_step(model, optimizer, batch, generator=None) ->
     {"loss": scalar tensor}. `batch` holds "image" and `task.target_key`
     with the batch on dim 0, divisible by `accum_steps`; `generator` drives
-    any sampling inside the model (stochastic depth, dropout)."""
+    any sampling inside the model (stochastic depth, dropout). `model` may
+    be placed (DDP, FSDP, TP): its gradients are reduced over the data
+    group in the last microbatch's backward, and the loss returned is the
+    global batch's."""
 
     def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                    batch: dict, generator: torch.Generator | None = None):
@@ -102,15 +120,18 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
         loss_sum = torch.zeros((), dtype=torch.float32, device=images.device)
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
-            loss = task.loss_fn(model(images[sl], generator), targets[sl])
-            loss.backward()        # sums the microbatch gradients
+            with dist_lib.gradient_sync(model, i == accum_steps - 1):
+                loss = task.loss_fn(model(images[sl], generator),
+                                    targets[sl])
+                loss.backward()        # sums the microbatch gradients
             loss_sum += loss.detach()
+        dist_lib.finish_gradients(model)
         if accum_steps > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
         apply_gradients(optimizer)
-        return {"loss": loss_sum / accum_steps}
+        return {"loss": dist_lib.global_mean(loss_sum / accum_steps)}
 
     return train_step
 
@@ -127,12 +148,14 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
     whose dropout and stochastic depth draw from `model_generator` (by
     default `generator`). `exact` (the one-pass warp) and
     `per_image_jitter` default to `SSL4GIE_EXACT_AFFINE` and
-    `SSL4GIE_PER_IMAGE_JITTER`, read here."""
-    if task.aug_fn is None and task.aug_mode not in ("classification",
-                                                     "segmentation", "depth"):
+    `SSL4GIE_PER_IMAGE_JITTER`, read here. `aug_mode="none"` only
+    normalizes. Under data parallelism the samplers draw for the global
+    batch and keep this rank's rows."""
+    if task.aug_fn is None and task.aug_mode not in (
+            "classification", "segmentation", "depth", "none"):
         raise NotImplementedError(f"aug_mode {task.aug_mode!r}: only "
-                                  "classification, segmentation and depth "
-                                  "are ported")
+                                  "classification, segmentation, depth and "
+                                  "none are ported")
     exact = exact_affine_enabled() if exact is None else exact
     per_image = (per_image_jitter_enabled() if per_image_jitter is None
                  else per_image_jitter)
@@ -141,17 +164,22 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
     def full_step(model, optimizer, img_u8, targets, generator,
                   model_generator=None):
         B = img_u8.shape[0]
+        draw = functools.partial(dist_lib.draw_global,
+                                 accum_steps=accum_steps)
         if task.aug_fn is not None:
             img = task.aug_fn(img_u8, generator)
+        elif task.aug_mode == "none":
+            img = eval_batch(img_u8)
         elif task.aug_mode == "segmentation":
-            params = sample_segmentation_params(B, img_u8.shape[1], generator,
-                                                per_image)
+            params = draw(sample_segmentation_params, B, img_u8.shape[1],
+                          generator, per_image)
             img, targets = apply_segmentation(img_u8, targets, params, exact)
         elif task.aug_mode == "depth":
-            params = sample_depth_params(B, generator, per_image)
+            params = draw(sample_depth_params, B, generator, per_image)
             img, targets = apply_depth(img_u8, targets, params)
         else:
-            params = sample_classification_params(B, generator, per_image)
+            params = draw(sample_classification_params, B, generator,
+                          per_image)
             img = apply_classification(img_u8, params, exact)
         if task.mixup_fn is not None:
             img, targets = task.mixup_fn(img, targets, generator)
@@ -270,7 +298,7 @@ class Trainer:
             train_step = make_train_step(self.task, self.accum_steps)
         it = prefetch_to_device(batches, self.device)
         for step, batch in enumerate(it):
-            if self._guard is not None and self._guard.should_stop:
+            if self._stop_requested(step):
                 # mid-epoch preemption: the state as of the last COMPLETE
                 # epoch is what resumes (the per-epoch generators make the
                 # replay deterministic)
@@ -308,25 +336,43 @@ class Trainer:
         running statistics, no dropout), then back in train mode. Each
         batch counts with EQUAL weight, as the reference's test() loops,
         which average a per-batch metric (`train_segmentation.py:90-95`);
-        classification takes meanF1 over all the predictions."""
+        classification takes meanF1 over all the predictions. Under data
+        parallelism each rank evaluates its part of every batch; the
+        predictions are gathered in order, or the per-batch sums summed,
+        so that every rank gets the single-process number."""
         it = prefetch_to_device(loader.epoch(0), self.device)
         key = self.task.target_key
+        split_over = dist_lib.data_group() is not None
         self.model.eval()
         try:
             if self.task.eval_kind == "accumulate_preds":
                 preds, targets = [], []
                 for batch in it:
-                    preds.append(self.eval_step(
-                        self.model, {"image": eval_batch(batch["image"])}))
-                    targets.append(batch[key])
+                    pred = self.eval_step(
+                        self.model, {"image": eval_batch(batch["image"])})
+                    if "padding" not in batch:
+                        preds.append(pred)
+                        targets.append(batch[key])
+                    elif split_over:      # an empty part of a batch
+                        preds.append(pred[:0])
+                        targets.append(batch[key][:0])
+                if split_over:
+                    preds, targets = self._gather_batches(preds, targets)
                 perf = float(self.eval_finalize(torch.cat(preds),
                                                 torch.cat(targets)))
             else:
-                sums = [torch.stack(self.eval_step(
-                    self.model, {"image": eval_batch(batch["image"]),
-                                 key: batch[key]})) for batch in it]
+                sums = []
+                for batch in it:
+                    s = torch.stack(self.eval_step(
+                        self.model, {"image": eval_batch(batch["image"]),
+                                     key: batch[key]}))
+                    sums.append(torch.zeros_like(s) if "padding" in batch
+                                else s)
+                sums = torch.stack(sums) if sums else None
+                if split_over and sums is not None:
+                    sums = dist_lib.global_sum(sums)
                 total, batches = 0.0, 0
-                for num, den in (torch.stack(sums).tolist() if sums else []):
+                for num, den in (sums.tolist() if sums is not None else []):
                     total += num / den if den != 0 else 0.0
                     batches += 1
                 perf = total / max(batches, 1)
@@ -335,12 +381,32 @@ class Trainer:
         self.logger.log({"epoch": epoch, f"{split}_perf": perf})
         return perf
 
+    @staticmethod
+    def _gather_batches(preds: list, targets: list):
+        """Every data rank's per-batch predictions and targets, batch by
+        batch in rank order: the single-process order."""
+        mine = [(p.cpu(), t.cpu()) for p, t in zip(preds, targets)]
+        ranks = dist_lib.gather_objects(mine)
+        preds = [torch.cat([r[b][0] for r in ranks])
+                 for b in range(len(mine))]
+        targets = [torch.cat([r[b][1] for r in ranks])
+                   for b in range(len(mine))]
+        return preds, targets
+
+    def _stop_requested(self, step: Optional[int] = None) -> bool:
+        """Whether a preemption signal reached any rank, polled at train
+        step `step` or at an epoch boundary (`distributed.poll_stop`: over
+        several ranks every `log_every` steps)."""
+        return self._guard is not None and dist_lib.poll_stop(
+            self._guard.should_stop, step, self.log_every)
+
     # -------------------------------------------------------------- ckpt
 
     def _ckpt_tree(self, epoch, val_perf, test_perf):
-        """A host copy of the whole state and the JAX Trainer's meta."""
-        return {"model": ckpt_lib.host_copy(self.model.state_dict()),
-                "optimizer": ckpt_lib.host_copy(self.optimizer.state_dict()),
+        """A host copy of the whole state and the JAX Trainer's meta (the
+        full state on rank 0 of a placed model; every rank calls it)."""
+        model_sd, optim_sd = ckpt_lib.state_dicts(self.model, self.optimizer)
+        return {"model": model_sd, "optimizer": optim_sd,
                 "meta": {"epoch": epoch, "val_perf": val_perf,
                          "test_perf": test_perf,
                          "plateau_best": -1.0 if self.plateau is None or
@@ -363,8 +429,8 @@ class Trainer:
         if src is None:
             return
         restored = src.restore(map_location=self.device)
-        self.model.load_state_dict(restored["model"])
-        self.optimizer.load_state_dict(restored["optimizer"])
+        ckpt_lib.load_state_dicts(self.model, self.optimizer,
+                                  restored["model"], restored["optimizer"])
         meta = restored["meta"]
         self.start_epoch = int(meta["epoch"]) + 1
         self.best_val = float(meta["val_perf"])
@@ -399,15 +465,14 @@ class Trainer:
         epoch BOUNDARY, so the interrupted epoch replays from clean state
         and no batch is applied twice (submitit's requeue from the last
         periodic checkpoint, `submitit_pretrain.py:60-70`)."""
-        if self._guard is None or not self._guard.should_stop:
+        if not self._stop_requested():
             return
         tree = self._boundary_snapshot
         if tree is None:
             tree = self._ckpt_tree(
                 epoch, self.best_val if self.best_val is not None else 0.0,
                 0.0)
-        if ckpt_lib.is_primary():
-            self.preempt_ckpt.save(tree)
+        ckpt_lib.write(self.preempt_ckpt, tree)
         self._preempt_slot_epoch = int(tree["meta"]["epoch"])
         self.logger.log({"preempted_after_epoch": epoch},
                         echo=f"preemption signal — state saved after epoch "
@@ -437,9 +502,8 @@ class Trainer:
                        else val_perf < self.best_val))
             if better:
                 self.best_val = val_perf
-                if ckpt_lib.is_primary():
-                    self.ckpt.save(self._ckpt_tree(epoch, val_perf,
-                                                   test_perf))
+                ckpt_lib.write(self.ckpt, self._ckpt_tree(epoch, val_perf,
+                                                          test_perf))
                 best_key, test_key = self.BEST_KEYS
                 self.logger.log({"epoch": epoch, best_key: val_perf,
                                  test_key: test_perf})

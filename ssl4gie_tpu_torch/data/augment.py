@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from ssl4gie_tpu_torch.kernels.rotate import shear_rotate
+from ssl4gie_tpu_torch.parallel.distributed import (data_group, gather_rows,
+                                                    local_rows)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -607,14 +609,30 @@ def cutmix_box(lam: float, cy: int, cx: int, H: int, W: int):
     return (int(y0), int(y1), int(x0), int(x1)), float(np.float32(1.0) - area)
 
 
+def reverse_partner(x: torch.Tensor, accum_steps: int = 1) -> torch.Tensor:
+    """`x.flip(0)`: each row's reverse-order partner in the batch. When the
+    batch is split over ranks the partner of global row i is row B - 1 - i
+    of the global batch, as the JAX package flips it: the ranks' rows are
+    gathered (`distributed.gather_rows`) and this rank's partners taken
+    from them; `accum_steps` is the step's microbatch count, which sets
+    the rows a rank holds (`distributed.local_rows`)."""
+    if data_group() is None:
+        return x.flip(0)
+    full = gather_rows(x, accum_steps)
+    n = full.shape[0]
+    rows = n - 1 - local_rows(n, accum_steps)
+    return full[torch.as_tensor(rows, device=x.device)]
+
+
 def mixup_cutmix(img: torch.Tensor, soft_targets: torch.Tensor,
-                 params: dict):
+                 params: dict, accum_steps: int = 1):
     """Mix each sample of (B, H, W, C) `img` and (B, n) `soft_targets` with
-    its reverse-order partner (`flip(0)`) at the factors of `params`
+    its reverse-order partner (`reverse_partner`: over the global batch
+    when it is split over ranks) at the factors of `params`
     (`sample_mixup_params`): mixup blends the images by lam; cutmix pastes
     the partner's pixels into the clipped box and takes lam as the share
     of pixels kept. The targets mix by that lam."""
-    partner = img.flip(0)
+    partner = reverse_partner(img, accum_steps)
     if params["use_cutmix"]:
         (y0, y1, x0, x1), lam = cutmix_box(params["lam"], params["cy"],
                                            params["cx"], img.shape[1],
@@ -625,4 +643,5 @@ def mixup_cutmix(img: torch.Tensor, soft_targets: torch.Tensor,
         lam = float(np.float32(params["lam"]))
         mixed = lam * img + float(np.float32(1.0) - np.float32(lam)) * partner
     one_m = float(np.float32(1.0) - np.float32(lam))
-    return mixed, lam * soft_targets + one_m * soft_targets.flip(0)
+    return mixed, lam * soft_targets + one_m * reverse_partner(soft_targets,
+                                                               accum_steps)

@@ -25,6 +25,8 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ssl4gie_tpu_torch.parallel.distributed import local_rows
+
 
 class Source:
     """Indexable sample source yielding dicts of numpy arrays."""
@@ -183,22 +185,42 @@ class SyntheticSource(Source):
 
 class Loader:
     """Deterministic epoch-shuffled batcher with threaded decode: one
-    permutation per epoch seeded by (seed, epoch), as the JAX package's."""
+    permutation per epoch seeded by (seed, epoch), as the JAX package's.
+
+    `shard` = (i, n) splits every batch over n data-parallel ranks, of
+    which this one is i, and the Loader reads only its rows, from the same
+    permutation: a training batch (`drop_last`) its `local_rows` (with
+    `accum_steps` microbatches, its part of each), an evaluation batch the
+    i-th of n contiguous parts (`np.array_split`; the ragged tail stays
+    unpadded). A rank whose part of a batch is empty gets that batch's
+    last row under the key "padding", so that it still runs the batch's
+    collectives; its result is dropped."""
 
     def __init__(self, source: Source, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 42,
-                 num_threads: int = 8):
+                 num_threads: int = 8, shard: tuple = (0, 1),
+                 accum_steps: int = 1):
         self.source = source
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.shard = tuple(shard)
+        self.accum_steps = accum_steps
         self.pool = cf.ThreadPoolExecutor(max_workers=num_threads)
 
     def __len__(self):
         n = len(self.source)
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
+
+    def _rows(self, idx: np.ndarray) -> np.ndarray:
+        i, n = self.shard
+        if n == 1:
+            return idx
+        if self.drop_last:
+            return idx[local_rows(len(idx), self.accum_steps, self.shard)]
+        return np.array_split(idx, n)[i]
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[dict]:
         n = len(self.source)
@@ -207,9 +229,16 @@ class Loader:
         else:
             order = np.arange(n)
         for b in range(len(self)):
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            batch = order[b * self.batch_size:(b + 1) * self.batch_size]
+            idx = self._rows(batch)
+            padding = len(idx) == 0
+            if padding:
+                idx = batch[-1:]
             samples = list(self.pool.map(self.source.get, idx))
-            yield {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+            out = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+            if padding:
+                out["padding"] = np.ones(1, bool)
+            yield out
 
 
 PREFETCH = 2   # batches in flight ahead of the one the consumer holds

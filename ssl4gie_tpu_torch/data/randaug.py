@@ -48,6 +48,8 @@ import torch
 from ssl4gie_tpu_torch.data.augment import _on, affine_sample, normalize
 from ssl4gie_tpu_torch.data.ssl_augment import (_sample_crop, _sampler,
                                                 random_resized_crop)
+from ssl4gie_tpu_torch.parallel.distributed import (data_shard, draw_global,
+                                                    local_rows)
 
 # timm `rand_augment_ops` fill: tuple(min(255, round(255 * m)) for m in mean)
 FILL = (124.0, 116.0, 104.0)
@@ -432,22 +434,33 @@ def timm_train_batch(img_u8: torch.Tensor, params: dict, out_size: int = 224,
     return random_erasing(v, on["boxes"], noise.to(dev))
 
 
-def make_probe_aug(out_size: int = 224):
+def make_probe_aug(out_size: int = 224, accum_steps: int = 1):
     """The probe transform as a task's `aug_fn`: (img_u8, generator) ->
-    normalized float32 batch."""
+    normalized float32 batch, its draws made for the global batch under
+    data parallelism (`distributed.draw_global`; `accum_steps` is the
+    step's microbatch count)."""
     def aug(img_u8, generator):
         B, H = img_u8.shape[:2]
-        return probe_train_batch(img_u8, sample_probe_params(B, H, generator),
-                                 out_size)
+        return probe_train_batch(img_u8, draw_global(
+            sample_probe_params, B, H, generator, accum_steps=accum_steps),
+            out_size)
     return aug
 
 
 def make_timm_aug(out_size: int = 224, policy: str = "rand-m9-mstd0.5-inc1",
-                  reprob: float = 0.25):
+                  reprob: float = 0.25, accum_steps: int = 1):
     """The timm stack as a task's `aug_fn`: (img_u8, generator) ->
-    normalized float32 batch."""
+    normalized float32 batch, drawn as `make_probe_aug`'s."""
     def aug(img_u8, generator):
         B, H = img_u8.shape[:2]
-        return timm_train_batch(img_u8, sample_timm_params(
-            B, H, generator, policy, reprob), out_size)
+        params = draw_global(sample_timm_params, B, H, generator, policy,
+                             reprob, accum_steps=accum_steps)
+        noise = None
+        _, n = data_shard()
+        if n > 1 and reprob > 0:     # the global batch's erasing noise
+            rows = local_rows(B * n, accum_steps)
+            noise = erasing_noise((B * n, out_size, out_size, 3),
+                                  params["noise_seed"], img_u8.device)[
+                torch.as_tensor(rows, device=img_u8.device)]
+        return timm_train_batch(img_u8, params, out_size, noise)
     return aug

@@ -12,6 +12,10 @@ code into an exception. The link needs no `-lcuda`: the one driver call,
 the TMA tensor-map encoder of `csrc/fused_mlp.cu`, is reached through the
 runtime's `cudaGetDriverEntryPoint`.
 
+Under a process group one process per host builds (local rank 0) while
+the others wait at a barrier, then every rank loads the library: N ranks
+never start N `nvcc` fan-outs on one `build/` directory.
+
 Nothing here runs at import: the CPU path never builds or loads anything.
 """
 
@@ -125,10 +129,37 @@ def build() -> Path:
     return out
 
 
+def _local_rank() -> int:
+    """This process's rank on its host (the launcher's, else the global
+    rank: one host)."""
+    from ssl4gie_tpu_torch.parallel import distributed as dist_lib
+    found = dist_lib.detect_environment()
+    return found["local_rank"] if found else dist_lib.process_index()
+
+
+def build_once() -> Path:
+    """`build()` in this process, or, under a process group, by local
+    rank 0 while every rank waits at a barrier; a failed build raises on
+    every rank."""
+    from ssl4gie_tpu_torch.parallel import distributed as dist_lib
+    if dist_lib.process_count() == 1:
+        return build()
+    try:
+        if _local_rank() == 0:
+            build()
+    finally:
+        dist_lib.barrier()
+    out = library_path()
+    if not out.exists():
+        raise RuntimeError(f"{out} was not built (the build on local rank 0 "
+                           "failed)")
+    return out
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library, built on first call (`build_once`)."""
+    lib = ctypes.CDLL(str(build_once()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -11,18 +11,22 @@ from __future__ import annotations
 
 import torch
 
+from ssl4gie_tpu_torch.parallel.distributed import batch_divisor
+
 SMOOTH = 1e-8
 
 
 def weighted_cross_entropy(logits, labels, class_weights=None):
     """torch F.cross_entropy(weight=w) semantics in float32: per-sample NLL
-    scaled by w[label], summed and divided by the sum of those weights."""
+    scaled by w[label], summed and divided by the sum of those weights over
+    the global batch (`distributed.batch_divisor`) when it is split over
+    ranks."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
     if class_weights is None:
         return torch.mean(nll)
     w = class_weights[labels.long()]
-    return torch.sum(w * nll) / torch.sum(w)
+    return torch.sum(w * nll) / batch_divisor(torch.sum(w))
 
 
 def _per_class(preds, targets, n_class: int):

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ssl4gie_tpu_torch.parallel.distributed import batch_divisor
+
 F32 = torch.float32
 
 
@@ -40,7 +42,10 @@ def compute_scale_and_shift(prediction, target, mask):
 
 
 def _ratio(num_per_image, divisor):
-    """sum(num) / divisor over the batch, 0 where the divisor is 0."""
+    """sum(num) / divisor over the batch, 0 where the divisor is 0; the
+    divisor is the global batch's when the batch is split over ranks
+    (`distributed.batch_divisor`)."""
+    divisor = batch_divisor(divisor)
     return torch.where(divisor == 0, torch.zeros_like(divisor),
                        torch.sum(num_per_image)
                        / torch.clamp(divisor, min=1e-38))

@@ -11,15 +11,20 @@ It differs from `torch.nn.BatchNorm2d` in three ways that change numbers:
 
 `momentum` is flax's: running = momentum * running + (1 - momentum) * batch
 (torch's momentum 0.1). The output is (x - mean) * (rsqrt(var + eps) *
-scale) + bias in float32, cast to `dtype`. Under data parallelism the batch
-statistics would need a cross-rank mean (SyncBatchNorm), which waits for the
-multi-GPU slice.
+scale) + bias in float32, cast to `dtype`. When the batch is split over
+ranks (`parallel/distributed.py:data_group`), the training statistics are
+the global batch's, as under the JAX package's GSPMD step: the sum, the
+sum of squares and the count go through one differentiable all-reduce.
+Without a group they are the local means, bitwise as before.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ssl4gie_tpu_torch.parallel.distributed import (all_reduce_sum,
+                                                    data_group)
 
 MOMENTUM = 0.9   # flax's; torch's 0.1
 EPS = 1e-5
@@ -49,9 +54,17 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if self.training:
             dims = tuple(range(xf.ndim - 1))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp(torch.square(xf).mean(dim=dims)
-                              - torch.square(mean), min=0.0)
+            if data_group() is None:
+                mean = xf.mean(dim=dims)
+                mean_sq = torch.square(xf).mean(dim=dims)
+            else:
+                count = torch.full((1,), xf.numel() // xf.shape[-1],
+                                   dtype=torch.float32, device=xf.device)
+                stats = all_reduce_sum(torch.cat(
+                    [xf.sum(dim=dims), torch.square(xf).sum(dim=dims),
+                     count]))
+                mean, mean_sq = (stats[:-1] / stats[-1]).chunk(2)
+            var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

@@ -38,6 +38,7 @@ from ssl4gie_tpu_torch.models.batchnorm import BatchNorm
 from ssl4gie_tpu_torch.models.layers import init_lecun, lecun_normal_
 from ssl4gie_tpu_torch.models.vitdet_fpn import conv_nhwc
 from ssl4gie_tpu_torch.ops.resize import resize_bilinear_ac
+from ssl4gie_tpu_torch.parallel.distributed import rand_global
 
 DROPOUT = 0.1
 
@@ -221,13 +222,13 @@ class DPTDecoder(nn.Module):
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             keep: torch.Tensor | None = None) -> torch.Tensor:
     """flax `nn.Dropout`: x / (1 - rate) where `keep`, else 0. `keep` is
-    drawn from `generator` (on its device) unless given."""
+    drawn from `generator` (on its device; for the global batch when the
+    batch is split over ranks, each keeping its rows) unless given."""
     if keep is None:
         if generator is None:
             raise ValueError("dropout in training needs a generator or a "
                              "mask")
-        keep = torch.rand(x.shape, generator=generator,
-                          device=generator.device) < 1.0 - rate
+        keep = rand_global(x.shape, generator) < 1.0 - rate
     keep = keep.to(x.device)
     if keep.shape != x.shape:
         raise ValueError(f"dropout mask {tuple(keep.shape)} != activation "

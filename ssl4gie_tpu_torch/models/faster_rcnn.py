@@ -47,6 +47,7 @@ from ssl4gie_tpu_torch.models.rpn import (RPNHead, anchor_grid_info,
                                           select_proposals)
 from ssl4gie_tpu_torch.models.vit import ViTBackbone
 from ssl4gie_tpu_torch.models.vitdet_fpn import ResNetFPN, ViTDetFPN
+from ssl4gie_tpu_torch.parallel.distributed import draw_global
 
 STRIDES = (4, 8, 16, 32, 64)
 MAX_GT = 16
@@ -199,7 +200,7 @@ class FasterRCNN(nn.Module):
                 if generator is None:
                     raise ValueError("the train forward needs `noise` or a "
                                      "generator")
-                noise = self.draw_noise(B, generator)
+                noise = draw_global(self.draw_noise, B, generator)
             noise = {k: v.to(images.device) for k, v in noise.items()}
             obj_l, box_l = rpn_loss(noise["rpn"], anchors, objectness, deltas,
                                     gt_boxes, gt_valid)

@@ -25,7 +25,10 @@ The MLP routes as the JAX package's `Mlp` does: with `SSL4GIE_FUSED_MLP=1`
 in the environment (read once, into `FUSED_MLP`), a bfloat16 MLP over a
 token count that is a multiple of 128 goes through `kernels.fused_mlp`
 (tanh GELU); otherwise fc1 -> GELU -> fc2 as plain ops. The parameters are
-`fc1`/`fc2` either way.
+`fc1`/`fc2` either way. Under tensor parallelism (`parallel/tp.py`) the
+attention runs the same routes on each rank's heads and the MLP on its
+slice of the hidden units, fused or not; `proj`'s and `fc2`'s biases are
+added once, after the sum over the model group.
 
 Linear layers take the timm init ("timm": truncated normal 0.02) or, for
 MAE, flax's xavier_uniform ("xavier"), chosen by `kernel_init`.
@@ -47,6 +50,9 @@ from ssl4gie_tpu_torch.kernels.flash_attention import flash_attention_heads
 from ssl4gie_tpu_torch.kernels.fused_mlp import fused_mlp
 from ssl4gie_tpu_torch.kernels.window_attention import windowed_flash_attention
 from ssl4gie_tpu_torch.ops.resize import resize_bilinear_ac
+from ssl4gie_tpu_torch.parallel.distributed import (copy_to_model,
+                                                    rand_global,
+                                                    reduce_from_model)
 
 FUSED_MIN_SEQ = 160    # packed-QKV kernel range: dense tasks at N=197
 FLASH_MIN_SEQ = 1024   # blockwise kernel for long sequences (detection)
@@ -204,6 +210,9 @@ class Mlp(nn.Module):
         self.kernel_init = kernel_init
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, dim)
+        # tensor parallelism (`parallel/tp.py`): the model group, whose
+        # ranks hold fc1's rows and fc2's columns
+        self.tp_group, self.tp_size = None, 1
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_linear(self.fc1, generator, self.kernel_init)
@@ -211,16 +220,30 @@ class Mlp(nn.Module):
 
     def forward(self, x):
         tokens = x.numel() // x.shape[-1]
-        if (FUSED_MLP and self.dtype == torch.bfloat16
-                and tokens % FUSED_MLP_TOKENS == 0):
-            dt = self.dtype     # the weights as (in, out) views, no copy
-            return fused_mlp(x.to(dt), self.fc1.weight.to(dt).t(),
-                             self.fc1.bias.to(dt), self.fc2.weight.to(dt).t(),
-                             self.fc2.bias.to(dt), True)
-        h = linear(x, self.fc1, self.dtype)
-        # tanh GELU under bf16 compute, exact erf under f32 (JAX `Mlp`)
-        approx = "tanh" if self.dtype == torch.bfloat16 else "none"
-        return linear(F.gelu(h, approximate=approx), self.fc2, self.dtype)
+        fused = (FUSED_MLP and self.dtype == torch.bfloat16
+                 and tokens % FUSED_MLP_TOKENS == 0)
+        dt = self.dtype
+        tp = self.tp_group is not None
+        if tp:      # this rank's slice of the hidden units
+            x = copy_to_model(x, self.tp_group)
+        if fused:
+            # the weights as (in, out) views, no copy; under TP fc2's bias
+            # is added once, after the sum over the model group
+            b2 = (self.fc2.bias.new_zeros(self.fc2.bias.shape, dtype=dt)
+                  if tp else self.fc2.bias.to(dt))
+            y = fused_mlp(x.to(dt), self.fc1.weight.to(dt).t(),
+                          self.fc1.bias.to(dt), self.fc2.weight.to(dt).t(),
+                          b2, True)
+        else:
+            h = linear(x, self.fc1, dt)
+            # tanh GELU under bf16 compute, exact erf under f32 (JAX `Mlp`)
+            g = F.gelu(h, approximate="tanh" if dt == torch.bfloat16
+                       else "none")
+            y = (F.linear(g, self.fc2.weight.to(dt)) if tp
+                 else linear(g, self.fc2, dt))
+        if tp:
+            return reduce_from_model(y, self.tp_group) + self.fc2.bias.to(dt)
+        return y
 
 
 class Attention(nn.Module):
@@ -237,16 +260,24 @@ class Attention(nn.Module):
         self.kernel_init = kernel_init
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
+        # tensor parallelism (`parallel/tp.py`): the model group, whose
+        # ranks hold their heads' rows of q, k and v and columns of proj
+        self.tp_group, self.tp_size = None, 1
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_linear(self.qkv, generator, self.kernel_init)
         init_linear(self.proj, generator, self.kernel_init)
 
     def forward(self, x, grid_hw: tuple | None = None):
-        B, N, C = x.shape
-        H = self.num_heads
-        Dh = C // H
+        B, N, D = x.shape
+        Dh = D // self.num_heads
         scale = Dh ** -0.5
+        # this rank's heads: all of them, or H / tp under TP, whose packed
+        # [q_r | k_r | v_r] takes the same routes as the whole layer's
+        H = self.num_heads // self.tp_size
+        C = H * Dh
+        if self.tp_group is not None:
+            x = copy_to_model(x, self.tp_group)
         qkv = linear(x, self.qkv, self.dtype)
         if self.window_size is not None:
             gh, gw = grid_hw
@@ -259,6 +290,10 @@ class Attention(nn.Module):
             t = qkv.reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
             out = default_attention(t[0], t[1], t[2], scale)
             out = out.transpose(1, 2).reshape(B, N, C)
+        if self.tp_group is not None:
+            out = F.linear(out.to(self.dtype), self.proj.weight.to(self.dtype))
+            return reduce_from_model(out, self.tp_group) + \
+                self.proj.bias.to(self.dtype)
         return linear(out, self.proj, self.dtype)
 
 
@@ -266,11 +301,11 @@ def drop_path(x: torch.Tensor, rate: float,
               generator: torch.Generator) -> torch.Tensor:
     """Stochastic depth on a residual branch (timm `DropPath`): per-sample
     Bernoulli keep with 1/keep rescaling. The mask is drawn on the
-    generator's device."""
+    generator's device, for the global batch when the batch is split over
+    ranks (each keeps its rows)."""
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator,
-                      device=generator.device) < keep
+    mask = rand_global(shape, generator) < keep
     return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))
 

@@ -29,6 +29,7 @@ from ssl4gie_tpu_torch.ops.boxes import (box_iou, clip_to_canvas,
                                          small_box_mask, smooth_l1)
 from ssl4gie_tpu_torch.ops.nms import batched_nms_topk
 from ssl4gie_tpu_torch.ops.roi_align import multiscale_roi_align
+from ssl4gie_tpu_torch.parallel.distributed import batch_divisor
 
 BOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
@@ -126,8 +127,10 @@ def assign_proposals(sample_rand, tie_rand, proposals, prop_valid, gt_boxes,
 def roi_head_loss(scores, deltas, labels, reg_targets, pos_mask, valid):
     """torchvision fastrcnn_loss: CE over the sampled, smooth-L1 over the
     positives with the matched class's deltas, both over the number
-    sampled. Inputs flattened over images: scores (R, K), deltas (R, K, 4)."""
-    n_sampled = torch.clamp(valid.sum(), min=1)
+    sampled (the global batch's when it is split over ranks,
+    `distributed.batch_divisor`). Inputs flattened over images: scores (R,
+    K), deltas (R, K, 4)."""
+    n_sampled = batch_divisor(valid.sum(), floor=1)
     zero = torch.zeros((), dtype=scores.dtype, device=scores.device)
     logp = F.log_softmax(scores, dim=-1)
     ce = -torch.gather(logp, 1, labels[:, None])[:, 0]

@@ -7,7 +7,9 @@ weight decay, dp = g + wd * p, and is scaled by the trust ratio
 the bare gradient. A heavy-ball buffer mu = momentum * mu + dp gives the
 update -lr * mu. `lr` is a float or a schedule, a function of LARS's own
 step count, which starts at 0 and is kept in each param group ("count"),
-so that it travels with `state_dict`.
+so that it travels with `state_dict`. The norms are those of the whole
+parameter and its update, also when a placement holds only a shard of it
+(FSDP, TP: `parallel/tp.py:global_norm`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Callable, Union
 
 import torch
+
+from ssl4gie_tpu_torch.parallel.tp import global_norm, is_sharded, local
 
 
 class LARS(torch.optim.Optimizer):
@@ -39,11 +43,15 @@ class LARS(torch.optim.Optimizer):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                dp = p.grad
+                pl, dp = local(p), local(p.grad)
                 if p.ndim > 1:
-                    dp = dp + wd * p
-                    p_norm = torch.linalg.vector_norm(p)
-                    u_norm = torch.linalg.vector_norm(dp)
+                    dp = dp + wd * pl
+                    if is_sharded(p):
+                        p_norm = global_norm([(p, pl)]).to(pl.device)
+                        u_norm = global_norm([(p, dp)]).to(pl.device)
+                    else:
+                        p_norm = torch.linalg.vector_norm(pl)
+                        u_norm = torch.linalg.vector_norm(dp)
                     q = torch.where((p_norm > 0) & (u_norm > 0),
                                     tc * p_norm / u_norm,
                                     torch.ones_like(p_norm))
@@ -51,6 +59,6 @@ class LARS(torch.optim.Optimizer):
                 state = self.state[p]
                 if "mu" not in state:
                     state["mu"] = torch.zeros_like(p)
-                mu = state["mu"]
+                mu = local(state["mu"])
                 mu.mul_(group["momentum"]).add_(dp)
-                p.add_(mu * -lr)
+                pl.add_(mu * -lr)

@@ -6,9 +6,11 @@ RN50), a predictor MLP (2 layers), and a momentum encoder, the EMA of the
 base encoder's parameters (`Models/moco_v3/moco/builder.py:57-61`); the
 symmetric InfoNCE loss `contrastive_loss` (`builder.py:63-73`).
 
-On one card the global batch is the local batch: the reference's
-`concat_all_gather` of the keys and SyncBN's global statistics wait for
-the multi-GPU slice (ROADMAP queue 1 item 6).
+When the batch is split over ranks the loss is the global batch's, as the
+JAX package's GSPMD einsum computes it: each rank's queries against the
+keys gathered from every rank, with rank-offset labels (the reference's
+`concat_all_gather`, `builder.py:63-73`), and the heads' BatchNorm takes
+global statistics (`models/batchnorm.py`).
 
 `MoCo` holds the three modules, so that one `state_dict` carries the
 parameters of the encoder and the predictor, the momentum parameters and
@@ -32,6 +34,12 @@ from ssl4gie_tpu_torch.models.batchnorm import BatchNorm
 from ssl4gie_tpu_torch.models.layers import default_device, lecun_normal_
 from ssl4gie_tpu_torch.models.resnet import STAGE_SIZES, WIDTHS, ResNet50
 from ssl4gie_tpu_torch.models.vit import ViTBackbone
+from ssl4gie_tpu_torch.parallel.distributed import (data_shard,
+                                                    finish_gradients,
+                                                    gather_rows, global_mean,
+                                                    unwrap)
+from ssl4gie_tpu_torch.parallel.tp import grad_norm as global_grad_norm
+from ssl4gie_tpu_torch.parallel.tp import local
 
 # MoCo v3 ViT size presets (`Models/moco_v3/vits.py:117-144`): the conv-stem
 # variants drop one transformer block; vit_s keeps 12 heads at width 384
@@ -160,17 +168,34 @@ class MoCo(nn.Module):
         """The base encoder's patch projection (--stop-grad-conv1)."""
         return list(self.encoder.backbone.patch_embed.parameters())
 
+    def forward(self, x1, x2):
+        """One step's forwards, in the JAX step's order: the momentum
+        encoder without gradient on x1 then x2 (keys k1, k2), then the
+        encoder and the predictor on x1 then on x2 (pq1, pq2). Returns (pq1,
+        pq2, k1, k2)."""
+        with torch.no_grad():
+            k1 = self.momentum_encoder(x1)
+            k2 = self.momentum_encoder(x2)
+        pq1 = self.predictor(self.encoder(x1))
+        pq2 = self.predictor(self.encoder(x2))
+        return pq1, pq2, k1, k2
+
 
 def contrastive_loss(q: torch.Tensor, k: torch.Tensor,
                      temperature: float = 1.0) -> torch.Tensor:
     """InfoNCE of queries q against keys k (N, C) with the positives on the
     diagonal (`builder.py:63-73`): rows L2-normalised as x / (|x| +
     1e-12) in their dtype, logits in float32 over `temperature`,
-    cross-entropy against arange(N), times 2 * temperature."""
+    cross-entropy against arange(N), times 2 * temperature. When the batch
+    is split over ranks, this rank's queries go against the keys of the
+    global batch (gathered without gradient: they come from the momentum
+    encoder), its positives offset by its rank."""
     q = q / (torch.linalg.vector_norm(q, dim=1, keepdim=True) + 1e-12)
     k = k / (torch.linalg.vector_norm(k, dim=1, keepdim=True) + 1e-12)
-    logits = (q.float() @ k.float().t()) / temperature
-    labels = torch.arange(logits.shape[0], device=logits.device)
+    logits = (q.float() @ gather_rows(k).float().t()) / temperature
+    rank, _ = data_shard()
+    labels = torch.arange(q.shape[0], device=logits.device) + \
+        rank * q.shape[0]
     return F.cross_entropy(logits, labels) * (2.0 * temperature)
 
 
@@ -206,28 +231,25 @@ def make_moco_train_step(temperature: float = 0.2, schedule=None,
     weights are put back after the step."""
 
     def train_step(moco: MoCo, optimizer, x1, x2, m: float, step: int):
+        inner = unwrap(moco)      # `moco` may be placed (DDP, FSDP, TP)
         moco.train()
-        momentum_update(moco, m)
-        with torch.no_grad():
-            k1 = moco.momentum_encoder(x1)
-            k2 = moco.momentum_encoder(x2)
-        pq1 = moco.predictor(moco.encoder(x1))
-        pq2 = moco.predictor(moco.encoder(x2))
+        momentum_update(inner, m)
+        pq1, pq2, k1, k2 = moco(x1, x2)
         loss = (contrastive_loss(pq1, k2, temperature)
                 + contrastive_loss(pq2, k1, temperature))
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in moco.trained_parameters() if p.grad is not None])
+        finish_gradients(moco)
+        grad_norm = global_grad_norm(inner.trained_parameters())
         if schedule is not None:
             set_lr(optimizer, schedule(step))
-        frozen = moco.patch_embed_parameters() if stop_grad_patch_embed \
-            else []
+        frozen = [local(p) for p in inner.patch_embed_parameters()] \
+            if stop_grad_patch_embed else []
         kept = [p.detach().clone() for p in frozen]
         optimizer.step()
         if frozen:
             with torch.no_grad():
                 torch._foreach_copy_(frozen, kept)
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": global_mean(loss.detach()), "grad_norm": grad_norm}
 
     return train_step

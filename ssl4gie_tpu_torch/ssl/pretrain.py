@@ -40,6 +40,18 @@ to a temporary name, synced and renamed):
 - the retained slots of the reference's history protocol, the full state
   as `checkpoint_%04d.pt` (MoCo, every epoch) or `checkpoint-%d.pt` (MAE,
   every 20 epochs and the last), 0-based; `keep_last` prunes them.
+
+Over several processes the build lays out the mesh as the JAX package's
+`run_pretraining` does (`ssl4gie_tpu/ssl/pretrain.py:120-157`): with
+`--tensor-parallel` the ("data", "model") mesh checked against the head
+counts of MAE's encoder and decoder or of the MoCo ViT (resnet50
+refuses), else the ("data",) mesh; the model is placed (`parallel/tp.py:
+make_place_fn`) before its optimizer is built, the MoCo momentum encoder
+exactly as the encoder; each rank's Loader reads its part of the global
+batch, whose draws (crops, factors, masking noise) are made for the
+global batch (`distributed.draw_global`). The slots hold the full state,
+gathered on every rank and written by rank 0; a preemption signal on any
+rank stops every rank at the same step.
 """
 
 from __future__ import annotations
@@ -58,6 +70,8 @@ from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
 from ssl4gie_tpu_torch.core.config import PretrainConfig, SSLFramework
 from ssl4gie_tpu_torch.core.logger import (MetricsLogger, Throughput,
                                            peak_memory_mb)
+from ssl4gie_tpu_torch.core.mesh import (axis_shard, axis_size,
+                                         local_batch_size, make_mesh)
 from ssl4gie_tpu_torch.core.preempt import Preempted, PreemptionGuard
 from ssl4gie_tpu_torch.core.schedule import cosine_momentum
 from ssl4gie_tpu_torch.core.train_state import make_adamw, set_lr
@@ -69,10 +83,13 @@ from ssl4gie_tpu_torch.data.ssl_augment import (mae_augment, moco_two_crops,
                                                 sample_mae_params,
                                                 sample_moco_params)
 from ssl4gie_tpu_torch.models.layers import default_device
+from ssl4gie_tpu_torch.parallel import distributed as dist_lib
+from ssl4gie_tpu_torch.parallel.tp import (grad_norm, make_place_fn,
+                                           make_tp_mesh)
 from ssl4gie_tpu_torch.ssl.lars import LARS
 from ssl4gie_tpu_torch.ssl.mae import MAE, MAE_SIZES
-from ssl4gie_tpu_torch.ssl.moco_v3 import (STOP_GRAD_ARCHS, MoCo,
-                                           make_moco_train_step)
+from ssl4gie_tpu_torch.ssl.moco_v3 import (STOP_GRAD_ARCHS, VIT_PRESETS,
+                                           MoCo, make_moco_train_step)
 
 
 class UnlabeledSource(Source):
@@ -159,12 +176,13 @@ def make_mae_train_step(schedule):
         optimizer.zero_grad(set_to_none=True)
         loss, _, _ = model(imgs, noise)
         loss.backward()
+        dist_lib.finish_gradients(model)
         # optax.global_norm: the norm of all (float32) gradients together
-        grad_norm = torch.nn.utils.get_total_norm(
-            [p.grad for p in model.parameters() if p.grad is not None])
+        norm = grad_norm(model.parameters())
         set_lr(optimizer, schedule(step))
         optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": grad_norm}
+        return {"loss": dist_lib.global_mean(loss.detach()),
+                "grad_norm": norm}
 
     return train_step
 
@@ -178,10 +196,12 @@ def make_mae_full_step(schedule, img_size: int = 224):
 
     def full_step(model, optimizer, img_u8, generator, step: int):
         B = img_u8.shape[0]
-        params = sample_mae_params(B, generator, canvas=img_u8.shape[1])
+        params = dist_lib.draw_global(sample_mae_params, B, generator,
+                                      canvas=img_u8.shape[1])
         imgs = mae_augment(img_u8, params, out_size=img_size)
-        noise = _on({"noise": model.draw_noise(B, generator)},
-                    img_u8.device)["noise"]
+        noise = _on({"noise": dist_lib.draw_global(
+            dist_lib.unwrap(model).draw_noise, B, generator)},
+            img_u8.device)["noise"]
         return step_fn(model, optimizer, imgs, noise, step)
 
     return full_step
@@ -200,8 +220,8 @@ def make_moco_full_step(total_steps: int, *, temperature: float = 0.2,
                                    stop_grad_patch_embed)
 
     def full_step(moco, optimizer, img_u8, generator, step: int):
-        params = sample_moco_params(img_u8.shape[0], generator,
-                                    canvas=img_u8.shape[1])
+        params = dist_lib.draw_global(sample_moco_params, img_u8.shape[0],
+                                      generator, canvas=img_u8.shape[1])
         x1, x2 = moco_two_crops(img_u8, params, out_size=img_size)
         m = cosine_momentum(step, base_m=base_m, total_steps=total_steps)
         return step_fn(moco, optimizer, x1, x2, m, step)
@@ -255,35 +275,37 @@ class PretrainRun:
     start_epoch: int = 1
 
     def state_tree(self, epoch: int) -> dict:
-        """A host copy of the full state, `epoch` epochs complete."""
-        return ckpt_lib.host_copy({
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "step": self.step, "meta": {"epoch": epoch}})
+        """A host copy of the full state, `epoch` epochs complete (whole
+        on rank 0 of a placed model; every rank calls it)."""
+        model_sd, optim_sd = ckpt_lib.state_dicts(self.model, self.optimizer)
+        return {"model": model_sd, "optimizer": optim_sd,
+                "step": self.step, "meta": {"epoch": epoch}}
 
     def export(self, epoch: int, model_state: dict | None = None) -> None:
         """Write the export of `epoch` (what `--checkpoint` loads): the
         parameters under `export_prefix`, from `model_state` (a host copy
-        of the model's state dict) or the model."""
+        of the model's full state dict) or the model (then every rank
+        calls it)."""
+        if model_state is None:
+            model_state = ckpt_lib.state_dicts(self.model)[0]
         if not ckpt_lib.is_primary():
             return
-        if model_state is None:
-            model_state = ckpt_lib.host_copy(self.model.state_dict())
         n = len(self.export_prefix)
         self.ckpt.save({"params": {
             name[n:]: model_state[name]
-            for name, _ in self.model.named_parameters()
+            for name, _ in dist_lib.unwrap(self.model).named_parameters()
             if name.startswith(self.export_prefix)},
             "meta": {"epoch": epoch}})
 
     def save(self, epoch: int) -> None:
-        """The export, the resume slot and the retained slot of `epoch`."""
+        """The export, the resume slot and the retained slot of `epoch`,
+        written by rank 0; every rank calls it and waits for the writes."""
         tree = self.state_tree(epoch)
-        if not ckpt_lib.is_primary():
-            return
-        self.export(epoch, tree["model"])
-        self.resume_ckpt.save(tree)
-        _retained_save(self.cfg, tree, epoch)
+        if ckpt_lib.is_primary():
+            self.export(epoch, tree["model"])
+            self.resume_ckpt.save(tree)
+            _retained_save(self.cfg, tree, epoch)
+        dist_lib.barrier()
 
     def maybe_resume(self) -> None:
         """Restore the resume slot, if there is one, and continue after its
@@ -291,8 +313,8 @@ class PretrainRun:
         if not self.resume_ckpt.exists():
             return
         tree = self.resume_ckpt.restore(map_location=self.device)
-        self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
+        ckpt_lib.load_state_dicts(self.model, self.optimizer, tree["model"],
+                                  tree["optimizer"])
         self.step = int(tree["step"])
         self.start_epoch = int(tree["meta"]["epoch"]) + 1
         name = "MAE" if self.cfg.framework == SSLFramework.MAE else "MoCo"
@@ -301,20 +323,49 @@ class PretrainRun:
                              f"{self.start_epoch}")
 
 
+def _pretrain_mesh(cfg: PretrainConfig):
+    """(mesh, TP active) of a pretraining run, with the JAX package's
+    checks (`ssl4gie_tpu/ssl/pretrain.py:120-157`) and the batch's
+    divisibility by the data size; the mesh is None for one process."""
+    tp, device = cfg.runtime.tensor_parallel, cfg.runtime.device
+    if tp > 1:
+        if cfg.framework == SSLFramework.MAE:
+            size = dict(MAE_SIZES.get(cfg.architecture.value, {}),
+                        **cfg.model_kwargs)
+            heads = (size.get("num_heads", 12),
+                     size.get("decoder_num_heads", 16))
+        else:
+            if cfg.architecture.value not in VIT_PRESETS:
+                raise ValueError("--tensor-parallel requires a ViT "
+                                 "architecture; use --fsdp or pure data "
+                                 "parallelism for resnet50")
+            heads = (VIT_PRESETS[cfg.architecture.value]["num_heads"],)
+        mesh = make_tp_mesh(tp, *heads, device=device)
+    else:
+        mesh = make_mesh(device=device)
+    local_batch_size(cfg.batch_size, mesh)
+    return mesh, axis_size(mesh, "model") > 1
+
+
 def build_pretraining(cfg: PretrainConfig) -> PretrainRun:
     """The model (random weights from the seed, `cfg.runtime.device`, the
     compute dtype), optimizer, full step, loader, logger and slots of
     `cfg`. `cfg.model_kwargs` overrides the MAE size preset or passes
-    `MoCo`'s `stage_sizes` (tests narrow the models)."""
+    `MoCo`'s `stage_sizes` (tests narrow the models). Over several
+    processes: the mesh, the placement and each rank's part of the batch
+    (see the module's docstring)."""
     cfg.validate()
     device = default_device(cfg.runtime.device)
     dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
              else torch.float32)
     fw, arch = cfg.framework, cfg.architecture.value
+    mesh, tp = _pretrain_mesh(cfg)
+    place = make_place_fn(mesh, tp=tp, fsdp=cfg.runtime.fsdp)
     src = (SyntheticUnlabeled(cfg.data.synthetic_size) if cfg.data.synthetic
            else UnlabeledSource(discover_unlabeled(cfg.data.data_root)))
     loader = Loader(src, cfg.batch_size, shuffle=True, drop_last=True,
-                    seed=cfg.runtime.seed, num_threads=cfg.data.num_workers)
+                    seed=cfg.runtime.seed, num_threads=cfg.data.num_workers,
+                    shard=axis_shard(mesh))
     steps_per_epoch = len(loader)
     total_steps = steps_per_epoch * cfg.epochs
     schedule = make_schedule(cfg.effective_lr(),
@@ -323,16 +374,17 @@ def build_pretraining(cfg: PretrainConfig) -> PretrainRun:
 
     if fw == SSLFramework.MAE:
         size = dict(MAE_SIZES[arch], **cfg.model_kwargs)
-        model = MAE(img_size=cfg.img_size, norm_pix_loss=cfg.norm_pix_loss,
-                    mask_ratio=cfg.mask_ratio, dtype=dtype, generator=gen,
-                    device=device, **size)
+        model = place(MAE(img_size=cfg.img_size,
+                          norm_pix_loss=cfg.norm_pix_loss,
+                          mask_ratio=cfg.mask_ratio, dtype=dtype,
+                          generator=gen, device=device, **size))
         optimizer = make_mae_optimizer(model, cfg)
         full_step = make_mae_full_step(schedule, cfg.img_size)
         export_prefix = ""
     else:
-        model = MoCo(arch, cfg.moco_dim, cfg.moco_mlp_dim, dtype,
-                     generator=gen, device=device, **cfg.model_kwargs)
-        params = model.trained_parameters()
+        model = place(MoCo(arch, cfg.moco_dim, cfg.moco_mlp_dim, dtype,
+                           generator=gen, device=device, **cfg.model_kwargs))
+        params = dist_lib.unwrap(model).trained_parameters()
         if cfg.optimizer == "lars":
             # LARS keeps its own step count and reads the schedule itself
             optimizer = LARS(params, lr=schedule,
@@ -372,7 +424,7 @@ def run_loop(run: PretrainRun) -> None:
                 epoch_seed(cfg.runtime.seed, epoch))
             batches = prefetch_to_device(run.loader.epoch(epoch), run.device)
             for i, batch in enumerate(batches):
-                if guard.should_stop:
+                if dist_lib.poll_stop(guard.should_stop, i, log_every):
                     # mid-epoch: no save; the last epoch's slot is the
                     # requeue state and this epoch replays
                     run.logger.log({"preempted_in_epoch": epoch},
@@ -395,7 +447,7 @@ def run_loop(run: PretrainRun) -> None:
             mem = peak_memory_mb(run.device)
             if mem is not None:
                 run.logger.log({"epoch": epoch, "max_mem_mb": mem})
-            if guard.should_stop:
+            if dist_lib.poll_stop(guard.should_stop):
                 run.logger.log({"preempted_after_epoch": epoch},
                                echo=f"preemption signal: checkpointed epoch "
                                     f"{epoch}, exiting for requeue")

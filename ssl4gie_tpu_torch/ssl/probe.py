@@ -23,6 +23,7 @@ import torch
 
 from ssl4gie_tpu_torch.core.config import SSLFramework
 from ssl4gie_tpu_torch.core.train_state import freeze
+from ssl4gie_tpu_torch.parallel.tp import set_foreach
 from ssl4gie_tpu_torch.ssl.lars import LARS
 
 HEAD = "lin_head"
@@ -49,7 +50,8 @@ def probe_optimizer(framework: SSLFramework, params, learning_rate: float
                     ) -> torch.optim.Optimizer:
     """SGD with momentum 0.9 (MoCo v3) or LARS with weight decay 0 (MAE)."""
     if framework == SSLFramework.MOCOV3:
-        return torch.optim.SGD(params, lr=learning_rate, momentum=0.9)
+        return set_foreach(torch.optim.SGD(params, lr=learning_rate,
+                                           momentum=0.9))
     if framework == SSLFramework.MAE:
         return LARS(params, lr=learning_rate, weight_decay=0.0, momentum=0.9)
     raise ValueError(f"no linear-probe recipe for framework {framework}")

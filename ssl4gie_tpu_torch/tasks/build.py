@@ -8,7 +8,17 @@ finetune recipes of the JAX package (`tasks/build.py:69-118,198-240`): the
 pretrained load (`--checkpoint`, `--pretraining ImageNet_class`) before the
 optimizer is built, the linear probes (`--probe`), the timm augmentation
 (`--aa`, `--reprob`), label smoothing and mixup/cutmix with the soft-target
-loss, and AdamW with layer decay (`--layer-decay`)."""
+loss, and AdamW with layer decay (`--layer-decay`).
+
+Over several processes (`core/mesh.py:maybe_init_distributed`) the build
+lays out the mesh as the JAX package's does (`tasks/build.py:149-247`):
+the ("data",) mesh, or the ("data", "model") mesh of `--tensor-parallel`
+(`parallel/tp.py:make_tp_mesh`), with its refusals (TP or FSDP with
+detection, TP with an explicit mesh shape or with resnet50) and the
+global batch's divisibility by the data size; then places the model
+(`make_place_fn`: DDP, FSDP2, TP or both) before the optimizer is built
+over the placed parameters, and gives each Loader its rank's part of the
+batch."""
 
 from __future__ import annotations
 
@@ -23,8 +33,11 @@ from ssl4gie_tpu_torch.convert.loaders import (load_imagenet_supervised,
 from ssl4gie_tpu_torch.core.config import (Architecture, Pretraining,
                                            SSLFramework, Task, TrainConfig)
 from ssl4gie_tpu_torch.core.logger import MetricsLogger
+from ssl4gie_tpu_torch.core.mesh import (axis_shard, axis_size,
+                                         local_batch_size, make_mesh)
 from ssl4gie_tpu_torch.core.schedule import ReduceLROnPlateau
-from ssl4gie_tpu_torch.core.train_state import freeze_body, make_adamw
+from ssl4gie_tpu_torch.core.train_state import (freeze, freeze_body,
+                                                make_adamw)
 from ssl4gie_tpu_torch.core.trainer import (TaskDefinition, Trainer,
                                             epoch_seed)
 from ssl4gie_tpu_torch.data import discovery, randaug
@@ -36,8 +49,11 @@ from ssl4gie_tpu_torch.data.splits import split_ids
 from ssl4gie_tpu_torch.metrics import classification as cls_metrics
 from ssl4gie_tpu_torch.models.factory import build_model
 from ssl4gie_tpu_torch.models.layers import default_device
+from ssl4gie_tpu_torch.parallel.distributed import unwrap
+from ssl4gie_tpu_torch.parallel.tp import make_place_fn, make_tp_mesh
 from ssl4gie_tpu_torch.ssl.lr_decay import layer_decay_groups
-from ssl4gie_tpu_torch.ssl.probe import make_probe_optimizer, reinit_head
+from ssl4gie_tpu_torch.ssl.probe import (make_probe_optimizer,
+                                         probe_head_trainable, reinit_head)
 from ssl4gie_tpu_torch.tasks.depth import depth_task
 from ssl4gie_tpu_torch.tasks.detection import (TV_CANVAS, DetectionSource,
                                                DetectionTrainer,
@@ -91,18 +107,20 @@ def _make_sources(cfg: TrainConfig):
 
 
 def make_mixer(n_class: int, mixup: float, cutmix: float,
-               smoothing: float) -> Callable:
+               smoothing: float, accum_steps: int = 1) -> Callable:
     """The MAE finetune recipe's mixer (`main_finetune.py:219-226`) as a
     task's `mixup_fn`: labels -> label-smoothed one-hot targets, then, when
     either alpha is positive, mixup/cutmix of images and targets at one
-    batch's draws from the generator."""
+    batch's draws from the generator (with the global batch's partners
+    under data parallelism; `accum_steps` is the step's microbatch
+    count)."""
     def mixer(img, labels, generator):
         soft = cls_metrics.smooth_one_hot(labels, n_class, smoothing)
         if mixup <= 0 and cutmix <= 0:
             return img, soft
         params = sample_mixup_params(generator, img.shape[1], img.shape[2],
                                      mixup, cutmix)
-        return mixup_cutmix(img, soft, params)
+        return mixup_cutmix(img, soft, params, accum_steps)
     return mixer
 
 
@@ -121,14 +139,14 @@ def make_task_definition(cfg: TrainConfig, extras: dict, device
         if cfg.probe:
             # RRC + hflip + normalize only (`main_lincls.py:273-274`,
             # `main_linprobe.py:133-134`)
-            aug_fn = randaug.make_probe_aug(size)
+            aug_fn = randaug.make_probe_aug(size, o.accum_steps)
         elif o.auto_augment or o.reprob > 0:
             aug_fn = randaug.make_timm_aug(size, o.auto_augment or "",
-                                           o.reprob)
+                                           o.reprob, o.accum_steps)
         mixup_fn = None
         if o.mixup > 0 or o.cutmix > 0 or o.label_smoothing > 0:
             mixup_fn = make_mixer(n_class, o.mixup, o.cutmix,
-                                  o.label_smoothing)
+                                  o.label_smoothing, o.accum_steps)
             loss_fn = cls_metrics.soft_target_cross_entropy
         else:
             weights = torch.tensor(extras["class_weights"],
@@ -150,13 +168,41 @@ def make_task_definition(cfg: TrainConfig, extras: dict, device
     raise ValueError(f"no task definition for {cfg.task}")
 
 
+def make_run_mesh(cfg: TrainConfig, num_heads: int = 12):
+    """(mesh, TP active, FSDP) of a finetune run, with the JAX package's
+    refusals and the batch's divisibility check (`ssl4gie_tpu/tasks/
+    build.py:149-179`); `num_heads` is the ViT's head count, which the
+    tensor-parallel size must divide. The mesh is None for one process."""
+    rt = cfg.runtime
+    tp, fsdp = rt.tensor_parallel, rt.fsdp
+    if (tp > 1 or fsdp) and cfg.task == Task.DETECTION:
+        raise ValueError("--tensor-parallel/--fsdp support the ViT dense/"
+                         "pooled tasks (classification/segmentation/depth) "
+                         "and SSL pretraining; use pure data parallelism for "
+                         "detection")
+    if tp > 1:
+        if rt.mesh_shape is not None:
+            raise ValueError("give either tensor_parallel or an explicit "
+                             "mesh_shape/mesh_axes, not both")
+        if cfg.architecture == Architecture.RESNET50:
+            raise ValueError("--tensor-parallel requires a ViT architecture; "
+                             "use --fsdp or pure data parallelism for "
+                             "resnet50")
+        mesh = make_tp_mesh(tp, num_heads, device=rt.device)
+    else:
+        mesh = make_mesh(rt.mesh_shape, rt.mesh_axes, rt.device)
+    local_batch_size(cfg.data.batch_size, mesh)
+    return mesh, axis_size(mesh, "model") > 1, fsdp
+
+
 def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
     """The Trainer of `cfg`, on `cfg.runtime.device` (the card unless
-    "cpu"). `widths` narrow the model (`models/factory.py:build_model`),
-    for tests."""
+    "cpu"; this rank's card under a process group). `widths` narrow the
+    model (`models/factory.py:build_model`), for tests."""
     cfg.validate()
+    mesh, tp, fsdp = make_run_mesh(cfg, widths.get("num_heads", 12))
     if cfg.task == Task.DETECTION:
-        return _build_detection_trainer(cfg, **widths)
+        return _build_detection_trainer(cfg, mesh, **widths)
     device = default_device(cfg.runtime.device)
     train_src, val_src, test_src, extras = _make_sources(cfg)
     td, finalize = make_task_definition(cfg, extras, device)
@@ -174,17 +220,21 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
                             cfg.runtime.seed),
                         probe_bn=probe_bn, device=device, **widths)
     load_backbone(cfg, model)
+    prepare_trainable(cfg, model)
+    model = make_place_fn(mesh, tp=tp, fsdp=fsdp)(model)
     optimizer = make_optimizer(cfg, model)
     o = cfg.optim
 
     bs, seed, threads = (cfg.data.batch_size, cfg.runtime.seed,
                          cfg.data.num_workers)
+    shard = axis_shard(mesh)
     train_loader = Loader(train_src, bs, shuffle=True, drop_last=True,
-                          seed=seed, num_threads=threads)
+                          seed=seed, num_threads=threads, shard=shard,
+                          accum_steps=o.accum_steps)
     val_loader = Loader(val_src, bs, shuffle=False, drop_last=False,
-                        seed=seed, num_threads=threads)
+                        seed=seed, num_threads=threads, shard=shard)
     test_loader = Loader(test_src, bs, shuffle=False, drop_last=False,
-                         seed=seed, num_threads=threads)
+                         seed=seed, num_threads=threads, shard=shard)
 
     logger = MetricsLogger(cfg.log_dir, cfg.run_name(),
                            tb=cfg.runtime.tensorboard)
@@ -217,18 +267,29 @@ def load_backbone(cfg: TrainConfig, model: torch.nn.Module) -> None:
 PROBE_STREAM = 7
 
 
-def make_optimizer(cfg: TrainConfig, model: torch.nn.Module
-                   ) -> torch.optim.Optimizer:
-    """The linear probe's optimizer on its re-initialised head
-    (`main_lincls.py:158-166,233-237`, `main_linprobe.py:219-252`), or
-    AdamW over the trainable parameters (the heads/decoders only with
-    --frozen, as the reference freezes the encoder, `Models/models.py:
-    138-140`), with --layer-decay in one param group per layer scale over
-    the backbone's depth."""
-    o = cfg.optim
+def prepare_trainable(cfg: TrainConfig, model: torch.nn.Module) -> None:
+    """Before the model is placed: the linear probe's head re-initialised
+    and everything else frozen, or with --frozen the encoder frozen (a
+    placement reduces the gradients of what still trains)."""
     if cfg.probe:
         reinit_head(model, torch.Generator().manual_seed(
             epoch_seed(cfg.runtime.seed, PROBE_STREAM)))
+        freeze(model, probe_head_trainable)
+    elif cfg.frozen:
+        freeze_body(model)
+
+
+def make_optimizer(cfg: TrainConfig, model: torch.nn.Module
+                   ) -> torch.optim.Optimizer:
+    """The linear probe's optimizer on its head (`main_lincls.py:158-166,
+    233-237`, `main_linprobe.py:219-252`), or AdamW over the trainable
+    parameters (the heads/decoders only with --frozen, as the reference
+    freezes the encoder, `Models/models.py:138-140`), with --layer-decay in
+    one param group per layer scale over the backbone's depth. `model` may
+    be placed; `prepare_trainable` ran before."""
+    o = cfg.optim
+    model = unwrap(model)
+    if cfg.probe:
         return make_probe_optimizer(cfg.ss_framework, model, o.learning_rate)
     params = freeze_body(model) if cfg.frozen else list(model.parameters())
     if o.layer_decay is not None:
@@ -251,11 +312,13 @@ def detection_canvas(cfg: TrainConfig) -> tuple[int, str]:
     return (1024, "fixed") if vit else (TV_CANVAS, "torchvision")
 
 
-def _build_detection_trainer(cfg: TrainConfig, **widths) -> DetectionTrainer:
+def _build_detection_trainer(cfg: TrainConfig, mesh=None,
+                             **widths) -> DetectionTrainer:
     """The detection build (JAX `tasks/build.py:_build_detection_trainer`,
     `train_detection.py:169-300`): the Kvasir boxes JSON and the split,
-    Faster R-CNN, AdamW, the mAP-selected checkpoint. `widths` narrow the
-    ViT (`FasterRCNN(depth=, embed_dim=, num_heads=)`), for tests."""
+    Faster R-CNN, AdamW, the mAP-selected checkpoint; data parallelism
+    only (DDP over `mesh`). `widths` narrow the ViT (`FasterRCNN(depth=,
+    embed_dim=, num_heads=)`), for tests."""
     d = cfg.data
     device = default_device(cfg.runtime.device)
     canvas, resize = detection_canvas(cfg)
@@ -282,6 +345,7 @@ def _build_detection_trainer(cfg: TrainConfig, **widths) -> DetectionTrainer:
                         **(SYNTHETIC_DET if d.synthetic else {}), **widths)
     # the encoder lands in the ViTDet backbone or the RN50-FPN body
     load_backbone(cfg, model)
+    model = make_place_fn(mesh)(model)
     o = cfg.optim
     optimizer = make_adamw(model.parameters(), o.learning_rate, o.b1, o.b2,
                            o.eps, o.adamw_weight_decay, grad_clip=o.grad_clip)
@@ -299,4 +363,5 @@ def _build_detection_trainer(cfg: TrainConfig, **widths) -> DetectionTrainer:
                             epochs=cfg.epochs, batch_size=d.batch_size,
                             accum_steps=o.accum_steps, seed=cfg.runtime.seed,
                             num_threads=d.num_workers, plateau=plateau,
-                            log_every=cfg.runtime.log_every)
+                            log_every=cfg.runtime.log_every,
+                            shard=axis_shard(mesh))

@@ -23,6 +23,7 @@ from ssl4gie_tpu_torch.core.trainer import TaskDefinition, Trainer
 from ssl4gie_tpu_torch.data.augment import (HUE, JITTER, SIGMA_RANGE,
                                             color_jitter, gaussian_blur)
 from ssl4gie_tpu_torch.data.loader import Loader, Source, prefetch_to_device
+from ssl4gie_tpu_torch.parallel import distributed as dist_lib
 from ssl4gie_tpu_torch.metrics.detection import MeanAveragePrecision
 from ssl4gie_tpu_torch.models.faster_rcnn import MAX_GT
 from ssl4gie_tpu_torch.models.layers import default_device
@@ -300,12 +301,13 @@ def make_detection_train_step(accum_steps: int = 1):
         sums = {}
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
-            losses = model(images[sl], batch["gt_boxes"][sl],
-                           batch["gt_labels"][sl], batch["gt_valid"][sl],
-                           train=True, generator=generator,
-                           noise=None if noise is None else noise[i])
-            total = sum(losses.values())
-            total.backward()       # sums the microbatch gradients
+            with dist_lib.gradient_sync(model, i == accum_steps - 1):
+                losses = model(images[sl], batch["gt_boxes"][sl],
+                               batch["gt_labels"][sl], batch["gt_valid"][sl],
+                               train=True, generator=generator,
+                               noise=None if noise is None else noise[i])
+                total = sum(losses.values())
+                total.backward()       # sums the microbatch gradients
             for k, v in {"loss": total, **losses}.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
         if accum_steps > 1:
@@ -313,7 +315,8 @@ def make_detection_train_step(accum_steps: int = 1):
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
         apply_gradients(optimizer)
-        return {k: v / accum_steps for k, v in sums.items()}
+        return {k: dist_lib.global_mean(v / accum_steps)
+                for k, v in sums.items()}
 
     return train_step
 
@@ -327,7 +330,9 @@ def make_detection_full_step(accum_steps: int = 1):
 
     def full_step(model, optimizer, batch: dict, generator: torch.Generator,
                   model_generator: torch.Generator | None = None):
-        params = sample_detection_params(batch["image"].shape[0], generator)
+        params = dist_lib.draw_global(sample_detection_params,
+                                      batch["image"].shape[0], generator,
+                                      accum_steps=accum_steps)
         img, boxes = detection_augment(batch["image"], batch["gt_boxes"],
                                        params)
         return step(model, optimizer, dict(batch, image=img, gt_boxes=boxes),
@@ -355,12 +360,16 @@ def evaluate_map(model, source, batch_size: int = 2,
                  device=None) -> Dict[str, float]:
     """Detect over every sample of `source` and return its COCO mAP
     (`map`, `map_50`, `map_75`). The batches are made on `device`: the
-    card when none is given (no card raises), which must hold `model`."""
+    card when none is given (no card raises), which must hold `model`.
+    Under data parallelism the ranks take the batches in turn, and every
+    rank's detections are gathered, in order, into one metric."""
     device = default_device(device)
-    eval_step = make_detection_eval_step(model)
+    eval_step = make_detection_eval_step(dist_lib.unwrap(model))
     metric = MeanAveragePrecision()
     n = len(source)
-    for start in range(0, n, batch_size):
+    rank, ranks = dist_lib.data_shard()
+    done = []
+    for start in list(range(0, n, batch_size))[rank::ranks]:
         # every image enters the metric; the ragged tail is padded by
         # repeating the last sample, so each batch has one shape, and the
         # padded rows are skipped below
@@ -389,6 +398,11 @@ def evaluate_map(model, source, batch_size: int = 2,
             gv = s["gt_valid"]
             targets.append({"boxes": s["gt_boxes"][gv],
                             "labels": s["gt_labels"][gv]})
+        done.append((start, preds, targets))
+    if ranks > 1:
+        done = sorted((b for r in dist_lib.gather_objects(done) for b in r),
+                      key=lambda b: b[0])
+    for _, preds, targets in done:
         metric.update(preds, targets)
     return metric.compute()
 
@@ -423,10 +437,12 @@ class DetectionTrainer(Trainer):
                  optimizer: torch.optim.Optimizer, device, train_source,
                  val_source, test_source, logger, ckpt, epochs: int,
                  batch_size: int, accum_steps: int = 1, seed: int = 42,
-                 num_threads: int = 8, plateau=None, log_every: int = 10):
+                 num_threads: int = 8, plateau=None, log_every: int = 10,
+                 shard: tuple = (0, 1)):
         train_loader = Loader(train_source, batch_size, shuffle=True,
                               drop_last=True, seed=seed,
-                              num_threads=num_threads)
+                              num_threads=num_threads, shard=shard,
+                              accum_steps=accum_steps)
         super().__init__(task=DETECTION_TASK, model=model,
                          optimizer=optimizer, device=device,
                          train_loader=train_loader, val_loader=val_source,
@@ -451,7 +467,7 @@ class DetectionTrainer(Trainer):
         aug_gen, model_gen = self.generators(epoch)
         last_loss = None
         for step, batch in enumerate(it):
-            if self._guard is not None and self._guard.should_stop:
+            if self._stop_requested(step):
                 self._check_preempted(epoch - 1)
             metrics = self.full_step(self.model, self.optimizer, batch,
                                      aug_gen, model_gen)

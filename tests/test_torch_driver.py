@@ -108,7 +108,7 @@ def test_config_fields_match_jax(argv):
 
 # each flag and the ROADMAP item that it raises naming, or None once the
 # port runs it (the SSL recipes and checkpoint ingestion, queue 1 items 5
-# and 7)
+# and 7; tensor parallelism and FSDP, the multi-GPU slice)
 UNPORTED = {
     "probe": (["--task", "classification", "--probe", "--pretraining",
                "Hyperkvasir", "--ss-framework", "mae"], None),
@@ -120,8 +120,8 @@ UNPORTED = {
     "smoothing": (["--task", "classification", "--smoothing", "0.1"], None),
     "layer-decay": (["--task", "classification", "--layer-decay", "0.65"],
                     None),
-    "tensor-parallel": (["--task", "segmentation", "--tp", "2"], "item 6"),
-    "fsdp": (["--task", "depth", "--fsdp"], "item 6"),
+    "tensor-parallel": (["--task", "segmentation", "--tp", "2"], None),
+    "fsdp": (["--task", "depth", "--fsdp"], None),
     "checkpoint": (["--task", "classification", "--checkpoint", "x.pth",
                     "--pretraining", "Hyperkvasir", "--ss-framework", "mae"],
                    None),
@@ -136,17 +136,29 @@ UNPORTED = {
 def test_unported_flags_raise(flag):
     """Each flag the port does not run yet raises NotImplementedError
     naming its ROADMAP item, where the JAX package accepts it; a flag the
-    port runs gives the JAX package's config fields; float32 stays
-    allowed on the CPU."""
+    port runs gives the JAX package's config fields (the mesh's too);
+    float32 stays allowed on the CPU. `--tp 2` in one process fails in
+    both packages' `make_tp_mesh`, on one device, with one message."""
     argv, item = UNPORTED[flag]
     want = dataclasses.asdict(jargs.to_train_config(parse(jargs, argv)))
     if item is None:
-        got = dataclasses.asdict(targs.to_train_config(parse(targs, argv)))
+        cfg = targs.to_train_config(parse(targs, argv))
+        got = dataclasses.asdict(cfg)
         for group in ("optim", "data"):
             assert got[group] == want[group]
         for key in ("task", "architecture", "pretraining", "ss_framework",
                     "checkpoint", "probe", "out_token"):
             assert str(got[key]) == str(want[key]), key
+        for key in ("tensor_parallel", "fsdp", "mesh_shape", "mesh_axes"):
+            assert got["runtime"][key] == want["runtime"][key], key
+        if flag == "tensor-parallel":
+            from ssl4gie_tpu.parallel.tp import make_tp_mesh
+            from ssl4gie_tpu_torch.tasks.build import build_trainer
+            with pytest.raises(ValueError) as jerr:
+                make_tp_mesh(2, 12, devices=jax.devices()[:1])
+            with pytest.raises(ValueError, match="does not divide") as terr:
+                build_trainer(cfg)
+            assert str(terr.value) == str(jerr.value)
         return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         targs.to_train_config(parse(targs, argv))

@@ -146,8 +146,10 @@ def test_cli_errors_match_jax(monkeypatch, capsys, argv):
 
 def test_cli_needs_the_card_unless_cpu(monkeypatch, tmp_path, narrow):
     """Without `--device cpu` and without a card the CLI raises before
-    it builds anything; float32 on the card and the multi-GPU flags raise
-    and name their ROADMAP item."""
+    it builds anything; float32 on the card raises and names its ROADMAP
+    item. The multi-GPU flags give the JAX CLI's config fields, and `--tp
+    2` in one process fails in `make_tp_mesh` with the JAX package's
+    message, before anything is written."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--framework", "mocov3", "--synthetic", "--ckpt-dir",
             str(tmp_path)]
@@ -156,8 +158,18 @@ def test_cli_needs_the_card_unless_cpu(monkeypatch, tmp_path, narrow):
     with pytest.raises(NotImplementedError, match="queue 2 C"):
         tcli.main(base + ["--compute-dtype", "float32"])
     for flag in (["--tp", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tcli.main(base + CPU + flag)
+        want = _jax_cli_config(monkeypatch, base + flag)
+        p = tcli.build_parser()
+        got = tcli.to_pretrain_config(p, p.parse_args(base + CPU + flag))
+        for key in ("tensor_parallel", "fsdp", "mesh_shape", "mesh_axes"):
+            assert getattr(got.runtime, key) == getattr(want.runtime, key)
+    import jax
+    from ssl4gie_tpu.parallel.tp import make_tp_mesh
+    with pytest.raises(ValueError) as jerr:
+        make_tp_mesh(2, 12, devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match="does not divide") as terr:
+        tcli.main(base + CPU + ["--tp", "2"])
+    assert str(terr.value) == str(jerr.value)
     assert not any(f.endswith(".pt") for f in os.listdir(tmp_path))
 
 

@@ -239,11 +239,13 @@ def test_imagenet_class_and_detector_loads(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--tp", "2"], "item 6"), (["--fsdp"], "item 6"),
+    (["--tp", "2"], "does not divide"), (["--fsdp"], None),
     (["--device", "cuda"], "queue 2 C")])
 def test_flags_that_still_raise(tmp_path, flags, match):
-    """Tensor parallelism and FSDP (multi-GPU, queue 1 item 6) and float32
-    on the card (queue 2 C) still raise, the recipe's flags with them."""
+    """Float32 on the card (queue 2 C) still raises with the recipe's
+    flags. Tensor parallelism and FSDP are ported: with the recipe's flags
+    they give their config fields, and `--tp 2` in one process fails in
+    `make_tp_mesh` (two ranks would divide it)."""
     p = argparse.ArgumentParser()
     targs.add_common(p)
     targs.add_train(p)
@@ -251,5 +253,14 @@ def test_flags_that_still_raise(tmp_path, flags, match):
             "float32", *MAE_RECIPE, *flags]
     if "--device" not in flags:
         argv += ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=match):
-        targs.to_train_config(p.parse_args(argv))
+    if "--device" in flags:
+        with pytest.raises(NotImplementedError, match=match):
+            targs.to_train_config(p.parse_args(argv))
+        return
+    cfg = targs.to_train_config(p.parse_args(argv))
+    assert (cfg.runtime.tensor_parallel, cfg.runtime.fsdp) == (
+        (2, False) if "--tp" in flags else (1, True))
+    assert cfg.optim.layer_decay == 0.65 and cfg.optim.mixup == 0.8
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            tbuild.build_trainer(cfg)

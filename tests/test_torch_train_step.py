@@ -233,8 +233,9 @@ def test_port_imports_no_jax():
     driver's (MoCo v3, LARS, the pretrain CLI), the predictors, the
     predict CLI, the native loader, the SSL recipes (RandAugment, layer
     decay, the probes, the transfer datasets) and checkpoint ingestion (the
-    loaders, the facade, the convert CLI) among them, leaves jax, flax,
-    optax and the JAX package out of sys.modules."""
+    loaders, the facade, the convert CLI) and the multi-GPU layer (the
+    mesh, the process group, tensor parallelism and the placements) among
+    them, leaves jax, flax, optax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -258,7 +259,8 @@ def test_port_imports_no_jax():
         " 'cli.pretrain', 'tasks.predict', 'tasks.colormaps', 'cli.predict',"
         " 'data.native_loader', 'data.augment', 'data.randaug',"
         " 'data.transfer', 'ssl.lr_decay', 'ssl.probe',"
-        " 'convert.torch_names', 'convert.loaders', 'utils', 'cli.convert'):\n"
+        " 'convert.torch_names', 'convert.loaders', 'utils', 'cli.convert',"
+        " 'core.mesh', 'parallel.distributed', 'parallel.tp'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax', 'ssl4gie_tpu')"
         " if m in sys.modules))\n")
