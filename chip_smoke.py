@@ -212,7 +212,31 @@
    encoder MLP (B=256) through the fused route (#8/#9) under TP, 1536
    hidden units a rank, one launch each way, within 2^-6 of the whole MLP
    unfused. Per-rank launches and ms/step on their own lines.
-14. Prints the card's name and power limit, one JSON line of per-kernel
+14. Float32 compute and the head width 80 (the MAE ViT-H), each phase
+   beside the bf16 one it mirrors: (a) the kernel phase holds the float32
+   instances (FFMA, `csrc/attention_f32.cuh`) of #1/#2 at (64, 197) 12 x 64,
+   (256, 197) 16 x 32 and (64, 180) 16 x 80, of #4/#5 on the detection grid
+   and the eval batch's, of #6/#7 at (48, 4096, 64), the eval batch's and
+   the masked cases, and the bf16 Dh-80 instance of #1/#2 at (64, 180),
+   against their plain versions (float32: outputs within 1e-5 and gradients
+   within 1e-4 of the largest value; the bound at the card's float32 peak,
+   66.9 TFLOP/s, SDPA in float32); (b) `build_trainer` on the finetune
+   driver's command line plus --compute-dtype float32, a few steps, twice:
+   exactly 12 float32 #1, 12 float32 #2 and one bf16 #3 a step, the two
+   runs' parameters bitwise equal, the logits within 1e-3 of the largest
+   against float32 on the CPU; (c) the ViT-B detection trainer of a
+   `cli/train.py --task detection --compute-dtype float32` command line
+   (1024 px, B=4): 8 + 8 float32 window and 4 + 4 float32 flash launches a
+   step, an eval forward, the backbone map within 1e-3 at 512 px; (d) the
+   MAE ViT-H/14 from `build_pretraining` at B=64: at --mask-ratio 0.75 only
+   the decoder's 8 + 8 Dh-32 launches, at 0.3 also 32 + 32 Dh-80 ones, the
+   loss within 1% of float32 on the CPU at B=2; then --compute-dtype
+   float32 at B=8, the encoder cut to 4 blocks, 4 + 4 float32 Dh-80 and
+   8 + 8 float32 Dh-32 launches, the loss within 1e-3; (e) the float32
+   policy's cost (`core/config.py:float32_policy`, set for every phase):
+   the RN50 seg step under it and under PyTorch's defaults, bf16 and
+   float32 compute.
+15. Prints the card's name and power limit, one JSON line of per-kernel
    results (the detection kernels' rows also carry the detection driver's
    launches per train step and per eval batch, #1/#2's the recipes' per
    train step, and the multi-GPU phase's per step as `mgpu_<leg>_...`),
@@ -261,7 +285,8 @@ from ssl4gie_tpu_torch.cli import evaluate as cli_evaluate
 from ssl4gie_tpu_torch.cli import convert as cli_convert
 from ssl4gie_tpu_torch.cli import pretrain as cli_pretrain
 from ssl4gie_tpu_torch.core.config import (Architecture, DataConfig,
-                                           PretrainConfig, Task)
+                                           PretrainConfig, Task,
+                                           float32_policy)
 from ssl4gie_tpu_torch.core.schedule import cosine_momentum
 from ssl4gie_tpu_torch.core.train_state import make_adamw
 from ssl4gie_tpu_torch.convert.loaders import load_vit_encoder
@@ -292,7 +317,7 @@ from ssl4gie_tpu_torch.models.factory import (DeepLabV3Plus, ResNetClassifier,
                                               build_model)
 from ssl4gie_tpu_torch.models.faster_rcnn import FasterRCNN
 from ssl4gie_tpu_torch.models.vit import ViTClassifier
-from ssl4gie_tpu_torch.ssl.mae import MAE
+from ssl4gie_tpu_torch.ssl.mae import MAE, MAE_SIZES
 from ssl4gie_tpu_torch.ssl.moco_v3 import (STOP_GRAD_ARCHS, VIT_PRESETS,
                                            MoCoEncoder)
 from ssl4gie_tpu_torch.ssl.pretrain import (PretrainRun, SyntheticUnlabeled,
@@ -360,6 +385,15 @@ SEG_WARMUP_STEPS, SEG_TIMED_STEPS = 1, 3
 SEG_REF_B = 2
 # the card's published peaks (H100 SXM, dense bf16 tensor cores; HBM3)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# and its float32 peak outside the tensor cores (FFMA), the float32
+# instances' bound: no tensor-core product keeps float32's precision
+PEAK_F32_FLOPS = 66.9e12
+# float32 compute (`--compute-dtype float32`): the float32 instances'
+# outputs within 1e-5 of the largest value and gradients within 1e-4 of
+# their plain versions; a float32 model on the card within 1e-3 of the
+# largest value of a float32 CPU run of the same weights (the bf16 paths'
+# 5% does not apply)
+F32_OUT_TOL, F32_GRAD_TOL, F32_MODEL_TOL = 1e-5, 1e-4, 1e-3
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
@@ -419,22 +453,26 @@ def check_close(name, got, ref, rel_tol: float) -> float:
     return err.max().item()
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time the card could take for the work (ms), and which of
-    its operations (at PEAK_FLOPS) and its bytes (at PEAK_BYTES) bounds it."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    its operations (at `peak`: PEAK_FLOPS for bf16 tensor-core work,
+    PEAK_F32_FLOPS for float32) and its bytes (at PEAK_BYTES) bounds it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def result(name, source, replaces, err, ms, plain_ms, library_ms, flops,
-           nbytes, **extra) -> dict:
-    """One kernel's entry of the JSON line (launches are added later)."""
-    bound_ms, bound_by = bound(flops, nbytes)
+           nbytes, peak: float = PEAK_FLOPS, **extra) -> dict:
+    """One kernel's entry of the JSON line (launches are added later); the
+    bound at `peak`, stated beside it."""
+    bound_ms, bound_by = bound(flops, nbytes, peak)
     return {"name": name, "route": "cuda",
             "source": f"ssl4gie_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, **extra}
+            "bound_peak_tflops": peak / 1e12, "library_ms": library_ms,
+            **extra}
 
 
 def tflops(flops: float, ms: float) -> str:
@@ -442,17 +480,19 @@ def tflops(flops: float, ms: float) -> str:
     return f"{flops / ms / 1e9:.1f} TFLOP/s"
 
 
-def attn_work(seqs: int, heads: int, n: int, dh: int, backward: bool):
+def attn_work(seqs: int, heads: int, n: int, dh: int, backward: bool,
+              itemsize: int = 2):
     """FLOPs and bytes of packed-QKV attention over `seqs` sequences:
     forward 2 products (Q.K^T, P.V), backward 5 (S, dP, dV, dQ, dK) of
     2 n^2 dh each per head; bytes: forward qkv in, out and lse out;
-    backward qkv, out, lse, dO in and dqkv out (bf16, lse f32)."""
+    backward qkv, out, lse, dO in and dqkv out (`itemsize` bytes an
+    element: bf16 2, float32 4; lse f32)."""
     tok, c = seqs * n, heads * dh
     flops = (10 if backward else 4) * seqs * heads * n * n * dh
     lse = seqs * heads * n * 4
     if backward:
-        return flops, tok * (3 * c + c + c + 3 * c) * 2 + lse
-    return flops, tok * (3 * c + c) * 2 + lse
+        return flops, tok * (3 * c + c + c + 3 * c) * itemsize + lse
+    return flops, tok * (3 * c + c) * itemsize + lse
 
 
 def save_p_work(seqs: int, heads: int, n: int, dh: int, backward: bool):
@@ -1050,8 +1090,33 @@ def main_path(card: str) -> dict:
         raise AssertionError(f"logits disagree: {err} > {LOGIT_TOL} * {scale}")
     return launches
 
+class InstanceCount:
+    """One instance's launches of a kernel wrapper, read and set as
+    `launches` like a wrapper's own count: the float32 instance's
+    (`launches_f32`), or, given a head width, the dense kernel's launches
+    at one (dtype, Dh) (`launches_by_dh`)."""
+
+    def __init__(self, fn, dtype=torch.float32, dh: int | None = None):
+        self.fn, self.dtype, self.dh = fn, dtype, dh
+
+    @property
+    def launches(self) -> int:
+        if self.dh is None:
+            return self.fn.launches_f32
+        return self.fn.launches_by_dh[self.dtype, self.dh]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        if self.dh is None:
+            self.fn.launches_f32 = n
+        else:
+            self.fn.launches_by_dh[self.dtype, self.dh] = n
+
+
 # every kernel's launch counter: a path's launches are checked on all of
-# them (those it does not run must stay at 0)
+# them (those it does not run must stay at 0). The bf16 instances count in
+# `launches`; the float32 ones apart (`_f32`), and the dense kernel's
+# Dh-80 launches also apart (`_dh80`, bf16; `_f32_dh80`)
 COUNTERS = {"dense_attention_fwd": da.attention_fwd,
             "dense_attention_bwd": da.attention_bwd,
             "shear_rotate": rot.shear_rotate,
@@ -1065,7 +1130,19 @@ COUNTERS = {"dense_attention_fwd": da.attention_fwd,
             "attention_save_p_fwd": av.attention_save_p_fwd,
             "attention_save_p_bwd": av.attention_save_p_bwd,
             "window_v2_fwd": av.window_v2_fwd,
-            "window_v2_bwd": av.window_v2_bwd}
+            "window_v2_bwd": av.window_v2_bwd,
+            **{f"{name}_f32": InstanceCount(fn) for name, fn in (
+                ("dense_attention_fwd", da.attention_fwd),
+                ("dense_attention_bwd", da.attention_bwd),
+                ("window_attention_fwd", wa.window_attention_fwd),
+                ("window_attention_bwd", wa.window_attention_bwd),
+                ("flash_attention_fwd", fa.flash_fwd),
+                ("flash_attention_bwd", fa.flash_bwd))},
+            **{f"dense_attention_{d}{sfx}_dh80": InstanceCount(fn, dt, 80)
+               for d, fn in (("fwd", da.attention_fwd),
+                             ("bwd", da.attention_bwd))
+               for sfx, dt in (("", torch.bfloat16),
+                               ("_f32", torch.float32))}}
 
 
 def check_launches(tag: str, expected: dict) -> dict:
@@ -1138,13 +1215,14 @@ DENSE_PATHS = {
 }
 
 
-def dense_setup(tag: str):
-    """A path of DENSE_PATHS: its model (bf16 compute over f32 masters,
-    random weights from SEED) on the card, its optimizer, the full step,
-    the batch and a generator on the card (augmentation factors, dropout)."""
+def dense_setup(tag: str, dtype=torch.bfloat16):
+    """A path of DENSE_PATHS: its model (bf16 compute, or `dtype`, over f32
+    masters, random weights from SEED) on the card, its optimizer, the full
+    step, the batch and a generator on the card (augmentation factors,
+    dropout)."""
     _, build, task, kind, _ = DENSE_PATHS[tag]
     dev = torch.device("cuda")
-    model = build(torch.bfloat16, dev, torch.Generator().manual_seed(SEED))
+    model = build(dtype, dev, torch.Generator().manual_seed(SEED))
     img_u8, targets = dense_batch(kind)
     return (model, make_adamw(model.parameters(), LR),
             make_full_step(task()), img_u8, targets,
@@ -1731,7 +1809,10 @@ def moco_path(arch: str, card: str) -> dict:
 DET_COUNTERS = {"window_attention_fwd": wa.window_attention_fwd,
                 "window_attention_bwd": wa.window_attention_bwd,
                 "flash_attention_fwd": fa.flash_fwd,
-                "flash_attention_bwd": fa.flash_bwd}
+                "flash_attention_bwd": fa.flash_bwd,
+                **{f"{name}_f32": COUNTERS[f"{name}_f32"] for name in (
+                    "window_attention_fwd", "window_attention_bwd",
+                    "flash_attention_fwd", "flash_attention_bwd")}}
 
 
 def det_setup(arch: str = "vit_b", canvas: int = DET_IMG):
@@ -1776,7 +1857,8 @@ def det_path(card: str) -> dict:
     expected = {"window_attention_fwd": n_windowed * n_steps,
                 "window_attention_bwd": n_windowed * n_steps,
                 "flash_attention_fwd": n_global * n_steps,
-                "flash_attention_bwd": n_global * n_steps}
+                "flash_attention_bwd": n_global * n_steps,
+                **{name: 0 for name in DET_COUNTERS if name.endswith("_f32")}}
     print(f"[det] launches over {n_steps} steps: {launches} "
           f"(expected {expected})", flush=True)
     if launches != expected:
@@ -1831,7 +1913,7 @@ def det_path(card: str) -> dict:
     if not bool(torch.isfinite(fmap).all()) or err > LOGIT_TOL * scale:
         raise AssertionError(f"backbone maps disagree: {err} > {LOGIT_TOL} "
                              f"* {scale}")
-    return launches
+    return {k: v for k, v in launches.items() if not k.endswith("_f32")}
 
 
 def det_rn50_path(card: str) -> dict:
@@ -2069,14 +2151,15 @@ DRIVER_LEDGER_KEYS = [
     {"resumed_from_epoch", "best_val", "wall_s"}]
 
 
-def driver_config(ckpt_dir: str, epochs: int):
-    """The port's TrainConfig of DRIVER_ARGV, as `cli/train.py` makes it."""
+def driver_config(ckpt_dir: str, epochs: int, argv=()):
+    """The port's TrainConfig of DRIVER_ARGV (plus `argv`), as
+    `cli/train.py` makes it."""
     p = argparse.ArgumentParser()
     targs.add_common(p)
     targs.add_train(p)
     cfg = targs.to_train_config(p.parse_args(
         DRIVER_ARGV + ["--learning-rate-scheduler", "--epochs", str(epochs),
-                       "--ckpt-dir", ckpt_dir]))
+                       "--ckpt-dir", ckpt_dir, *argv]))
     cfg.data.synthetic_size = DRIVER_SYNTHETIC
     return cfg
 
@@ -2700,15 +2783,16 @@ def det_driver_argv(root: str, ckpt_dir: str, arch: str) -> list:
             "--ckpt-dir", ckpt_dir]
 
 
-def det_driver_config(root: str, ckpt_dir: str, arch: str, epochs: int):
+def det_driver_config(root: str, ckpt_dir: str, arch: str, epochs: int,
+                      argv=()):
     """The port's TrainConfig of a `cli/train.py` detection command line
-    (plateau on, the loss logged once an epoch)."""
+    (plateau on, the loss logged once an epoch; plus `argv`)."""
     p = argparse.ArgumentParser()
     targs.add_common(p)
     targs.add_train(p)
     cfg = targs.to_train_config(p.parse_args(
         det_driver_argv(root, ckpt_dir, arch)
-        + ["--learning-rate-scheduler", "--epochs", str(epochs)]))
+        + ["--learning-rate-scheduler", "--epochs", str(epochs), *argv]))
     cfg.runtime.log_every = DET_DRIVER_STEPS
     return cfg
 
@@ -3501,6 +3585,522 @@ def multi_gpu_path(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------- float32 compute and Dh 80
+# ViT-H: MAE's own per-GPU batch (`--batch_size 64`, Models/mae/
+# main_pretrain.py); the recipe's mask ratio and one whose kept tokens
+# (1 + int(256 * 0.7) = 180) reach the packed-QKV range
+VIT_H_B, VIT_H_MASKS = 64, (0.75, 0.3)
+VIT_H_WARMUP, VIT_H_TIMED = 1, 2
+VIT_H_LOSS_TOL = 0.01        # bf16 on the card against f32 on the CPU
+# the float32 ViT-H step: cut in depth (the kernels' shapes are a block's)
+VIT_H_F32_B, VIT_H_F32_DEPTH = 8, 4
+F32_WARMUP, F32_TIMED = 1, 3
+F32_NOTE = "--compute-dtype float32 (f32 compute over f32 masters)"
+
+
+def check_f32(name, got, ref, tol: float) -> float:
+    """Max |got - ref|; raise unless every element is finite and within
+    tol * max|ref| (the float32 instances' limit)."""
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - ref).abs().max().item()
+    if err > tol * ref.abs().max().item():
+        raise AssertionError(f"{name}: kernel disagrees with the plain version:"
+                             f" max|err|={err:.4g}, max|ref|="
+                             f"{ref.abs().max().item():.4g} (tol {tol:g})")
+    return err
+
+
+def held_instance(base: str, sfx: str, what: str, src: str, replaces,
+                  dtype, fwd, bwd, plain_fwd, plain_bwd, plain_graph,
+                  sdpa_in, scale: float, work_f, work_b,
+                  card: str) -> list[dict]:
+    """One instance of an attention kernel against its plain version on the
+    card: float32 outputs within F32_OUT_TOL and gradients within
+    F32_GRAD_TOL of the largest value, bf16 within two bf16 ulps (2^-6), the
+    log-sum-exp within 2^-16; timed beside the plain version, SDPA in the
+    same dtype and the bound at the dtype's peak. `fwd()` gives (out, lse),
+    `bwd(out, lse)` the gradients (None: a forward-only row),
+    `plain_graph()` (output, inputs, dout) of a recorded plain forward,
+    `sdpa_in` contiguous (B, H, N, Dh) q, k, v and dO. Rows
+    `<base>_fwd<sfx>` and `<base>_bwd<sfx>`."""
+    f32 = dtype == torch.float32
+    peak, tol_f, tol_b = ((PEAK_F32_FLOPS, F32_OUT_TOL, F32_GRAD_TOL) if f32
+                          else (PEAK_FLOPS, 2.0 ** -6, 2.0 ** -6))
+    close = check_f32 if f32 else check_close
+    out, lse = fwd()
+    torch.cuda.synchronize()
+    out_p, lse_p = plain_fwd()
+    err_f = close(f"{base}_fwd{sfx}", out, out_p, tol_f)
+    check_close(f"{base}_fwd{sfx} lse", lse, lse_p, 2.0 ** -16)
+    del out_p, lse_p
+    q, k, v, do = sdpa_in
+    rows = [result(f"{base}_fwd{sfx}", src, replaces[0], err_f,
+                   cuda_ms(fwd), cuda_ms(plain_fwd), sdpa_ms(q, k, v, scale),
+                   *work_f, peak=peak)]
+    if bwd is not None:
+        grads = bwd(out, lse)
+        torch.cuda.synchronize()
+        err_b = max(close(f"{base}_bwd{sfx}", g, r, tol_b)
+                    for g, r in zip(grads, plain_bwd()))
+        del grads
+        o, xs, dout = plain_graph()
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(o, xs, dout,
+                                                       retain_graph=True))
+        del o, xs
+        rows.append(result(f"{base}_bwd{sfx}", src, replaces[1], err_b,
+                           cuda_ms(lambda: bwd(out, lse)), plain_ms,
+                           sdpa_ms(q, k, v, scale, do), *work_b, peak=peak))
+    del out, lse
+    dt = "f32" if f32 else "bf16"
+    print(f"[kernel] {base}{sfx} {what} {dt}: max|err| "
+          + " / ".join(f"{r['max_abs_err']:.3g}" for r in rows)
+          + f" (tol {tol_f:g} / {tol_b:g}{' of max' if f32 else ' rel'}); "
+          + "; ".join(f"{r['name']}: kernel {r['ms']:.4f} ms ("
+                      f"{tflops(w[0], r['ms'])}), plain {r['plain_ms']:.4f} "
+                      f"ms, sdpa {r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                      f"{r['bound_peak_tflops']:g} TFLOP/s)"
+                      for r, w in zip(rows, (work_f, work_b)))
+          + f"  [{card}]", flush=True)
+    return rows
+
+
+def dense_instance(sfx: str, seqs: int, n: int, heads: int, dh: int,
+                   dtype, gen, card: str) -> list[dict]:
+    """#1/#2 at (seqs, n, 3 * heads * dh) in `dtype`."""
+    C, scale = heads * dh, dh ** -0.5
+    rand = lambda *shape: torch.randn(shape, generator=gen,
+                                      device="cuda").to(dtype)
+    qkv, dout = rand(seqs, n, 3 * C), rand(seqs, n, C)
+    item = dout.element_size()
+
+    def graph():
+        x = qkv.detach().requires_grad_(True)
+        return da.fused_qkv_attention_plain(x, heads, scale), [x], dout
+
+    return held_instance(
+        "dense_attention", sfx, f"B={seqs} N={n} H={heads} Dh={dh}",
+        "dense_attention.cu", ("ssl4gie_tpu/kernels/dense_attention.py:146",
+                               "ssl4gie_tpu/kernels/dense_attention.py:169"),
+        dtype, lambda: da.attention_fwd(qkv, heads, scale),
+        lambda o, l: (da.attention_bwd(qkv, o, l, dout, heads, scale),),
+        lambda: da.fused_qkv_attention_fwd_plain(qkv, heads, scale),
+        lambda: (da.fused_qkv_attention_bwd_plain(qkv, dout, heads, scale),),
+        graph, (*heads_of(qkv, heads), split_heads(dout, heads)), scale,
+        attn_work(seqs, heads, n, dh, False, item),
+        attn_work(seqs, heads, n, dh, True, item), card)
+
+
+def window_instance(sfx: str, batch: int, backward: bool, gen,
+                    card: str) -> list[dict]:
+    """#4/#5 in float32 on the (batch, 64, 64, 3 * 768) grid, 16 x 16
+    windows (the backward only when `backward`)."""
+    C, scale = HEADS * HEAD_DIM, HEAD_DIM ** -0.5
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    qkv, dout = rand(batch, DET_GRID, DET_GRID, 3 * C), rand(
+        batch, DET_GRID, DET_GRID, C)
+    args = (HEADS, DET_WINDOW, scale)
+    n_win = batch * (DET_GRID // DET_WINDOW) ** 2
+
+    def graph():
+        x = qkv.detach().requires_grad_(True)
+        return wa.windowed_attention_plain(x, *args), [x], dout
+
+    return held_instance(
+        "window_attention", sfx,
+        f"B={batch} grid {DET_GRID}x{DET_GRID} window {DET_WINDOW} "
+        f"H={HEADS} Dh={HEAD_DIM}", "window_attention.cu",
+        ("ssl4gie_tpu/kernels/window_attention.py:97",
+         "ssl4gie_tpu/kernels/window_attention.py:124"), torch.float32,
+        lambda: wa.window_attention_fwd(qkv, *args),
+        (lambda o, l: (wa.window_attention_bwd(qkv, o, l, dout, *args),))
+        if backward else None,
+        lambda: wa.windowed_attention_fwd_plain(qkv, *args),
+        lambda: (wa.windowed_attention_bwd_plain(qkv, dout, *args),),
+        graph, (*heads_of(wa.partition(qkv, DET_WINDOW), HEADS),
+                split_heads(wa.partition(dout, DET_WINDOW), HEADS)), scale,
+        attn_work(n_win, HEADS, DET_WINDOW ** 2, HEAD_DIM, False, 4),
+        attn_work(n_win, HEADS, DET_WINDOW ** 2, HEAD_DIM, True, 4), card)
+
+
+def flash_instance(sfx: str, batch: int, backward: bool, gen,
+                   card: str) -> list[dict]:
+    """#6/#7 in float32 at (batch * 12, 4096, 64) (the backward only when
+    `backward`)."""
+    bh, scale = batch * HEADS, HEAD_DIM ** -0.5
+    q, k, v, do = (torch.randn((bh, DET_N, HEAD_DIM), generator=gen,
+                               device="cuda") for _ in range(4))
+    nbytes = lambda n_in, n_out: ((n_in + n_out) * bh * DET_N * HEAD_DIM * 4
+                                  + bh * DET_N * 4)
+    flops = bh * DET_N * DET_N * HEAD_DIM
+    bhnd = lambda t: t.view(batch, HEADS, DET_N, HEAD_DIM)
+
+    def graph():
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return fa.flash_attention_plain(*xs, scale), xs, do
+
+    return held_instance(
+        "flash_attention", sfx, f"BH={bh} N={DET_N} D={HEAD_DIM}",
+        "flash_attention.cu", ("ssl4gie_tpu/kernels/flash_attention.py:146",
+                               "ssl4gie_tpu/kernels/flash_attention.py:182"),
+        torch.float32, lambda: fa.flash_fwd(q, k, v, scale),
+        (lambda o, l: fa.flash_bwd(q, k, v, o, l, do, scale))
+        if backward else None,
+        lambda: fa.flash_attention_fwd_plain(q, k, v, scale),
+        lambda: fa.flash_attention_bwd_plain(q, k, v, do, scale),
+        graph, (bhnd(q), bhnd(k), bhnd(v), bhnd(do)), scale,
+        (4 * flops, nbytes(3, 1)), (10 * flops, nbytes(5, 3)), card)
+
+
+def f32_kernel_phase(card: str) -> list[dict]:
+    """The float32 instances of #1/#2 (Dh 64 at the classification shape,
+    Dh 32 at the MAE decoder's, Dh 80 at the MAE ViT-H encoder's at mask
+    0.3), #4/#5 and #6/#7 (the detection shapes and the eval batch's
+    forwards, the masked flash cases), and the bf16 Dh-80 instance of
+    #1/#2, each against its plain version on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = dense_instance("_f32", B, TOKENS, HEADS, HEAD_DIM, torch.float32,
+                          gen, card)
+    rows += dense_instance("_f32_dh32", MAE_B, TOKENS, MAE_DEC_HEADS,
+                           MAE_DEC_DIM // MAE_DEC_HEADS, torch.float32, gen,
+                           card)
+    vit_h = MAE_SIZES["vit_h"]
+    n_h, heads_h = 1 + int(256 * (1 - VIT_H_MASKS[1])), vit_h["num_heads"]
+    dh_h = vit_h["embed_dim"] // heads_h
+    for sfx, dt in (("_f32_dh80", torch.float32), ("_dh80", torch.bfloat16)):
+        rows += dense_instance(sfx, VIT_H_B, n_h, heads_h, dh_h, dt, gen,
+                               card)
+    rows += window_instance("_f32", DET_B, True, gen, card)
+    rows += window_instance("_f32_eval", EVAL_B, False, gen, card)
+    rows += flash_instance("_f32", DET_B, True, gen, card)
+    rows += flash_instance("_f32_eval", EVAL_B, False, gen, card)
+    scale = HEAD_DIM ** -0.5
+    q, k, v, do = (torch.randn((DET_BH, 1024, HEAD_DIM), generator=gen,
+                               device="cuda") for _ in range(4))
+    for n_valid in (1000, 3):
+        o_k, lse_k = fa.flash_fwd(q, k, v, scale, n_valid)
+        grads = fa.flash_bwd(q, k, v, o_k, lse_k, do, scale, n_valid)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, n_valid)
+        err = check_f32("flash_fwd_f32 masked", o_k, o_p, F32_OUT_TOL)
+        check_close("flash_fwd_f32 masked lse", lse_k, lse_p, 2.0 ** -16)
+        err = max([err] + [
+            check_f32(f"flash_bwd_f32 masked d{n}", g, r, F32_GRAD_TOL)
+            for n, g, r in zip("qkv", grads, fa.flash_attention_bwd_plain(
+                q, k, v, do, scale, n_valid))])
+        print(f"[kernel] flash f32 masked BH={DET_BH} N=1024 n_valid="
+              f"{n_valid}: fwd and bwd max|err|={err:.3g} (tol "
+              f"{F32_OUT_TOL:g} / {F32_GRAD_TOL:g} of max)  [{card}]",
+              flush=True)
+    return rows
+
+
+def f32_cls_path(card: str) -> dict:
+    """`build_trainer` on DRIVER_ARGV + --compute-dtype float32 (ViT-B/16,
+    224 px, B=64), a few full steps on its first train batches, twice from
+    the same seed: exactly 12 float32 #1, 12 float32 #2 and one bf16 #3 a
+    step, no bf16 attention launch; finite losses; the two runs' parameters
+    and losses bitwise equal; the logits within F32_MODEL_TOL of the
+    largest against a float32 CPU run of the same weights at B=2."""
+    n_steps = F32_WARMUP + F32_TIMED
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_f32_") as tmp:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer = build_trainer(driver_config(
+                tmp, 1, ["--compute-dtype", "float32"]))
+            depth = len(trainer.model.backbone.blocks)
+            losses, ms, per_step = mgpu_steps(trainer, n_steps, F32_WARMUP)
+            want = {"dense_attention_fwd_f32": depth,
+                    "dense_attention_bwd_f32": depth, "shear_rotate": 1}
+            mgpu_expect("f32_cls", per_step, want)
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"non-finite float32 loss: {losses}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[f32_cls] ViT-B/16 224 px finetune step, B={B}, "
+                  f"{F32_NOTE}: {ms:.2f} ms/step, "
+                  f"{B / ms * 1e3:.1f} img/s (mean of {F32_TIMED} after "
+                  f"{F32_WARMUP}), peak memory {peak:.2f} GiB; losses "
+                  f"{losses}  [{card}]", flush=True)
+            runs.append((losses, host_copy(trainer.model.state_dict())))
+            model = trainer.model
+            del trainer
+    _equal_states(runs[0][1], runs[1][1], "f32 classification rerun")
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError(f"float32 reruns' losses differ: {runs}")
+    print(f"[f32_cls] two runs from seed {SEED}: parameters and losses "
+          f"bitwise equal after {n_steps} steps", flush=True)
+    del runs
+    rng = np.random.default_rng(SEED)
+    x = eval_batch(torch.from_numpy(rng.integers(
+        0, 256, (2, IMG, IMG, 3), dtype=np.uint8)).cuda())
+    model.eval()
+    with torch.no_grad():
+        logits = model(x).float().cpu()
+        ref_model = ViTClassifier(NUM_CLASSES, dtype=torch.float32,
+                                  device="cpu")
+        ref_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        ref = ref_model.eval()(x.cpu())
+    err, scale = (logits - ref).abs().max().item(), ref.abs().max().item()
+    print(f"[f32_cls] logits f32 on card vs f32 on CPU (B=2): max|err|="
+          f"{err:.4g}, max|ref|={scale:.4g} (tol {F32_MODEL_TOL:g} of max)",
+          flush=True)
+    if not bool(torch.isfinite(logits).all()) or err > F32_MODEL_TOL * scale:
+        raise AssertionError(f"float32 logits disagree: {err} > "
+                             f"{F32_MODEL_TOL} * {scale}")
+    return {"dense_attention_fwd_f32": depth * n_steps,
+            "dense_attention_bwd_f32": depth * n_steps}
+
+
+def f32_det_path(card: str) -> dict:
+    """`build_trainer` on a `cli/train.py --task detection --arch vit_b
+    --compute-dtype float32` command line over Kvasir-layout frames
+    (1024 px, B=4), a few full steps: exactly 8 + 8 float32 window and
+    4 + 4 float32 flash launches a step and nothing else; finite losses;
+    one eval forward at EVAL_B (8 + 4 float32 forwards); the backbone map
+    within F32_MODEL_TOL of the largest against a float32 CPU run of the
+    same weights at 512 px."""
+    dev = torch.device("cuda")
+    n_steps = DET_WARMUP_STEPS + DET_TIMED_STEPS
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_f32_det_") as tmp:
+        root = os.path.join(tmp, "kvasir")
+        write_kvasir(root)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = build_trainer(det_driver_config(
+            root, tmp, "vit_b", 1, ["--compute-dtype", "float32"]))
+        model = trainer.model
+        n_windowed = sum(b.attn.window_size is not None
+                         for b in model.backbone.blocks)
+        n_global = len(model.backbone.blocks) - n_windowed
+        aug_gen, model_gen = trainer.generators(1)
+        it = prefetch_to_device(trainer.train_loader.epoch(1), dev)
+        for fn in COUNTERS.values():
+            fn.launches = 0
+        losses = []
+        for step in range(n_steps):
+            if step == DET_WARMUP_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            batch = next(it)
+            losses.append(trainer.full_step(model, trainer.optimizer, batch,
+                                            aug_gen, model_gen))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        del it
+    ran = check_launches("det_f32", {
+        "window_attention_fwd_f32": n_windowed * n_steps,
+        "window_attention_bwd_f32": n_windowed * n_steps,
+        "flash_attention_fwd_f32": n_global * n_steps,
+        "flash_attention_bwd_f32": n_global * n_steps})
+    losses = [{k: float(v) for k, v in d.items()} for d in losses]
+    print(f"[det_f32] losses: {losses}", flush=True)
+    if not all(np.isfinite(list(d.values())).all() for d in losses):
+        raise AssertionError(f"non-finite float32 detection loss: {losses}")
+    print(f"[det_f32] ViT-B Faster R-CNN {DET_IMG} px train step, B={DET_B}, "
+          f"{F32_NOTE}: {dt / DET_TIMED_STEPS * 1e3:.2f} "
+          f"ms/step, {DET_B * DET_TIMED_STEPS / dt:.2f} img/s (mean of "
+          f"{DET_TIMED_STEPS} after {DET_WARMUP_STEPS}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]",
+          flush=True)
+
+    model.eval()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    with torch.no_grad():
+        det = model(batch["image"][:EVAL_B].to(torch.float32) / 255.0)
+    torch.cuda.synchronize()
+    check_launches("det_f32 eval", {"window_attention_fwd_f32": n_windowed,
+                                    "flash_attention_fwd_f32": n_global})
+    if not bool(torch.isfinite(det["boxes"]).all()):
+        raise AssertionError("non-finite float32 detections")
+
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    ref_model = FasterRCNN(image_size=DET_REF_IMG, dtype=torch.float32,
+                           device="cpu")
+    ref_model.load_state_dict(sd)
+    small = copy.deepcopy(ref_model).to(dev).eval()
+    x = normalize(batch["image"][:1, :DET_REF_IMG, :DET_REF_IMG]
+                  .to(torch.float32) / 255.0)
+    with torch.no_grad():
+        fmap = small.backbone(x).cpu()
+        ref = ref_model.eval().backbone(x.cpu())
+    err, scale = (fmap - ref).abs().max().item(), ref.abs().max().item()
+    print(f"[det_f32] backbone map ({DET_REF_IMG} px) f32 on card vs f32 on "
+          f"CPU: max|err|={err:.4g}, max|ref|={scale:.4g} (tol "
+          f"{F32_MODEL_TOL:g} of max)", flush=True)
+    if not bool(torch.isfinite(fmap).all()) or err > F32_MODEL_TOL * scale:
+        raise AssertionError(f"float32 backbone maps disagree: {err} > "
+                             f"{F32_MODEL_TOL} * {scale}")
+    return {**ran, "window_attention_fwd_f32_eval": n_windowed,
+            "flash_attention_fwd_f32_eval": n_global}
+
+
+def mae_loss_vs_cpu(tag: str, run, img_u8, tol: float, gen) -> None:
+    """The run's loss on the card against a float32 CPU MAE of the same
+    weights on the same crops and masking noise (B=2), relative."""
+    model = run.model
+    imgs = mae_augment(img_u8[:2], sample_mae_params(2, gen, MAE_CANVAS))
+    noise = model.draw_noise(2, gen)
+    with torch.no_grad():
+        loss = float(model(imgs, noise)[0])
+        size = dict(MAE_SIZES[run.cfg.architecture.value],
+                    **run.cfg.model_kwargs)
+        ref_model = MAE(img_size=run.cfg.img_size,
+                        mask_ratio=run.cfg.mask_ratio,
+                        norm_pix_loss=run.cfg.norm_pix_loss,
+                        dtype=torch.float32, device="cpu", **size)
+        ref_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        ref = float(ref_model(imgs.cpu(), noise.cpu())[0])
+    rel = abs(loss - ref) / abs(ref)
+    print(f"[{tag}] loss on card {loss:.9g} vs f32 on CPU {ref:.9g} (B=2, "
+          f"same weights, crops and mask): relative difference {rel:.3g} "
+          f"(tol {tol:g})", flush=True)
+    if not (np.isfinite(loss) and rel <= tol):
+        raise AssertionError(f"{tag}: loss {loss} vs {ref} on the CPU")
+
+
+def vit_h_run(tag: str, argv: list, batch: int, card: str, img_u8,
+              model_kwargs=None):
+    """`build_pretraining` for `cli/pretrain.py --framework mae --arch vit_h`
+    plus `argv` at `batch`, a few steps on one resident batch; (run,
+    launches over the steps by counter, steps, the generator)."""
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="ssl4gie_vit_h_") as tmp:
+        cfg = pretrain_config("mae", "vit_h", tmp, batch,
+                              ["--batch-size", str(batch), *argv])
+        cfg.model_kwargs = dict(model_kwargs or {})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = build_pretraining(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    hist = []
+    warmup, timed = VIT_H_WARMUP, VIT_H_TIMED
+    for step in range(warmup + timed):
+        if step == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        hist.append(run.full_step(run.model, run.optimizer, img_u8[:batch],
+                                  gen, step))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hist = [{k: float(v) for k, v in h.items()} for h in hist]
+    if not all(np.isfinite(list(h.values())).all() for h in hist):
+        raise AssertionError(f"{tag}: non-finite loss or gradient norm "
+                             f"{hist}")
+    print(f"[{tag}] MAE ViT-H/14 224 px pretraining step ({' '.join(argv)}"
+          f"{', depth ' + str(len(run.model.blocks)) if model_kwargs else ''}"
+          f"), B={batch}: {dt / timed * 1e3:.2f} ms/step, "
+          f"{batch * timed / dt:.1f} img/s (mean of {timed} after {warmup}), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"loss / grad_norm {hist}  [{card}]", flush=True)
+    return run, warmup + timed, gen
+
+
+def vit_h_path(card: str) -> dict:
+    """The MAE ViT-H/14 (1280 wide, 32 blocks of 16 heads of 80; decoder
+    512 wide, 8 blocks of 16 heads of 32) built by `build_pretraining` from
+    `cli/pretrain.py`'s config at B=64, bf16 over f32 masters: at
+    --mask-ratio 0.75 the encoder's 65 tokens take plain attention and only
+    the decoder's 8 + 8 Dh-32 launches a step run; at 0.3 (180 tokens) also
+    32 + 32 Dh-80 launches. Finite losses; at 0.3 the loss within 1% of a
+    float32 CPU run of the same weights, crops and mask at B=2. Then the
+    same config with --compute-dtype float32 at B=8, the encoder cut to 4
+    blocks: 4 + 4 float32 Dh-80 and 8 + 8 float32 Dh-32 launches a step,
+    its loss within F32_MODEL_TOL of the CPU run's."""
+    src = SyntheticUnlabeled(VIT_H_B, canvas=MAE_CANVAS, seed=SEED)
+    img_u8 = torch.from_numpy(src.batch(range(VIT_H_B))["image"]).cuda()
+    launches = {}
+    for ratio in VIT_H_MASKS:
+        tag = f"vit_h_mask{ratio}"
+        run, n, gen = vit_h_run(tag, ["--mask-ratio", str(ratio)], VIT_H_B,
+                                card, img_u8)
+        enc, dec = len(run.model.blocks), len(run.model.decoder_blocks)
+        kept = 1 + int(run.model.num_patches * (1 - ratio))
+        routed = layers.FUSED_MIN_SEQ <= kept <= da.MAX_FUSED_SEQ
+        ran = check_launches(tag, {
+            "dense_attention_fwd": (dec + enc * routed) * n,
+            "dense_attention_bwd": (dec + enc * routed) * n,
+            "dense_attention_fwd_dh80": enc * routed * n,
+            "dense_attention_bwd_dh80": enc * routed * n})
+        print(f"[{tag}] encoder on {kept} tokens "
+              f"({'the packed-QKV kernel at Dh 80' if routed else 'plain'})"
+              f", decoder on {run.model.num_patches + 1} (Dh 32)", flush=True)
+        if routed:
+            mae_loss_vs_cpu(tag, run, img_u8, VIT_H_LOSS_TOL, gen)
+            launches.update({k: v for k, v in ran.items()
+                             if k.endswith("_dh80")})
+        del run
+        torch.cuda.empty_cache()
+    tag = "vit_h_f32"
+    run, n, gen = vit_h_run(tag, ["--mask-ratio", str(VIT_H_MASKS[1]),
+                                  "--compute-dtype", "float32"],
+                            VIT_H_F32_B, card, img_u8,
+                            {"depth": VIT_H_F32_DEPTH})
+    enc, dec = len(run.model.blocks), len(run.model.decoder_blocks)
+    ran = check_launches(tag, {
+        "dense_attention_fwd_f32": (enc + dec) * n,
+        "dense_attention_bwd_f32": (enc + dec) * n,
+        "dense_attention_fwd_f32_dh80": enc * n,
+        "dense_attention_bwd_f32_dh80": enc * n})
+    mae_loss_vs_cpu(tag, run, img_u8, F32_MODEL_TOL, gen)
+    del run
+    torch.cuda.empty_cache()
+    launches.update({
+        "dense_attention_fwd_f32_dh80": ran["dense_attention_fwd_f32_dh80"],
+        "dense_attention_bwd_f32_dh80": ran["dense_attention_bwd_f32_dh80"],
+        "dense_attention_fwd_f32_dh32": dec * n,
+        "dense_attention_bwd_f32_dh32": dec * n})
+    return launches
+
+
+# the float32 policy's settings against PyTorch's defaults on the card:
+# (cuDNN TF32, cuDNN deterministic)
+POLICY_SETTINGS = {"policy": (False, True), "defaults": (True, False),
+                   "TF32 off only": (False, False)}
+
+
+def policy_cost_path(card: str) -> dict:
+    """The float32 policy's cost (`float32_policy`: cuDNN's convolutions off
+    TF32 and deterministic): the RN50 + DeepLabV3+ seg step of DENSE_PATHS
+    at B=SEG_B, timed by CUDA events per step under the policy, under
+    PyTorch's defaults (TF32 on, cuDNN free to pick nondeterministic
+    algorithms) and with TF32 off alone, in turns (forward then reversed),
+    under bf16 compute (its float32 seg_head) and under float32 compute.
+    No kernel of the port runs in it but the rotation."""
+    cudnn = torch.backends.cudnn
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            model, opt, full_step, img_u8, targets, gen = dense_setup(
+                "rn50_seg", dt)
+            step = lambda: full_step(model, opt, img_u8, targets, gen)
+            times = {k: [] for k in POLICY_SETTINGS}
+            for key in (*POLICY_SETTINGS, *reversed(POLICY_SETTINGS)):
+                cudnn.allow_tf32, cudnn.deterministic = POLICY_SETTINGS[key]
+                times[key].append(cuda_ms(step, runs=3, warmup=1))
+            mean = {k: statistics.mean(v) for k, v in times.items()}
+            print(f"[policy] RN50 + DeepLabV3+ seg step, B={SEG_B}, "
+                  f"{'bf16' if dt == torch.bfloat16 else 'f32'} compute, "
+                  f"ms/step: " + ", ".join(
+                      f"{k} {mean[k]:.2f} {[round(t, 2) for t in v]}"
+                      for k, v in times.items())
+                  + f"; the policy costs "
+                  f"{mean['policy'] / mean['defaults'] - 1:+.1%} against "
+                  f"the defaults  [{card}]", flush=True)
+            del model, opt, step
+            torch.cuda.empty_cache()
+    finally:
+        float32_policy()
+    return {}
+
+
 @contextlib.contextmanager
 def socket_port():
     """A free TCP port on localhost (released on exit, for the ranks)."""
@@ -3707,6 +4307,7 @@ def main() -> None:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {path.name}",
           flush=True)
+    float32_policy()       # as `build_trainer` sets it, for every phase
     kernel = ""
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -3732,13 +4333,18 @@ def main() -> None:
               ("kernels (MAE shapes)", mae_kernel_phase),
               ("kernels (MoCo shapes)", moco_kernel_phase),
               ("kernels (A/B variants)", variant_kernel_phase),
+              ("kernels (float32 instances, Dh 80)", f32_kernel_phase),
               ("classification path", main_path),
+              ("float32 classification path", f32_cls_path),
               *((f"{tag} path", functools.partial(dense_path, tag))
                 for tag in DENSE_PATHS),
               ("detection path", det_path),
+              ("float32 detection path", f32_det_path),
               ("RN50 detection path", det_rn50_path),
               ("detection eval (evaluate_map)", det_eval_path),
               ("MAE path", mae_path),
+              ("MAE ViT-H path", vit_h_path),
+              ("float32 policy (RN50 seg step)", policy_cost_path),
               *((f"MoCo {arch} path", functools.partial(moco_path, arch))
                 for arch in MOCO_ARCHS),
               ("kernel A/B harnesses", harness_path),

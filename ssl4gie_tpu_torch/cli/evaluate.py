@@ -17,7 +17,7 @@ import torch
 
 from ssl4gie_tpu_torch.cli.args import add_common, to_train_config
 from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
-from ssl4gie_tpu_torch.core.config import Task
+from ssl4gie_tpu_torch.core.config import Task, compute_dtype
 from ssl4gie_tpu_torch.core.logger import append_eval_results
 from ssl4gie_tpu_torch.data import discovery
 from ssl4gie_tpu_torch.data.loader import (ClassificationSource, DepthSource,
@@ -37,8 +37,7 @@ def _eval_model(cfg, extras: dict, device, **widths):
     """The task's model for evaluation on `device`: detection on the run's
     canvas, with the reduced test-time proposal counts under --synthetic
     (JAX `cli/evaluate.py:36-50`)."""
-    dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
-             else torch.float32)
+    dtype = compute_dtype(cfg.runtime)
     det = cfg.task == Task.DETECTION
     if det and cfg.data.synthetic:
         widths = {**SYNTHETIC_DET_TEST, **widths}

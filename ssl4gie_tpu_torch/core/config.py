@@ -6,13 +6,11 @@ package's, field for field, so that one command line gives the same
 fields in both packages. `RuntimeConfig.device` is the port's own: the
 card (`cuda`) unless the caller asks for the CPU. `tensor_parallel`,
 `fsdp`, `mesh_shape` and `mesh_axes` lay out the ranks of a multi-GPU
-run (`tasks/build.py:make_run_mesh`, `parallel/tp.py`). The one option
-the port does not run yet, `--compute-dtype float32` on the card, raises
-`NotImplementedError` in `TrainConfig.validate` and
-`PretrainConfig.validate`, naming the ROADMAP item that ports it; none is
-ignored. `RuntimeConfig.scan_steps` and `donate_state` are read by
-nothing: the port's loops run one step at a time and torch has no
-buffer donation.
+run (`tasks/build.py:make_run_mesh`, `parallel/tp.py`). Every option
+runs on the card, `--compute-dtype float32` included (`compute_dtype`
+sets the float32 policy). `RuntimeConfig.scan_steps` and
+`donate_state` are read by nothing: the port's loops run one step at a
+time and torch has no buffer donation.
 """
 
 from __future__ import annotations
@@ -20,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 from typing import Optional
+
+import torch
 
 
 class Architecture(str, enum.Enum):
@@ -130,11 +130,30 @@ class RuntimeConfig:
     device: str = "cuda"               # "cpu" only when asked for
 
 
-def _reject_unported_runtime(runtime: RuntimeConfig) -> None:
-    if runtime.compute_dtype == "float32" and runtime.device != "cpu":
-        raise NotImplementedError("--compute-dtype float32 runs on the CPU "
-                                  "only: the card's kernels take bfloat16 "
-                                  "(ROADMAP queue 2 C)")
+def float32_policy() -> None:
+    """The port's float32 policy on the card, for every compute dtype:
+    float32 products in full float32 and repeatable. The port is held to
+    the JAX package's float32 on the CPU (1e-3 of the largest value under
+    `--compute-dtype float32`), which cuDNN's TF32 convolutions (a 10-bit
+    mantissa, errors near 1e-3 relative; on unless told otherwise) would
+    not meet for the RN50 convolutions and DeepLabV3+'s float32
+    `seg_head`; matrix products are full float32 by default, stated here
+    too. cuDNN's deterministic algorithms keep a rerun (or a resume) bitwise
+    equal: its default float32 weight-gradient algorithm for the ViT's
+    patch projection sums in another order from run to run."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def compute_dtype(runtime: RuntimeConfig) -> torch.dtype:
+    """The torch dtype of `runtime.compute_dtype`, the float32 policy
+    (`float32_policy`) set: what `build_trainer`, `build_pretraining` and
+    `cli.evaluate` call."""
+    float32_policy()
+    return (torch.bfloat16 if runtime.compute_dtype == "bfloat16"
+            else torch.float32)
 
 
 @dataclasses.dataclass
@@ -174,7 +193,6 @@ class TrainConfig:
                 and self.task != Task.CLASSIFICATION):
             raise ValueError("--aa/--reprob/--drop-path apply to "
                              "classification finetuning only")
-        _reject_unported_runtime(self.runtime)
         return self
 
     def run_name(self) -> str:
@@ -224,8 +242,3 @@ class PretrainConfig:
     def effective_lr(self) -> float:
         """The base learning rate scaled by batch / 256."""
         return self.base_lr * self.batch_size / 256.0
-
-    def validate(self) -> "PretrainConfig":
-        """Raise on what the port does not run (yet)."""
-        _reject_unported_runtime(self.runtime)
-        return self

@@ -6,8 +6,10 @@
 //
 // The head width Dh is a template parameter `D` of every helper and kernel
 // (a multiple of 16). The packed-QKV kernels are instantiated for D = 64
-// (ViT-S/B/L) and D = 32 (the MAE decoder, 512 wide with 16 heads); the
-// flash kernels use the default, kDh = 64.
+// (ViT-S/B/L), D = 32 (the MAE decoder, 512 wide with 16 heads) and D = 80
+// (the MAE ViT-H, 1280 wide with 16 heads; one warpgroup a block only, its
+// tiles split into a 64-column and a 16-column part, `Swz<80>`); the flash
+// kernels use the default, kDh = 64.
 //
 // Where the rows of a sequence live is a functor `Rows`: rows(seq, r) is the
 // token index (row of the flattened (tokens, width) tensor) of row r of
@@ -207,6 +209,18 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4],
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[2][4],
+                                             const unsigned (&a)[4],
+                                             unsigned long long b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+      "{%8,%9,%10,%11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 template <int NO>
 __device__ __forceinline__ void wgmma_pv(float (&d)[NO][4],
                                          const unsigned (&a)[4],
@@ -214,6 +228,28 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[NO][4],
   if constexpr (NO == 8) wgmma_rs_n64(d, a, b);
   else wgmma_rs_n32(d, a, b);
 }
+// The D = 80 form, for rows [16 kk, 16 kk + 16) of the 64-row Swz<80> tile
+// at `tile` read MN-major: columns 0-63 (part A) by one n64 product into
+// d[0..7], columns 64-79 (part B) by one n16 product into d[8..9].
+__device__ __forceinline__ void wgmma_pv80(float (&d)[10][4],
+                                           const unsigned (&a)[4],
+                                           const void* tile, int kk) {
+  using S = Swz<80>;
+  wgmma_rs_n64(reinterpret_cast<float(&)[8][4]>(d[0]), a,
+               S::desc(tile) + kk * (2 * S::kAtom >> 4));
+  wgmma_rs_n16(reinterpret_cast<float(&)[2][4]>(d[8]), a,
+               S::desc_b(tile) + kk * (2 * S::kAtomB >> 4));
+}
+// S (64 x 64) += the fifth k-step (columns 64-79) of two Swz<80> tiles
+__device__ __forceinline__ void wgmma_ss80_tail(float (&d)[8][4],
+                                                const void* a,
+                                                const void* b) {
+  wgmma_ss_n64(d, Swz<80>::desc_b(a), Swz<80>::desc_b(b), 1);
+}
+// Products over the head's columns: the 16-column k-steps that lie in the
+// 128- or 64-byte swizzle (all of them, or the first four at D = 80)
+template <int D>
+constexpr int kSteps = D == 80 ? 4 : D / 16;
 
 // cp.async rows [first, first + R) of a sequence's D-wide column slice at
 // src (row stride ld) into the swizzled tile at dst, by the T threads
@@ -225,6 +261,7 @@ __device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src,
                                           int limit, int tid) {
   constexpr int kChunks = Swz<D>::kChunks;
   static_assert(R * kChunks % T == 0, "whole copies per thread");
+  static_assert(D != 80 || R == Swz<80>::kRows, "Swz<80> tiles are 64 rows");
 #pragma unroll
   for (int i = 0; i < R * kChunks / T; ++i) {
     const int idx = tid + i * T;
@@ -288,6 +325,34 @@ __device__ __forceinline__ void store_rows(unsigned char* stage,
   }
 }
 
+// store_rows for D = 80: the warp's rows [trow, trow + 16) of the 64-row
+// Swz<80> tile at `tile` as the stage
+template <class Rows>
+__device__ __forceinline__ void store_rows80(unsigned char* tile, int trow,
+                                             const float (&acc)[10][4],
+                                             float mul, bf16* dst, int ld,
+                                             Rows rows, int row0, int limit) {
+  using S = Swz<80>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < 10; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(
+          tile + S::offset(trow + g + 8 * hf, n) + c2 * 2) =
+          __floats2bfloat162_rn(acc[n][2 * hf] * mul,
+                                acc[n][2 * hf + 1] * mul);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * S::kChunks; i += 32) {
+    const int r = i / S::kChunks, c = i % S::kChunks;
+    if (row0 + r < limit)
+      *reinterpret_cast<uint4*>(dst + (size_t)rows.offset(row0 + r) * ld +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(tile + S::offset(trow + r, c));
+  }
+}
+
 // Shared memory of a forward block of G warpgroups: Q (64 G rows), then
 // kStages stages of a K and a V tile (kKeys rows each), in the swizzled
 // layout, plus 1 KiB for the alignment of the first tile. At D = 64: 57 KiB
@@ -310,7 +375,7 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
          int ld_out, float* __restrict__ lse, Rows rows, int N, int n_valid,
          float scale) {
   using S = Swz<D>;
-  constexpr int NS = kKeys / 8, NO = D / 8, KS = D / 16;
+  constexpr int NS = kKeys / 8, NO = D / 8, KS = kSteps<D>;
   constexpr int kRowsF = 64 * G, kThreadsF = 128 * G;
   constexpr int kTileBytes = kKeys * S::kRowBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -377,6 +442,7 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       wgmma_ss_n64(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    if constexpr (D == 80) wgmma_ss80_tail(sc, Qg, Ks);
     wg_commit();
     wg_wait0();
     wg_hold(sc);
@@ -424,7 +490,8 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < NS / 2; ++kk)
-      wgmma_pv(acc, pa[kk], dv + kk * (2 * S::kAtom >> 4));
+      if constexpr (D == 80) wgmma_pv80(acc, pa[kk], Ks + kTileBytes, kk);
+      else wgmma_pv(acc, pa[kk], dv + kk * (2 * S::kAtom >> 4));
     wg_commit();
     wg_wait0();
     wg_hold(acc);
@@ -449,8 +516,11 @@ attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[n][2 * hf + 1] *= inv;
     }
   }
-  store_rows<D>(Qs + (wg * 64 + wr) * S::kRowBytes, acc, 1.f, o, ld_out, rows,
-                q0 + wg * 64 + wr, N);
+  if constexpr (D == 80)
+    store_rows80(Qs, wr, acc, 1.f, o, ld_out, rows, q0 + wr, N);
+  else
+    store_rows<D>(Qs + (wg * 64 + wr) * S::kRowBytes, acc, 1.f, o, ld_out,
+                  rows, q0 + wg * 64 + wr, N);
 }
 
 // ---------------------------------------------------------------- backward
@@ -495,7 +565,7 @@ attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
             bf16* __restrict__ dq, int ld_dq, Rows rows, int N, int n_valid,
             float scale) {
   using S = Swz<D>;
-  constexpr int NS = kKeys / 8, NO = D / 8, KS = D / 16;
+  constexpr int NS = kKeys / 8, NO = D / 8, KS = kSteps<D>;
   constexpr int kRowsB = 64 * G, kT = 128 * G;
   constexpr int kTileBytes = kKeys * S::kRowBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -585,10 +655,12 @@ attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       wgmma_ss_n64(sc, dqd + 2 * kk, dk + 2 * kk, kk);
+    if constexpr (D == 80) wgmma_ss80_tail(sc, Qs, Ks);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       wgmma_ss_n64(dp, dgd + 2 * kk, dv + 2 * kk, kk);
+    if constexpr (D == 80) wgmma_ss80_tail(dp, Gs, Ks + kTileBytes);
     wg_commit();
     wg_wait1();
     wg_hold(sc);
@@ -619,15 +691,19 @@ attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < NS / 2; ++kk)
-      wgmma_pv(acc, da[kk], dk + kk * (2 * S::kAtom >> 4));
+      if constexpr (D == 80) wgmma_pv80(acc, da[kk], Ks, kk);
+      else wgmma_pv(acc, da[kk], dk + kk * (2 * S::kAtom >> 4));
     wg_commit();
     wg_wait0();
     wg_hold(acc);
   }
   cp_async_wait<0>();      // only empty groups can be left
   __syncthreads();         // every wgmma read of Q is done
-  store_rows<D>(Qs + (wg * 64 + wr) * S::kRowBytes, acc, scale, dq, ld_dq,
-                rows, q0 + wg * 64 + wr, N);
+  if constexpr (D == 80)
+    store_rows80(Qs, wr, acc, scale, dq, ld_dq, rows, q0 + wr, N);
+  else
+    store_rows<D>(Qs + (wg * 64 + wr) * S::kRowBytes, acc, scale, dq, ld_dq,
+                  rows, q0 + wg * 64 + wr, N);
 }
 
 // ---------------------------------------------------------------- dk, dv
@@ -644,7 +720,7 @@ attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
              bf16* __restrict__ dk, bf16* __restrict__ dv, int ld_dkv,
              Rows rows, int N, int n_valid, float scale) {
   using S = Swz<D>;
-  constexpr int NS = kKeys / 8, NO = D / 8, KS = D / 16;
+  constexpr int NS = kKeys / 8, NO = D / 8, KS = kSteps<D>;
   constexpr int kRowsB = 64 * G, kT = 128 * G;
   constexpr int kTileBytes = kKeys * S::kRowBytes;
   static_assert(kT >= 2 * kKeys, "a thread per lse and delta value");
@@ -726,10 +802,12 @@ attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       wgmma_ss_n64(st, dkd + 2 * kk, dqt + 2 * kk, kk);
+    if constexpr (D == 80) wgmma_ss80_tail(st, Ks, Qt);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
       wgmma_ss_n64(dpt, dvd + 2 * kk, dgt + 2 * kk, kk);
+    if constexpr (D == 80) wgmma_ss80_tail(dpt, Vs, Qt + kTileBytes);
     wg_commit();
     wg_wait1();
     wg_hold(st);
@@ -780,10 +858,12 @@ attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < NS / 2; ++kk)
-      wgmma_pv(dva, pa[kk], dgt + kk * (2 * S::kAtom >> 4));
+      if constexpr (D == 80) wgmma_pv80(dva, pa[kk], Qt + kTileBytes, kk);
+      else wgmma_pv(dva, pa[kk], dgt + kk * (2 * S::kAtom >> 4));
 #pragma unroll
     for (int kk = 0; kk < NS / 2; ++kk)
-      wgmma_pv(dka, da[kk], dqt + kk * (2 * S::kAtom >> 4));
+      if constexpr (D == 80) wgmma_pv80(dka, da[kk], Qt, kk);
+      else wgmma_pv(dka, da[kk], dqt + kk * (2 * S::kAtom >> 4));
     wg_commit();
     wg_wait0();
     wg_hold(dva);
@@ -793,10 +873,15 @@ attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();         // every wgmma read of K and V is done
   // keys in [n_valid, N) store their zero gradients
   const int row0 = k0 + wg * 64 + wr;
-  store_rows<D>(Ks + (wg * 64 + wr) * S::kRowBytes, dka, scale, dk, ld_dkv,
-                rows, row0, N);
-  store_rows<D>(Vs + (wg * 64 + wr) * S::kRowBytes, dva, 1.f, dv, ld_dkv,
-                rows, row0, N);
+  if constexpr (D == 80) {
+    store_rows80(Ks, wr, dka, scale, dk, ld_dkv, rows, row0, N);
+    store_rows80(Vs, wr, dva, 1.f, dv, ld_dkv, rows, row0, N);
+  } else {
+    store_rows<D>(Ks + (wg * 64 + wr) * S::kRowBytes, dka, scale, dk, ld_dkv,
+                  rows, row0, N);
+    store_rows<D>(Vs + (wg * 64 + wr) * S::kRowBytes, dva, 1.f, dv, ld_dkv,
+                  rows, row0, N);
+  }
 }
 
 // Set the dynamic shared-memory cap a kernel needs (above the 48 KB default).
@@ -814,6 +899,7 @@ cudaError_t launch_attn_fwd(const void* q, const void* k, const void* v,
                             int ld_in, void* o, int ld_out, void* lse,
                             Rows rows, int seqs, int H, int N, int n_valid,
                             float scale, void* stream) {
+  static_assert(D != 80 || G == 1, "Swz<80> tiles are 64 rows");
   constexpr size_t smem = fwd_smem<D, G>();
   cudaError_t err = allow_smem(attn_fwd<D, G, Rows>, smem);
   if (err != cudaSuccess) return err;
@@ -847,6 +933,7 @@ cudaError_t launch_attn_bwd(const void* q, const void* k, const void* v,
                             void* dk, void* dv, int ld_grad, Rows rows,
                             int seqs, int H, int N, int n_valid, float scale,
                             void* stream) {
+  static_assert(D != 80 || G == 1, "Swz<80> tiles are 64 rows");
   constexpr size_t dq_smem = bwd_smem<D, G>(false);
   constexpr size_t dkv_smem = bwd_smem<D, G>(true);
   cudaError_t err = allow_smem(attn_bwd_dq<D, G, Rows>, dq_smem);

@@ -9,8 +9,11 @@
 // [h*Dh, (h+1)*Dh); the backward writes a packed dqkv (B, N, 3C). No head
 // split or merge copies on either side. The kernels themselves are the
 // shared ones of attention_core.cuh, with one sequence per image
-// (`DenseRows`), instantiated for Dh = 64 (ViT-S/B/L) and Dh = 32 (the MAE
-// decoder: 512 wide, 16 heads).
+// (`DenseRows`), instantiated for Dh = 64 (ViT-S/B/L), Dh = 32 (the MAE
+// decoder: 512 wide, 16 heads) and Dh = 80 (the MAE ViT-H: 1280 wide, 16
+// heads; its tiles are split into a 64-column and a 16-column part, see
+// `Swz<80>`). The float32 entries run the FFMA kernels of attention_f32.cuh
+// on the same layout at the same three head widths.
 //
 // What bounds it on the card: at ViT-B 224 (N=197, Dh=64) one (image, head)
 // reads 75 KB of q, k, v and does 197x197x64 products: two in the forward
@@ -28,12 +31,14 @@
 // ring, so shared memory per block does not grow with N.
 
 #include "attention_core.cuh"
+#include "attention_f32.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError() (cudaErrorInvalidValue for a head width the kernels are
-// not built for). The Python wrapper checks the shapes, the dtype (bf16),
-// Dh in {32, 64} and N <= 512 (the range the model routes here, as the JAX
-// kernel's) before calling.
+// not built for). The Python wrapper checks the shapes, the dtype (bf16 for
+// the first two entries, float32 for the `_f32` ones), Dh in {32, 64, 80}
+// and N <= 512 (the range the model routes here, as the JAX kernel's) before
+// calling.
 extern "C" int ssl4gie_attn_fwd(const void* qkv, void* out, void* lse, int B,
                                 int N, int H, int Dh, float scale,
                                 void* stream) {
@@ -43,6 +48,9 @@ extern "C" int ssl4gie_attn_fwd(const void* qkv, void* out, void* lse, int B,
                                       stream);
   if (Dh == 32)
     return (int)launch_packed_fwd<32>(qkv, out, lse, rows, B, N, H, scale,
+                                      stream);
+  if (Dh == 80)
+    return (int)launch_packed_fwd<80>(qkv, out, lse, rows, B, N, H, scale,
                                       stream);
   return (int)cudaErrorInvalidValue;
 }
@@ -58,6 +66,42 @@ extern "C" int ssl4gie_attn_bwd(const void* qkv, const void* out,
   if (Dh == 32)
     return (int)launch_packed_bwd<32>(qkv, out, lse, dout, delta, dqkv, rows,
                                       B, N, H, scale, stream);
+  if (Dh == 80)
+    return (int)launch_packed_bwd<80>(qkv, out, lse, dout, delta, dqkv, rows,
+                                      B, N, H, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ssl4gie_attn_fwd_f32(const void* qkv, void* out, void* lse,
+                                    int B, int N, int H, int Dh, float scale,
+                                    void* stream) {
+  const DenseRows rows{N};
+  if (Dh == 64)
+    return (int)launch_packed_fwd_f32<64>(qkv, out, lse, rows, B, N, H, scale,
+                                          stream);
+  if (Dh == 32)
+    return (int)launch_packed_fwd_f32<32>(qkv, out, lse, rows, B, N, H, scale,
+                                          stream);
+  if (Dh == 80)
+    return (int)launch_packed_fwd_f32<80>(qkv, out, lse, rows, B, N, H, scale,
+                                          stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ssl4gie_attn_bwd_f32(const void* qkv, const void* out,
+                                    const void* lse, const void* dout,
+                                    void* delta, void* dqkv, int B, int N,
+                                    int H, int Dh, float scale, void* stream) {
+  const DenseRows rows{N};
+  if (Dh == 64)
+    return (int)launch_packed_bwd_f32<64>(qkv, out, lse, dout, delta, dqkv,
+                                          rows, B, N, H, scale, stream);
+  if (Dh == 32)
+    return (int)launch_packed_bwd_f32<32>(qkv, out, lse, dout, delta, dqkv,
+                                          rows, B, N, H, scale, stream);
+  if (Dh == 80)
+    return (int)launch_packed_bwd_f32<80>(qkv, out, lse, dout, delta, dqkv,
+                                          rows, B, N, H, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -32,12 +32,16 @@
 //   with lse < -87 would otherwise give exp(-lse) = inf and inf * 0 = NaN),
 //   so padded keys also get zero dk and dv; a dk/dv block whose keys are
 //   all padded streams nothing.
+// The float32 entries run the FFMA kernels of attention_f32.cuh on the same
+// layout (one block of 64 rows, 128 threads), with the same masking.
 
 #include "attention_core.cuh"
+#include "attention_f32.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError(). The Python wrapper checks the shapes, the dtype
-// (bf16), D == 64, N a multiple of 64 and 1 <= n_valid <= N before calling.
+// (bf16; float32 for the `_f32` entries), D == 64, N a multiple of 64 and
+// 1 <= n_valid <= N before calling.
 extern "C" int ssl4gie_flash_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int BH, int N,
                                  int n_valid, float scale, void* stream) {
@@ -53,4 +57,24 @@ extern "C" int ssl4gie_flash_bwd(const void* q, const void* k, const void* v,
   return (int)launch_attn_bwd<kDh, 2>(q, k, v, kDh, o, dout, kDh, lse, delta,
                                       dq, dk, dv, kDh, DenseRows{N}, BH, 1, N,
                                       n_valid, scale, stream);
+}
+
+extern "C" int ssl4gie_flash_fwd_f32(const void* q, const void* k,
+                                     const void* v, void* o, void* lse,
+                                     int BH, int N, int n_valid, float scale,
+                                     void* stream) {
+  return (int)launch_attn_fwd_f32<kDh>(q, k, v, kDh, o, kDh, lse,
+                                       DenseRows{N}, BH, 1, N, n_valid, scale,
+                                       stream);
+}
+
+extern "C" int ssl4gie_flash_bwd_f32(const void* q, const void* k,
+                                     const void* v, const void* o,
+                                     const void* lse, const void* dout,
+                                     void* delta, void* dq, void* dk, void* dv,
+                                     int BH, int N, int n_valid, float scale,
+                                     void* stream) {
+  return (int)launch_attn_bwd_f32<kDh>(q, k, v, kDh, o, dout, kDh, lse, delta,
+                                       dq, dk, dv, kDh, DenseRows{N}, BH, 1, N,
+                                       n_valid, scale, stream);
 }

@@ -24,6 +24,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // the 16-byte chunk c of row r sits at chunk c ^ ((r / R) % (D / 8)), R = 1
 // at D = 64 (the 128-byte swizzle) and 2 at D = 32 (the 64-byte swizzle);
 // an atom is 8 rows (1 KiB or 512 B) and every tile starts 1 KiB-aligned.
+// D = 80 is the specialisation below.
 template <int D>
 struct Swz {
   static constexpr int kRowBytes = 2 * D, kAtom = 8 * kRowBytes;
@@ -42,6 +43,39 @@ struct Swz {
     const unsigned long long a = (smem_u32(p) & 0x3FFFF) >> 4;
     const unsigned long long atom = kAtom >> 4;
     return a | (atom << 16) | (atom << 32) | (kMode << 62);
+  }
+};
+
+// Tiles of 80-wide bf16 rows (160 bytes, 10 chunks: the MAE ViT-H's heads),
+// which fit neither swizzle. Every such tile has 64 rows (the packed
+// kernels' G = 1 tiles) and is split by columns: its columns 0-63 are a
+// 64-row tile of Swz<64> (the 128-byte swizzle, 8 KiB), followed by its
+// columns 64-79 as 64 rows of 32 bytes in the 32-byte swizzle (chunk c of
+// row r at c ^ ((r / 4) % 2); an atom is 8 rows, 256 B). Each k-step of 16
+// columns and each MN-major read of 16 rows then lies inside one part: the
+// first four k-steps and columns 0-63 of a product read part A through
+// `desc`, the fifth k-step and columns 64-79 part B through `desc_b`. No
+// column is padded, so the products do no extra work.
+template <>
+struct Swz<80> {
+  static constexpr int kRows = 64, kRowBytes = 160, kChunks = 10;
+  static constexpr int kAtom = Swz<64>::kAtom;     // part A's atom
+  static constexpr int kSplit = kRows * 128;       // part B, bytes on
+  static constexpr int kAtomB = 8 * 32;            // part B's atom
+  __device__ __forceinline__ static int offset(int r, int c) {   // bytes
+    return c < 8 ? Swz<64>::offset(r, c)
+                 : kSplit + r * 32 + (((c - 8) ^ ((r >> 2) & 1)) << 4);
+  }
+  __device__ __forceinline__ static unsigned long long desc(const void* p) {
+    return Swz<64>::desc(p);
+  }
+  // part B of the tile at `p`: the 32-byte swizzle (mode 3), the stride
+  // between 8-row groups one atom
+  __device__ __forceinline__ static unsigned long long desc_b(const void* p) {
+    const unsigned long long a =
+        ((smem_u32(p) + kSplit) & 0x3FFFF) >> 4;
+    const unsigned long long atom = kAtomB >> 4;
+    return a | (atom << 16) | (atom << 32) | (3ull << 62);
   }
 };
 

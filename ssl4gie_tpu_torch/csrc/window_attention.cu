@@ -28,13 +28,16 @@
 // and a shift. 256 tokens need no key masking. The forward saves each row's
 // log-sum-exp (the TPU kernel recomputes it in the backward; either is
 // right), and the backward is the dq kernel then the dk/dv kernel, so no
-// atomics and gradients that match from run to run.
+// atomics and gradients that match from run to run. The float32 entries run
+// the FFMA kernels of attention_f32.cuh over the same `WindowRows`.
 
 #include "attention_core.cuh"
+#include "attention_f32.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in
-// cudaGetLastError(). The Python wrapper checks the shapes, the dtype (bf16),
-// Dh == 64, GH and GW multiples of ws, and ws * ws <= 512 before calling.
+// cudaGetLastError(). The Python wrapper checks the shapes, the dtype (bf16;
+// float32 for the `_f32` entries), Dh == 64, GH and GW multiples of ws,
+// and ws * ws <= 512 before calling.
 // lse and delta are (B * (GH/ws) * (GW/ws), H, ws*ws) float32.
 extern "C" int ssl4gie_window_attn_fwd(const void* qkv, void* out, void* lse,
                                        int B, int GH, int GW, int ws, int H,
@@ -53,4 +56,25 @@ extern "C" int ssl4gie_window_attn_bwd(const void* qkv, const void* out,
   return (int)launch_packed_bwd(qkv, out, lse, dout, delta, dqkv,
                                 window_rows(GH, GW, ws), seqs, ws * ws, H,
                                 scale, stream);
+}
+
+extern "C" int ssl4gie_window_attn_fwd_f32(const void* qkv, void* out,
+                                           void* lse, int B, int GH, int GW,
+                                           int ws, int H, float scale,
+                                           void* stream) {
+  const int seqs = B * (GH / ws) * (GW / ws);
+  return (int)launch_packed_fwd_f32<kDh>(qkv, out, lse,
+                                         window_rows(GH, GW, ws), seqs,
+                                         ws * ws, H, scale, stream);
+}
+
+extern "C" int ssl4gie_window_attn_bwd_f32(const void* qkv, const void* out,
+                                           const void* lse, const void* dout,
+                                           void* delta, void* dqkv, int B,
+                                           int GH, int GW, int ws, int H,
+                                           float scale, void* stream) {
+  const int seqs = B * (GH / ws) * (GW / ws);
+  return (int)launch_packed_bwd_f32<kDh>(qkv, out, lse, dout, delta, dqkv,
+                                         window_rows(GH, GW, ws), seqs,
+                                         ws * ws, H, scale, stream);
 }

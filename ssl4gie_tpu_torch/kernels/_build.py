@@ -64,6 +64,12 @@ SIGNATURES = {
     "ssl4gie_window_attn_v2_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _F, _P),
 }
+# the float32 instances of the attention kernels take what the bf16 ones take
+SIGNATURES.update({
+    f"{name}_f32": SIGNATURES[name]
+    for name in ("ssl4gie_attn_fwd", "ssl4gie_attn_bwd",
+                 "ssl4gie_window_attn_fwd", "ssl4gie_window_attn_bwd",
+                 "ssl4gie_flash_fwd", "ssl4gie_flash_bwd")})
 
 
 def _nvcc() -> str:

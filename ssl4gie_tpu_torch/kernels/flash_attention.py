@@ -8,8 +8,9 @@ no product. The forward also returns each row's log-sum-exp (BH, N) f32; the
 backward reads it with the saved output.
 
 On a CUDA tensor the forward and backward run the hand-written kernels of
-`csrc/flash_attention.cu` (bf16, D = 64 after padding; anything else
-raises). On a CPU tensor they run the plain PyTorch version below, which is
+`csrc/flash_attention.cu` (D = 64 after padding; the bf16 or the float32
+instance by the tensors' dtype, counted apart as `launches` and
+`launches_f32`; anything else raises). On a CPU tensor they run the plain PyTorch version below, which is
 also what the kernels are checked against on the card. The gradient of a
 masked (padded) key is zero in both, the masked function's own gradient.
 """
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels.dense_attention import (HEAD_DIM, _check_cuda,
-                                                       _stream)
+                                                       _count, _entry, _stream)
 
 Q_BLOCK = 256
 MASK_VALUE = -1e30        # the masked score, as the Pallas kernel's
@@ -71,10 +72,11 @@ def _check_qkv(q, k, v):
         raise ValueError(f"the CUDA kernel is built for D={HEAD_DIM}, got {D}")
     if N % 64:
         raise ValueError(f"the CUDA kernel takes N a multiple of 64, got {N}")
+    _entry("q", q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} and q must be on one device")
-        _check_cuda(name, t, (BH, N, D))
+        _check_cuda(name, t, (BH, N, D), q.dtype)
     return BH, N
 
 
@@ -91,14 +93,14 @@ def flash_fwd(q, k, v, scale: float, n_valid=None):
     o = torch.empty_like(q)
     lse = torch.empty((BH, N), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _build.launch("ssl4gie_flash_fwd", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, N, n,
-                      float(scale), _stream(q))
-    flash_fwd.launches += 1
+        _build.launch(_entry("ssl4gie_flash_fwd", q), q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                      BH, N, n, float(scale), _stream(q))
+    _count(flash_fwd, q)
     return o, lse
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.launches_f32 = 0
 
 
 def flash_bwd(q, k, v, o, lse, dout, scale: float, n_valid=None):
@@ -112,8 +114,8 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, n_valid=None):
         raise ValueError(f"unsupported device {q.device}")
     BH, N = _check_qkv(q, k, v)
     n = _n_valid(N, n_valid)
-    _check_cuda("o", o, (BH, N, HEAD_DIM))
-    _check_cuda("dout", dout, (BH, N, HEAD_DIM))
+    _check_cuda("o", o, (BH, N, HEAD_DIM), q.dtype)
+    _check_cuda("dout", dout, (BH, N, HEAD_DIM), q.dtype)
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (BH, N)
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous ({BH}, {N}) float32 tensor "
@@ -121,16 +123,16 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, n_valid=None):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
     with torch.cuda.device(q.device):
-        _build.launch("ssl4gie_flash_bwd", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _build.launch(_entry("ssl4gie_flash_bwd", q), q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                       dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), BH, N, n, float(scale),
                       _stream(q))
-    flash_bwd.launches += 1
+    _count(flash_bwd, q)
     return dq, dk, dv
 
 
-flash_bwd.launches = 0
+flash_bwd.launches = flash_bwd.launches_f32 = 0
 
 
 class _FlashAttention(torch.autograd.Function):

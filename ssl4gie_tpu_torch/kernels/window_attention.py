@@ -7,8 +7,10 @@ log-sum-exp (B * nh * nw, H, ws * ws); the backward reads it with the saved
 output and returns a packed dqkv (B, GH, GW, 3C).
 
 On a CUDA tensor the forward and backward run the hand-written kernels of
-`csrc/window_attention.cu`, which read and write the grid in place (bf16,
-Dh = 64, ws * ws <= 512; anything else raises). On a CPU tensor they run the
+`csrc/window_attention.cu`, which read and write the grid in place (Dh =
+64, ws * ws <= 512; the bf16 or the float32 instance by the tensor's dtype,
+counted apart as `launches` and `launches_f32`; anything else raises). On a
+CPU tensor they run the
 plain PyTorch version below (window partition, then the dense kernel's plain
 version), which is also what the kernels are checked against on the card.
 """
@@ -19,7 +21,7 @@ import torch
 
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels.dense_attention import (
-    HEAD_DIM, MAX_FUSED_SEQ, _check_cuda, _stream,
+    HEAD_DIM, MAX_FUSED_SEQ, _check_cuda, _count, _entry, _stream,
     fused_qkv_attention_fwd_plain)
 
 
@@ -86,7 +88,8 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int, window: int):
     if window * window > MAX_FUSED_SEQ:
         raise ValueError(f"the CUDA kernel takes windows of at most "
                          f"{MAX_FUSED_SEQ} tokens, got {window}x{window}")
-    _check_cuda("qkv", qkv, (B, GH, GW, 3 * C))
+    _entry("qkv", qkv)
+    _check_cuda("qkv", qkv, (B, GH, GW, 3 * C), qkv.dtype)
     return B, GH, GW, C
 
 
@@ -108,14 +111,14 @@ def window_attention_fwd(qkv: torch.Tensor, num_heads: int, window: int,
     lse = torch.empty(_lse_shape(B, GH, GW, num_heads, window),
                       dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_window_attn_fwd", qkv.data_ptr(),
+        _build.launch(_entry("ssl4gie_window_attn_fwd", qkv), qkv.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), B, GH, GW, window,
                       num_heads, float(scale), _stream(qkv))
-    window_attention_fwd.launches += 1
+    _count(window_attention_fwd, qkv)
     return out, lse
 
 
-window_attention_fwd.launches = 0
+window_attention_fwd.launches = window_attention_fwd.launches_f32 = 0
 
 
 def window_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
@@ -134,8 +137,8 @@ def window_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     for name, t in (("out", out), ("lse", lse), ("dout", dout)):
         if t.device != qkv.device:
             raise ValueError(f"{name} and qkv must be on one device")
-    _check_cuda("out", out, (B, GH, GW, C))
-    _check_cuda("dout", dout, (B, GH, GW, C))
+    _check_cuda("out", out, (B, GH, GW, C), qkv.dtype)
+    _check_cuda("dout", dout, (B, GH, GW, C), qkv.dtype)
     shape = _lse_shape(B, GH, GW, num_heads, window)
     if (lse.dtype != torch.float32 or tuple(lse.shape) != shape
             or not lse.is_contiguous()):
@@ -143,15 +146,15 @@ def window_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
     with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_window_attn_bwd", qkv.data_ptr(),
+        _build.launch(_entry("ssl4gie_window_attn_bwd", qkv), qkv.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                       delta.data_ptr(), dqkv.data_ptr(), B, GH, GW, window,
                       num_heads, float(scale), _stream(qkv))
-    window_attention_bwd.launches += 1
+    _count(window_attention_bwd, qkv)
     return dqkv
 
 
-window_attention_bwd.launches = 0
+window_attention_bwd.launches = window_attention_bwd.launches_f32 = 0
 
 
 class _WindowedAttention(torch.autograd.Function):

@@ -17,9 +17,11 @@ Attention routes as the JAX package's Pallas dispatch does
   -> `kernels.flash_attention` through `default_attention`;
 - everything else -> plain head-split attention.
 On a CPU tensor every kernel route runs its plain version; on the card it
-launches the CUDA kernel. The kernels take bfloat16 and 64-wide heads (the
-packed-QKV kernel also 32-wide ones): a float32 or other-width model on the
-card raises in those ranges rather than silently taking the plain path.
+launches the CUDA kernel of the compute dtype (bfloat16 on the tensor cores,
+float32 on FFMAs). The kernels take 64-wide heads, the packed-QKV kernel
+also 32- and 80-wide ones (every head width a JAX CLI configuration builds):
+another width on the card raises in those ranges rather than silently
+taking the plain path.
 
 The MLP routes as the JAX package's `Mlp` does: with `SSL4GIE_FUSED_MLP=1`
 in the environment (read once, into `FUSED_MLP`), a bfloat16 MLP over a

@@ -19,13 +19,16 @@ Ported so far:
   GLOBAL_ATTN_BLOCKS attend globally and the others in DET_WINDOW x
   DET_WINDOW windows; the final norm is applied, then the tokens are
   returned as a (B, GH, GW, C) map;
-- mode "dense" (the DPT decoder's input), at 224 px: the token sequences
-  (B, 1 + N, C), cls included and no final norm (the module has none),
-  after blocks `dense_taps` (DENSE_TAPS, as the JAX field's default).
+- mode "dense" (the DPT decoder's input), at any img_size that is a
+  multiple of the patch, the position grid interpolated as in pooled mode:
+  the token sequences (B, 1 + N, C), cls included and no final norm (the
+  module has none), after blocks `dense_taps` (DENSE_TAPS, as the JAX
+  field's default).
 - stem "conv" (`ConvStem`, MoCo v3's `vit_conv_*`) in place of the 16 x 16
   patch projection, under the same name `patch_embed`; its BatchNorms
   follow the module's train/eval mode.
-Other dense image sizes raise. `ViTClassifier(probe_bn=True)` adds the MAE
+The grid follows the input; `img_size` is the JAX module's field and
+checks nothing. `ViTClassifier(probe_bn=True)` adds the MAE
 linear probe's non-affine BatchNorm `head_bn` before the head.
 """
 
@@ -101,10 +104,6 @@ class ViTBackbone(nn.Module):
             raise ValueError(f"mode {mode!r} not in ('pooled', 'dense', "
                              "'det')")
         det = mode == "det"
-        if mode == "dense" and img_size // patch_size != BASE_GRID:
-            raise NotImplementedError(
-                f"img_size {img_size}: dense mode runs at the {BASE_GRID}x"
-                f"{BASE_GRID} grid (224 px) only")
         if stem not in ("patch", "conv"):
             raise ValueError(f"stem {stem!r} not in ('patch', 'conv')")
         if out_token not in OUT_TOKENS:

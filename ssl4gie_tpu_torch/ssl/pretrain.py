@@ -67,7 +67,8 @@ import numpy as np
 import torch
 
 from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
-from ssl4gie_tpu_torch.core.config import PretrainConfig, SSLFramework
+from ssl4gie_tpu_torch.core.config import (PretrainConfig, SSLFramework,
+                                           compute_dtype)
 from ssl4gie_tpu_torch.core.logger import (MetricsLogger, Throughput,
                                            peak_memory_mb)
 from ssl4gie_tpu_torch.core.mesh import (axis_shard, axis_size,
@@ -354,10 +355,8 @@ def build_pretraining(cfg: PretrainConfig) -> PretrainRun:
     `MoCo`'s `stage_sizes` (tests narrow the models). Over several
     processes: the mesh, the placement and each rank's part of the batch
     (see the module's docstring)."""
-    cfg.validate()
     device = default_device(cfg.runtime.device)
-    dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
-             else torch.float32)
+    dtype = compute_dtype(cfg.runtime)
     fw, arch = cfg.framework, cfg.architecture.value
     mesh, tp = _pretrain_mesh(cfg)
     place = make_place_fn(mesh, tp=tp, fsdp=cfg.runtime.fsdp)

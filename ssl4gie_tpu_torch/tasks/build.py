@@ -31,7 +31,8 @@ from ssl4gie_tpu_torch.core import checkpoint as ckpt_lib
 from ssl4gie_tpu_torch.convert.loaders import (load_imagenet_supervised,
                                                load_pretrained)
 from ssl4gie_tpu_torch.core.config import (Architecture, Pretraining,
-                                           SSLFramework, Task, TrainConfig)
+                                           SSLFramework, Task, TrainConfig,
+                                           compute_dtype)
 from ssl4gie_tpu_torch.core.logger import MetricsLogger
 from ssl4gie_tpu_torch.core.mesh import (axis_shard, axis_size,
                                          local_batch_size, make_mesh)
@@ -207,8 +208,7 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
     train_src, val_src, test_src, extras = _make_sources(cfg)
     td, finalize = make_task_definition(cfg, extras, device)
 
-    dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
-             else torch.float32)
+    dtype = compute_dtype(cfg.runtime)
     probe_bn = cfg.probe and cfg.ss_framework == SSLFramework.MAE
     model = build_model(cfg.task, cfg.architecture,
                         num_classes=extras.get("n_class", 1),
@@ -333,8 +333,7 @@ def _build_detection_trainer(cfg: TrainConfig, mesh=None,
                                          resize=resize)
         train_src, val_src, test_src = mk(tr), mk(va), mk(te)
 
-    dtype = (torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16"
-             else torch.float32)
+    dtype = compute_dtype(cfg.runtime)
     model = build_model(cfg.task, cfg.architecture,
                         pretraining=cfg.pretraining,
                         framework=cfg.ss_framework, img_size=canvas,

@@ -108,7 +108,8 @@ def test_config_fields_match_jax(argv):
 
 # each flag and the ROADMAP item that it raises naming, or None once the
 # port runs it (the SSL recipes and checkpoint ingestion, queue 1 items 5
-# and 7; tensor parallelism and FSDP, the multi-GPU slice)
+# and 7; tensor parallelism and FSDP, the multi-GPU slice; float32 on the
+# card, the float32 kernels)
 UNPORTED = {
     "probe": (["--task", "classification", "--probe", "--pretraining",
                "Hyperkvasir", "--ss-framework", "mae"], None),
@@ -128,7 +129,7 @@ UNPORTED = {
     "imagenet-class": (["--task", "segmentation", "--pretraining",
                         "ImageNet_class"], None),
     "float32-on-card": (["--task", "classification", "--compute-dtype",
-                         "float32"], "queue 2 C"),
+                         "float32"], None),
 }
 
 
@@ -136,9 +137,10 @@ UNPORTED = {
 def test_unported_flags_raise(flag):
     """Each flag the port does not run yet raises NotImplementedError
     naming its ROADMAP item, where the JAX package accepts it; a flag the
-    port runs gives the JAX package's config fields (the mesh's too);
-    float32 stays allowed on the CPU. `--tp 2` in one process fails in
-    both packages' `make_tp_mesh`, on one device, with one message."""
+    port runs gives the JAX package's config fields (the mesh's and the
+    compute dtype too), float32 on the card (the default device) included.
+    `--tp 2` in one process fails in both packages' `make_tp_mesh`, on one
+    device, with one message."""
     argv, item = UNPORTED[flag]
     want = dataclasses.asdict(jargs.to_train_config(parse(jargs, argv)))
     if item is None:
@@ -149,8 +151,12 @@ def test_unported_flags_raise(flag):
         for key in ("task", "architecture", "pretraining", "ss_framework",
                     "checkpoint", "probe", "out_token"):
             assert str(got[key]) == str(want[key]), key
-        for key in ("tensor_parallel", "fsdp", "mesh_shape", "mesh_axes"):
+        for key in ("tensor_parallel", "fsdp", "mesh_shape", "mesh_axes",
+                    "compute_dtype"):
             assert got["runtime"][key] == want["runtime"][key], key
+        if flag == "float32-on-card":
+            assert got["runtime"]["compute_dtype"] == "float32"
+            assert got["runtime"]["device"] == "cuda"
         if flag == "tensor-parallel":
             from ssl4gie_tpu.parallel.tp import make_tp_mesh
             from ssl4gie_tpu_torch.tasks.build import build_trainer
@@ -162,9 +168,6 @@ def test_unported_flags_raise(flag):
         return
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         targs.to_train_config(parse(targs, argv))
-    if flag == "float32-on-card":
-        assert targs.to_train_config(parse(
-            targs, argv + ["--device", "cpu"])).runtime.device == "cpu"
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 10, 15, 64, 800, 1000, 10662])

@@ -230,7 +230,10 @@ def test_attention_kernels_match_plain_on_card(cuda, batch, n):
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     qkv = torch.zeros((2, N, 3 * C), device=cuda)
     with pytest.raises(TypeError):
-        da.attention_fwd(qkv, H, SCALE)                  # f32
+        da.attention_fwd(qkv.half(), H, SCALE)           # f16: no instance
+    out, lse = da.attention_fwd(qkv, H, SCALE)           # f32 has one
+    with pytest.raises(TypeError):                       # dO of another dtype
+        da.attention_bwd(qkv, out, lse, out.bfloat16(), H, SCALE)
     with pytest.raises(ValueError):
         da.attention_fwd(qkv.bfloat16(), 16, SCALE)      # Dh = 16
     with pytest.raises(ValueError):
@@ -393,7 +396,7 @@ def test_window_and_flash_kernels_reject_what_they_do_not_take(cuda):
     from ssl4gie_tpu_torch.kernels import window_attention as wa
     qkv = torch.zeros((1, 32, 32, 3 * 4 * DH), device=cuda)
     with pytest.raises(TypeError):
-        wa.window_attention_fwd(qkv, 4, 16, SCALE)                  # f32
+        wa.window_attention_fwd(qkv.half(), 4, 16, SCALE)           # f16
     with pytest.raises(ValueError):
         wa.window_attention_fwd(qkv.bfloat16(), 8, 16, SCALE)       # Dh 32
     with pytest.raises(ValueError):
@@ -403,6 +406,167 @@ def test_window_and_flash_kernels_reject_what_they_do_not_take(cuda):
         fa.flash_fwd(q[:, :200], q[:, :200], q[:, :200], SCALE)     # N % 64
     with pytest.raises(ValueError):
         fa.flash_fwd(q, q, q, SCALE, 0)                             # n_valid
+
+
+# the float32 instances: outputs within 1e-5 of the largest value,
+# gradients within 1e-4, the log-sum-exp within 2^-16 of the element or of
+# the largest (FFMA sums in another order than the plain version's cuBLAS
+# products, full float32 on both sides)
+F32_OUT, F32_GRAD, LSE_TOL = 1e-5, 1e-4, 2.0 ** -16
+
+
+def _assert_f32_close(got, ref, tol):
+    """Every element finite and within tol * max|ref|."""
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    err = (got - ref.float()).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+@pytest.fixture()
+def full_f32():
+    """The plain version's products in full float32, as `build_trainer`
+    sets them (`core/config.py:float32_policy`)."""
+    from ssl4gie_tpu_torch.core.config import float32_policy
+    float32_policy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,heads", [(64, 12), (32, 16), (80, 16)])
+@pytest.mark.parametrize("batch,n", [(3, 197), (2, 160), (2, 512)])
+def test_attention_f32_kernels_match_plain_on_card(cuda, full_f32, dh, heads,
+                                                   batch, n):
+    """The float32 packed-QKV instance at each head width (ViT-B, the MAE
+    decoder, ViT-H) against the plain version on the card; only the f32
+    counters move."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    scale = dh ** -0.5
+    qkv = torch.randn((batch, n, 3 * heads * dh), generator=gen, device=cuda)
+    dout = torch.randn((batch, n, heads * dh), generator=gen, device=cuda)
+    n0 = (da.attention_fwd.launches, da.attention_bwd.launches,
+          da.attention_fwd.launches_f32, da.attention_bwd.launches_f32)
+    out, lse = da.attention_fwd(qkv, heads, scale)
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, heads, scale)
+    _assert_f32_close(out, out_p, F32_OUT)
+    _assert_close_on_card(lse, lse_p, LSE_TOL)
+    _assert_f32_close(da.attention_bwd(qkv, out, lse, dout, heads, scale),
+                      da.fused_qkv_attention_bwd_plain(qkv, dout, heads,
+                                                       scale), F32_GRAD)
+    assert (da.attention_fwd.launches, da.attention_bwd.launches,
+            da.attention_fwd.launches_f32,
+            da.attention_bwd.launches_f32) == (n0[0], n0[1], n0[2] + 1,
+                                               n0[3] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,n", [(3, 197), (2, 160), (2, 512), (1, 180)])
+def test_attention_dh80_kernels_match_plain_on_card(cuda, batch, n):
+    """The bf16 instance at Dh = 80 (16 heads, the MAE ViT-H's; its tiles
+    split into a 128-byte and a 32-byte swizzled part) against the plain
+    version: two bf16 ulps, log-sum-exp within 2^-16."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    heads, dh = 16, 80
+    scale = dh ** -0.5
+    qkv = torch.randn((batch, n, 3 * heads * dh), generator=gen,
+                      device=cuda).bfloat16()
+    dout = torch.randn((batch, n, heads * dh), generator=gen,
+                       device=cuda).bfloat16()
+    n0 = (da.attention_fwd.launches, da.attention_fwd.launches_f32)
+    out, lse = da.attention_fwd(qkv, heads, scale)
+    out_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, heads, scale)
+    _assert_close_on_card(out, out_p, 2.0 ** -6)
+    _assert_close_on_card(lse, lse_p, LSE_TOL)
+    _assert_close_on_card(
+        da.attention_bwd(qkv, out, lse, dout, heads, scale),
+        da.fused_qkv_attention_bwd_plain(qkv, dout, heads, scale), 2.0 ** -6)
+    assert (da.attention_fwd.launches,
+            da.attention_fwd.launches_f32) == (n0[0] + 1, n0[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,grid,heads,window", [
+    (2, (32, 32), 12, 16), (1, (16, 48), 2, 16), (2, (16, 16), 4, 8)])
+def test_window_attention_f32_kernels_match_plain_on_card(
+        cuda, full_f32, batch, grid, heads, window):
+    """The float32 windowed instance against the plain version."""
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    C = heads * DH
+    qkv = torch.randn((batch, *grid, 3 * C), generator=gen, device=cuda)
+    dout = torch.randn((batch, *grid, C), generator=gen, device=cuda)
+    n0 = (wa.window_attention_fwd.launches,
+          wa.window_attention_fwd.launches_f32)
+    out, lse = wa.window_attention_fwd(qkv, heads, window, SCALE)
+    out_p, lse_p = wa.windowed_attention_fwd_plain(qkv, heads, window, SCALE)
+    _assert_f32_close(out, out_p, F32_OUT)
+    _assert_close_on_card(lse, lse_p, LSE_TOL)
+    _assert_f32_close(
+        wa.window_attention_bwd(qkv, out, lse, dout, heads, window, SCALE),
+        wa.windowed_attention_bwd_plain(qkv, dout, heads, window, SCALE),
+        F32_GRAD)
+    assert (wa.window_attention_fwd.launches,
+            wa.window_attention_fwd.launches_f32) == (n0[0], n0[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,n,n_valid", [
+    (4, 1024, None), (3, 1024, 1000), (2, 512, 3), (2, 256, 197),
+    (2, 256, 64), (1, 4096, 4000)])
+def test_flash_attention_f32_kernels_match_plain_on_card(cuda, full_f32, bh,
+                                                         n, n_valid):
+    """The float32 flash instance against the plain version, with and
+    without masked keys (a partial last key tile; one valid tile; dk/dv
+    blocks whose keys are all masked)."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, dout = (torch.randn((bh, n, DH), generator=gen, device=cuda)
+                     for _ in range(4))
+    n0 = (fa.flash_fwd.launches, fa.flash_fwd.launches_f32)
+    o, lse = fa.flash_fwd(q, k, v, SCALE, n_valid)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, SCALE, n_valid)
+    _assert_f32_close(o, o_p, F32_OUT)
+    _assert_close_on_card(lse, lse_p, LSE_TOL)
+    grads = fa.flash_bwd(q, k, v, o, lse, dout, SCALE, n_valid)
+    for got, ref in zip(grads, fa.flash_attention_bwd_plain(q, k, v, dout,
+                                                            SCALE, n_valid)):
+        _assert_f32_close(got, ref, F32_GRAD)
+    assert (fa.flash_fwd.launches, fa.flash_fwd.launches_f32) == (n0[0],
+                                                                  n0[1] + 1)
+
+
+@pytest.mark.gpu
+def test_attention_f32_and_dh80_repeat_bit_for_bit_on_card(cuda):
+    """The float32 instances (dense at the three head widths, windowed,
+    flash with masked keys) and the Dh-80 bf16 instance add no atomics:
+    two runs of each forward and backward agree bit for bit."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)
+    q, k, v = (rand(2, 1024, DH) for _ in range(3))
+    grid = rand(1, 32, 32, 3 * C)
+    dense = [(rand(2, N, 3 * h * dh), h, dh ** -0.5)
+             for h, dh in ((12, 64), (16, 32), (16, 80))]
+    dense.append((dense[-1][0].bfloat16(), 16, 80 ** -0.5))
+    fwds = [(lambda x=x, h=h, s=s: da.attention_fwd(x, h, s),
+             lambda x, o, l, d, h=h, s=s: (da.attention_bwd(x, o, l, d, h,
+                                                           s),))
+            for x, h, s in dense]
+    fwds.append((lambda: wa.window_attention_fwd(grid, H, 16, SCALE),
+                 lambda x, o, l, d: (wa.window_attention_bwd(
+                     x, o, l, d, H, 16, SCALE),)))
+    fwds.append((lambda: fa.flash_fwd(q, k, v, SCALE, 1000),
+                 lambda x, o, l, d: fa.flash_bwd(q, k, v, o, l, d, SCALE,
+                                                 1000)))
+    inputs = [x for x, _, _ in dense] + [grid, q]
+    for (fwd, bwd), x in zip(fwds, inputs):
+        (o, lse), (o2, lse2) = fwd(), fwd()
+        d = torch.randn_like(o.float()).to(o.dtype)
+        first, again = bwd(x, o, lse, d), bwd(x, o, lse, d)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -146,8 +146,8 @@ def test_cli_errors_match_jax(monkeypatch, capsys, argv):
 
 def test_cli_needs_the_card_unless_cpu(monkeypatch, tmp_path, narrow):
     """Without `--device cpu` and without a card the CLI raises before
-    it builds anything; float32 on the card raises and names its ROADMAP
-    item. The multi-GPU flags give the JAX CLI's config fields, and `--tp
+    it builds anything, under float32 too. The multi-GPU flags and
+    `--compute-dtype float32` give the JAX CLI's config fields, and `--tp
     2` in one process fails in `make_tp_mesh` with the JAX package's
     message, before anything is written."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -155,13 +155,15 @@ def test_cli_needs_the_card_unless_cpu(monkeypatch, tmp_path, narrow):
             str(tmp_path)]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(base)
-    with pytest.raises(NotImplementedError, match="queue 2 C"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(base + ["--compute-dtype", "float32"])
-    for flag in (["--tp", "2"], ["--fsdp"]):
+    for flag in (["--tp", "2"], ["--fsdp"], ["--compute-dtype", "float32"]):
         want = _jax_cli_config(monkeypatch, base + flag)
         p = tcli.build_parser()
-        got = tcli.to_pretrain_config(p, p.parse_args(base + CPU + flag))
-        for key in ("tensor_parallel", "fsdp", "mesh_shape", "mesh_axes"):
+        got = tcli.to_pretrain_config(p, p.parse_args(
+            base + ["--device", "cpu"] + flag))
+        for key in ("tensor_parallel", "fsdp", "mesh_shape", "mesh_axes",
+                    "compute_dtype"):
             assert getattr(got.runtime, key) == getattr(want.runtime, key)
     import jax
     from ssl4gie_tpu.parallel.tp import make_tp_mesh

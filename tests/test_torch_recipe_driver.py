@@ -242,7 +242,8 @@ def test_imagenet_class_and_detector_loads(tmp_path, monkeypatch):
     (["--tp", "2"], "does not divide"), (["--fsdp"], None),
     (["--device", "cuda"], "queue 2 C")])
 def test_flags_that_still_raise(tmp_path, flags, match):
-    """Float32 on the card (queue 2 C) still raises with the recipe's
+    """Float32 on the card (ROADMAP queue 2 C, the case's label: it raised
+    until the float32 kernels) now gives its config with the recipe's
     flags. Tensor parallelism and FSDP are ported: with the recipe's flags
     they give their config fields, and `--tp 2` in one process fails in
     `make_tp_mesh` (two ranks would divide it)."""
@@ -254,8 +255,10 @@ def test_flags_that_still_raise(tmp_path, flags, match):
     if "--device" not in flags:
         argv += ["--device", "cpu"]
     if "--device" in flags:
-        with pytest.raises(NotImplementedError, match=match):
-            targs.to_train_config(p.parse_args(argv))
+        cfg = targs.to_train_config(p.parse_args(argv))
+        assert (cfg.runtime.device, cfg.runtime.compute_dtype) == (
+            "cuda", "float32")
+        assert cfg.optim.layer_decay == 0.65 and cfg.optim.mixup == 0.8
         return
     cfg = targs.to_train_config(p.parse_args(argv))
     assert (cfg.runtime.tensor_parallel, cfg.runtime.fsdp) == (

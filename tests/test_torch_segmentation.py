@@ -164,6 +164,24 @@ def test_dpt_outputs_match_jax(dense):
     _close(out.numpy(), ref)
 
 
+def test_dpt_seg_at_256_px_matches_jax():
+    """ViT + DPT seg at 256 px: a 16 x 16 patch grid, so the 14 x 14
+    position embedding is interpolated bilinearly (JAX's
+    `interpolate_pos_embed`, `models/vit.py:96-100`) and the decoder runs
+    on 16 x 16 maps; eval mode, from the same weights as the 224 px
+    tests."""
+    model, params, stats = _jax_model("seg")
+    x = np.random.default_rng(7).normal(0, 1, (B, 256, 256, 3)).astype(
+        np.float32)
+    ref = _jax_eval(model, {"params": params, "batch_stats": stats}, x)
+    port = ViTDenseModel(dense="seg", img_size=256, device="cpu", **NARROW)
+    port.load_state_dict(vit_dense_params_to_torch(params, stats))
+    with torch.no_grad():
+        out = port.eval()(torch.from_numpy(x))
+    assert out.shape == (B, 256, 256, 1) and ref.shape == out.shape
+    _close(out.numpy(), ref)
+
+
 def _jax_eval(model, variables, x):
     return np.asarray(model.apply(variables, jnp.asarray(x), train=False))
 

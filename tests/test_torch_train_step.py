@@ -243,7 +243,8 @@ def test_port_imports_no_jax():
         " pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 40, names\n"
-        "for m in ('kernels.window_attention', 'kernels.flash_attention',"
+        "for m in ('kernels.dense_attention', 'kernels.window_attention',"
+        " 'kernels.flash_attention',"
         " 'ops.boxes', 'ops.nms', 'ops.resize', 'ops.roi_align',"
         " 'models.vitdet_fpn', 'models.rpn', 'models.roi_heads',"
         " 'models.faster_rcnn', 'tasks.detection', 'kernels.fused_mlp',"

@@ -172,13 +172,17 @@ def test_init_std_matches_flax(init):
 
 
 def test_unported_options_raise():
-    """Options the port does not run raise: dense mode at another size than
-    224 px; an unknown stem raises. The conv stem (test_torch_moco.py),
-    pooled sizes other than 224 px and the probe BatchNorm
-    (test_torch_ingest.py, test_torch_probe_lrd.py) are ported."""
-    with pytest.raises(NotImplementedError):
-        ViTBackbone(img_size=256, mode="dense", depth=1, embed_dim=DIM,
-                    num_heads=HEADS)
+    """An unknown stem raises. Dense mode at another size than 224 px
+    builds and gives the interpolated grid's taps (held against JAX with
+    the DPT seg head at 256 px in test_torch_segmentation.py); the conv
+    stem (test_torch_moco.py), pooled sizes other than 224 px and the probe
+    BatchNorm (test_torch_ingest.py, test_torch_probe_lrd.py) are
+    ported."""
+    dense = ViTBackbone(img_size=256, mode="dense", depth=1, embed_dim=DIM,
+                        num_heads=HEADS, dense_taps=(0,))
+    with torch.no_grad():
+        (tap,) = dense(torch.zeros(1, 256, 256, 3))
+    assert tap.shape == (1, 1 + 16 * 16, DIM)
     with pytest.raises(ValueError):
         ViTBackbone(stem="hybrid", depth=1, embed_dim=DIM, num_heads=HEADS)
     ViTBackbone(img_size=256, depth=1, embed_dim=DIM, num_heads=HEADS)
