@@ -214,14 +214,16 @@
    unfused. Per-rank launches and ms/step on their own lines.
 14. Float32 compute and the head width 80 (the MAE ViT-H), each phase
    beside the bf16 one it mirrors: (a) the kernel phase holds the float32
-   instances (FFMA, `csrc/attention_f32.cuh`) of #1/#2 at (64, 197) 12 x 64,
+   instances (the FFMA forward, `csrc/attention_f32.cuh`, and the 3xTF32
+   wgmma backward, `csrc/attention_tf32.cuh`) of #1/#2 at (64, 197) 12 x 64,
    (256, 197) 16 x 32 and (64, 180) 16 x 80, of #4/#5 on the detection grid
    and the eval batch's, of #6/#7 at (48, 4096, 64), the eval batch's and
    the masked cases, and the bf16 Dh-80 instance of #1/#2 at (64, 180),
    against their plain versions (float32: outputs within 1e-5 and gradients
-   within 1e-4 of the largest value; the bound at the card's float32 peak,
-   66.9 TFLOP/s, SDPA in float32); (b) `build_trainer` on the finetune
-   driver's command line plus --compute-dtype float32, a few steps, twice:
+   within 1e-4 of the largest value; the bound at the tensor cores' rate
+   at float32's precision, 495 / 3 = 165 TFLOP/s, SDPA in float32); (b)
+   `build_trainer` on the finetune driver's command line plus
+   --compute-dtype float32, a few steps, twice:
    exactly 12 float32 #1, 12 float32 #2 and one bf16 #3 a step, the two
    runs' parameters bitwise equal, the logits within 1e-3 of the largest
    against float32 on the CPU; (c) the ViT-B detection trainer of a
@@ -385,9 +387,11 @@ SEG_WARMUP_STEPS, SEG_TIMED_STEPS = 1, 3
 SEG_REF_B = 2
 # the card's published peaks (H100 SXM, dense bf16 tensor cores; HBM3)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
-# and its float32 peak outside the tensor cores (FFMA), the float32
-# instances' bound: no tensor-core product keeps float32's precision
-PEAK_F32_FLOPS = 66.9e12
+# and the float32 instances' bound, the tensor cores' rate at float32's
+# precision: 495 TFLOP/s of dense TF32 (NVIDIA's H100 SXM data sheet) over
+# the three TF32 products of a 3xTF32 split (x = hi + lo; a.b as lo.hi +
+# hi.lo + hi.hi), whatever implements the row
+PEAK_F32_FLOPS = 495e12 / 3
 # float32 compute (`--compute-dtype float32`): the float32 instances'
 # outputs within 1e-5 of the largest value and gradients within 1e-4 of
 # their plain versions; a float32 model on the card within 1e-3 of the

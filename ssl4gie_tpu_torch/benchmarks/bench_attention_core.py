@@ -1,9 +1,11 @@
 """Times the streaming attention core's kernels on the card at their paths'
 shapes: #1/#2 (dense, B=64 N=197 H=12 Dh=64; the MAE decoder's B=256 H=16
 Dh=32), #4/#5 (windows of 16 x 16 on a (4, 64, 64, 3*768) grid) and #6/#7
-(flash, (48, 4096, 64)), forward and backward, each per call (median of 20
-CUDA-event readings) and back to back (20 calls between two events). Prints
-one JSON line with the card's name and power limit.
+(flash, (48, 4096, 64)), forward and backward in bf16, and the float32
+backward of #2 (the same two shapes and the MAE ViT-H's B=64 N=180 H=16
+Dh=80), #5 and #7, each per call (median of 20 CUDA-event readings) and
+back to back (20 calls between two events). Prints one JSON line with the
+card's name and power limit.
 
 It imports only the kernel modules, which every checkout of the port has,
 so that two checkouts can be compared in one call on one card:
@@ -61,30 +63,44 @@ def back_to_back_ms(fn) -> float:
 
 
 def cases():
-    """name -> (forward call, backward call) on seeded bf16 inputs."""
+    """name -> {"fwd": call, "bwd": call} on seeded inputs: every kernel in
+    bf16; in float32 (`_f32`) the backwards alone."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(
-        torch.bfloat16)
     out = {}
-    for name, (b, heads, dh) in (("dense_dh64", (64, 12, 64)),
-                                 ("dense_dh32", (256, 16, 32))):
-        qkv, dout = rand(b, 197, 3 * heads * dh), rand(b, 197, heads * dh)
-        scale = dh ** -0.5
-        o, lse = da.attention_fwd(qkv, heads, scale)
-        out[name] = (
-            lambda qkv=qkv, heads=heads, scale=scale:
-                da.attention_fwd(qkv, heads, scale),
-            lambda qkv=qkv, o=o, lse=lse, dout=dout, heads=heads, scale=scale:
-                da.attention_bwd(qkv, o, lse, dout, heads, scale))
-    args = (12, 16, 64 ** -0.5)
-    qkv, dout = rand(4, 64, 64, 3 * 768), rand(4, 64, 64, 768)
-    o, lse = wa.window_attention_fwd(qkv, *args)
-    out["window"] = (lambda: wa.window_attention_fwd(qkv, *args),
-                     lambda: wa.window_attention_bwd(qkv, o, lse, dout, *args))
-    q, k, v, do = (rand(48, 4096, 64) for _ in range(4))
-    fo, flse = fa.flash_fwd(q, k, v, 64 ** -0.5)
-    out["flash"] = (lambda: fa.flash_fwd(q, k, v, 64 ** -0.5),
-                    lambda: fa.flash_bwd(q, k, v, fo, flse, do, 64 ** -0.5))
+    for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        rand = lambda *shape: torch.randn(shape, generator=gen,
+                                          device="cuda").to(dt)
+        dense = [("dense_dh64", (64, 197, 12, 64)),
+                 ("dense_dh32", (256, 197, 16, 32))]
+        if sfx:
+            dense.append(("dense_dh80", (64, 180, 16, 80)))
+        calls = {}
+        for name, (b, n, heads, dh) in dense:
+            qkv, dout = rand(b, n, 3 * heads * dh), rand(b, n, heads * dh)
+            scale = dh ** -0.5
+            o, lse = da.attention_fwd(qkv, heads, scale)
+            calls[name] = (
+                lambda qkv=qkv, heads=heads, scale=scale:
+                    da.attention_fwd(qkv, heads, scale),
+                lambda qkv=qkv, o=o, lse=lse, dout=dout, heads=heads,
+                scale=scale: da.attention_bwd(qkv, o, lse, dout, heads,
+                                              scale))
+        args = (12, 16, 64 ** -0.5)
+        qkv, dout = rand(4, 64, 64, 3 * 768), rand(4, 64, 64, 768)
+        o, lse = wa.window_attention_fwd(qkv, *args)
+        calls["window"] = (
+            lambda qkv=qkv: wa.window_attention_fwd(qkv, *args),
+            lambda qkv=qkv, o=o, lse=lse, dout=dout:
+                wa.window_attention_bwd(qkv, o, lse, dout, *args))
+        q, k, v, do = (rand(48, 4096, 64) for _ in range(4))
+        fo, flse = fa.flash_fwd(q, k, v, 64 ** -0.5)
+        calls["flash"] = (
+            lambda q=q, k=k, v=v: fa.flash_fwd(q, k, v, 64 ** -0.5),
+            lambda q=q, k=k, v=v, fo=fo, flse=flse, do=do:
+                fa.flash_bwd(q, k, v, fo, flse, do, 64 ** -0.5))
+        for name, (fwd, bwd) in calls.items():
+            out[name + sfx] = {"bwd": bwd} if sfx else {"fwd": fwd,
+                                                         "bwd": bwd}
     return out
 
 
@@ -98,8 +114,8 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     _build.build()
     ms = {}
-    for name, (fwd, bwd) in cases().items():
-        for side, fn in (("fwd", fwd), ("bwd", bwd)):
+    for name, calls in cases().items():
+        for side, fn in calls.items():
             ms[f"{name}_{side}"] = {"per_call": per_call_ms(fn),
                                     "back_to_back": back_to_back_ms(fn)}
     print(json.dumps({"checkout": ssl4gie_tpu_torch.__file__, "card": card,

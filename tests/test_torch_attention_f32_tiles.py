@@ -1,17 +1,24 @@
-"""The float32 attention kernels (`ssl4gie_tpu_torch/csrc/attention_f32.cuh`)
-and the Dh-80 tile layout of the bf16 core (`csrc/wgmma.cuh:Swz<80>`),
+"""The float32 attention kernels (`ssl4gie_tpu_torch/csrc/attention_f32.cuh`,
+the FFMA forward, and `csrc/attention_tf32.cuh`, the 3xTF32 backward) and
+the Dh-80 tile layout of the bf16 core (`csrc/wgmma.cuh:Swz<80>`),
 emulated in torch on the CPU: the CUDA kernels run only on the card (the
 `gpu`-marked tests of `test_torch_kernels.py` and `chip_smoke.py`).
 
-The f32 emulation follows the kernels' index maps and tile loops: a block
-of 128 threads on 64 rows, thread (rg, cg) on rows r0 + 2 i (r0 = 16 (rg /
-2) + rg % 2) against a tile's rows cg + 16 j, the product's second operand
+The forward's emulation follows its index maps and tile loops: a block of
+128 threads on 64 rows, thread (rg, cg) on rows r0 + 2 i (r0 = 16 (rg / 2)
++ rg % 2) against a tile's rows cg + 16 j, the product's second operand
 read back from the half-warp's slots; keys in tiles of 64 with the loop
 stopping at the last tile that holds a valid key, the online softmax in
-the log2 domain, the log-sum-exp in natural log; the backward as the dq
-kernel (over key tiles) then the dk/dv kernel (over query tiles), P and dS
-in float32. It is held to the plain versions at the card checks' float32
-limits (outputs 1e-5, gradients 1e-4 of the largest value; lse 2^-16)."""
+the log2 domain, the log-sum-exp in natural log. The backward's follows
+its arithmetic: every operand split into TF32 hi and lo parts (round to
+nearest, ties away, on the low 13 bits), each product issued a k-step of
+8 at a time as lo.hi, hi.lo, hi.hi into an f32 accumulator, the dq kernel
+(over key tiles) then the dk/dv kernel (over query tiles, 32 rows at Dh
+80), P and dS in float32; its register and shared-memory maps (the TF32 A
+fragment, the transposed tiles' permuted rows, the panels' swizzle, the
+split pass's lanes) are checked apart. Both are held to the plain
+versions at the card checks' float32 limits (outputs 1e-5, gradients 1e-4
+of the largest value; lse 2^-16)."""
 
 import numpy as np
 import pytest
@@ -97,16 +104,55 @@ def f32_fwd(q, k, v, scale: float, n_valid=None):
     return o, lse
 
 
-def f32_bwd(q, k, v, o, lse, do, scale: float, n_valid=None):
-    """The f32 backward's two kernels: dq over key tiles (delta = rowsum(dO
-    * O) in its prologue), then dk, dv over query tiles; P and dS in
-    float32, masked keys and rows >= N at p = 0."""
+def rna_tf32(x):
+    """cvt.rna.tf32.f32 on float32 bits: the low 13 bits rounded to nearest,
+    ties away from zero (adding half a TF32 ulp to the magnitude), then
+    cleared."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    """x = hi + lo, both TF32, as the kernels split every operand."""
+    hi = rna_tf32(x)
+    return hi, rna_tf32(x - hi)
+
+
+def tf32_product(acc, a, b, passes: int = 3):
+    """acc + a @ b, a (S, M, K) and b (S, K, N) float32, in k-steps of 8 as
+    the kernels issue them: lo_a.hi_b, hi_a.lo_b, hi_a.hi_b into the f32
+    accumulator (passes=1: hi_a.hi_b alone, one TF32 product)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if passes == 3:
+            acc = acc + al[..., ks] @ bh[:, ks]
+            acc = acc + ah[..., ks] @ bl[:, ks]
+        acc = acc + ah[..., ks] @ bh[:, ks]
+    return acc
+
+
+def tile_rows(d: int) -> int:
+    """csrc/attention_tf32.cuh: kTf32Rows, the streamed tile's rows."""
+    return 32 if d == 80 else 64
+
+
+def f32_bwd(q, k, v, o, lse, do, scale: float, n_valid=None,
+            passes: int = 3):
+    """The 3xTF32 backward's two kernels: dq over key tiles (delta =
+    rowsum(dO * O) in its prologue), then dk, dv over query tiles, every
+    product split and issued as tf32_product does; P and dS in float32,
+    masked keys and rows >= N at p = 0. A block's 64 rows are independent,
+    so every block of a kernel runs at once; the tiles it streams run in
+    order, as the accumulation does."""
     S, N, D = q.shape
     n = N if n_valid is None else n_valid
+    T = tile_rows(D)
     sl2 = np.float32(scale * LOG2E)
     pad = lambda x, rows: torch.cat(
         [x, torch.zeros((S, rows - x.shape[1]) + x.shape[2:])], 1)
-    nt = -(-N // ROWS) * ROWS
+    nt = -(-N // 64) * 64
     qp, kp, vp, dop = (pad(x, nt) for x in (q, k, v, do))
     kp[:, n:] = 0
     vp[:, n:] = 0
@@ -114,34 +160,34 @@ def f32_bwd(q, k, v, o, lse, do, scale: float, n_valid=None):
     nl = pad(-lse * LOG2E, nt)
     nl[:, N:] = -torch.inf
     dq = torch.zeros((S, nt, D))
-    for q0 in range(0, N, ROWS):
-        rq = slice(q0, q0 + ROWS)
-        for t0 in range(0, n, ROWS):
-            rk = slice(t0, t0 + ROWS)
-            s = qp[:, rq] @ kp[:, rk].transpose(1, 2)
-            dp = dop[:, rq] @ vp[:, rk].transpose(1, 2)
-            keys = torch.arange(t0, t0 + ROWS)
-            s = torch.where(keys < n, s, -torch.inf)
-            p = torch.exp2((s.double() * float(sl2)
-                            + nl[:, rq, None].double()).float())
-            dq[:, rq] += (p * (dp - delta[:, rq, None])) @ kp[:, rk]
+    for t0 in range(0, n, T):
+        rk = slice(t0, t0 + T)
+        kt, vt = kp[:, rk], vp[:, rk]
+        s = tf32_product(torch.zeros((S, nt, kt.shape[1])), qp,
+                         kt.transpose(1, 2), passes)
+        dp = tf32_product(torch.zeros_like(s), dop, vt.transpose(1, 2),
+                          passes)
+        keys = torch.arange(t0, t0 + kt.shape[1])
+        s = torch.where(keys < n, s, -torch.inf)
+        p = torch.exp2((s.double() * float(sl2)
+                        + nl[..., None].double()).float())
+        dq = tf32_product(dq, p * (dp - delta[..., None]), kt, passes)
     dk = torch.zeros((S, nt, D))
     dv = torch.zeros((S, nt, D))
-    for k0 in range(0, N, ROWS):
-        rk = slice(k0, k0 + ROWS)
-        if k0 >= n:                       # every key masked: streams nothing
-            continue
-        for t0 in range(0, N, ROWS):
-            rq = slice(t0, t0 + ROWS)
-            st = kp[:, rk] @ qp[:, rq].transpose(1, 2)
-            dpt = vp[:, rk] @ dop[:, rq].transpose(1, 2)
-            keys = torch.arange(k0, k0 + ROWS)[:, None]
-            st = torch.where(keys < n, st, -torch.inf)
-            pt = torch.exp2((st.double() * float(sl2)
-                             + nl[:, None, rq].double()).float())
-            dst = pt * (dpt - delta[:, None, rq])
-            dv[:, rk] += pt @ dop[:, rq]
-            dk[:, rk] += dst @ qp[:, rq]
+    valid = (torch.arange(nt) < n)[:, None]
+    for t0 in range(0, N, T):
+        rq = slice(t0, t0 + T)
+        qt, dot = qp[:, rq], dop[:, rq]
+        st = tf32_product(torch.zeros((S, nt, qt.shape[1])), kp,
+                          qt.transpose(1, 2), passes)
+        dpt = tf32_product(torch.zeros_like(st), vp, dot.transpose(1, 2),
+                           passes)
+        st = torch.where(valid, st, -torch.inf)
+        pt = torch.exp2((st.double() * float(sl2)
+                         + nl[:, None, rq].double()).float())
+        dst = pt * (dpt - delta[:, None, rq])
+        dv = tf32_product(dv, pt, dot, passes)
+        dk = tf32_product(dk, dst, qt, passes)
     return dq[:, :N] * scale, dk[:, :N] * scale, dv[:, :N]
 
 
@@ -187,6 +233,150 @@ def test_f32_packed_layout_matches_the_dense_plain():
     o_p, lse_p = da.fused_qkv_attention_fwd_plain(qkv, heads, d ** -0.5)
     _close(o.transpose(0, 1).reshape(1, n, heads * d), o_p, F32_OUT)
     _close(lse[None], lse_p, LSE_TOL)
+
+
+def _ref64(q, k, v, do, scale, n_valid=None):
+    """dq, dk, dv of softmax attention in float64, keys >= n_valid masked."""
+    q, k, v = (x.double().requires_grad_(True) for x in (q, k, v))
+    s = q @ k.transpose(1, 2) * scale
+    if n_valid is not None:
+        s = s.masked_fill(torch.arange(s.shape[-1]) >= n_valid, -torch.inf)
+    o = torch.softmax(s, -1) @ v
+    return torch.autograd.grad(o, (q, k, v), do.double())
+
+
+@pytest.fixture(scope="module")
+def flash_4096():
+    """One sequence at the flash path's N = 4096, Dh 64: its inputs, the
+    plain forward's o and lse, and the float64 gradients."""
+    rng = np.random.default_rng(4096)
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, (1, 4096, 64)).astype(
+        np.float32)) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, 0.125)
+    return (q, k, v, o, lse, do), _ref64(q, k, v, do, 0.125)
+
+
+def test_tf32_bwd_at_the_flash_length(flash_4096):
+    """The longest contraction the paths give the backward: 4096 queries
+    summed into dK and dV, 4096 keys into dQ, at the gradient limit."""
+    (q, k, v, o, lse, do), _ = flash_4096
+    for got, ref in zip(f32_bwd(q, k, v, o, lse, do, 0.125),
+                        fa.flash_attention_bwd_plain(q, k, v, do, 0.125)):
+        _close(got, ref, F32_GRAD)
+
+
+def test_one_tf32_pass_is_a_different_function(flash_4096):
+    """At N = 4096, one TF32 product (hi.hi alone) is at least 100x further
+    from the float64 gradients than the three of the 3xTF32 split: the
+    split is what keeps float32's precision."""
+    (q, k, v, o, lse, do), ref = flash_4096
+    err = lambda passes: max(
+        ((g.double() - r).abs().max() / r.abs().max()).item()
+        for g, r in zip(f32_bwd(q, k, v, o, lse, do, 0.125, passes=passes),
+                        ref))
+    three, one = err(3), err(1)
+    assert three < F32_GRAD and one >= 100 * three, (three, one)
+
+
+# ------------------------------------------ the 3xTF32 backward's maps
+def tf32_pos(i: int) -> int:
+    """csrc/attention_tf32.cuh:tf32_pos, the k position of row i of 8."""
+    return (i >> 1) + ((i & 1) << 2)
+
+
+def pan_offset(rows: int, r: int, c: int) -> int:
+    """csrc/attention_tf32.cuh:F32Pan<rows>::offset, in bytes."""
+    return (c >> 3) * rows * 32 + r * 32 + ((((c >> 2) ^ (r >> 2)) & 1) << 4) \
+        + (c & 3) * 4
+
+
+def test_tf32_fragment_map_multiplies_the_permuted_tile():
+    """The accumulator of P or dS goes into the TF32 register A operand
+    unchanged (`tf32_frags`): by CUTLASS's ALayout_64x8 thread t of the
+    warpgroup holds A (16 w + g, t % 4), (+ 8, t % 4), (16 w + g, t % 4 +
+    4), (+ 8, + 4) (g = lane / 4), so A's k position p is the
+    accumulator's column 2p (p < 4) or 2(p - 4) + 1, and the transposed
+    tile that the split pass writes with rows in tf32_pos order makes the
+    hardware's A . B the product over the right keys."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 8))           # one k-step of the accumulator
+    b = rng.normal(size=(8, 5))            # the 8 source rows of the operand
+    a_hw = np.zeros((64, 8))
+    for tid in range(128):
+        w, lane = tid // 32, tid % 32
+        g, t = lane // 4, lane % 4
+        acc = {0: (16 * w + g, 2 * t), 1: (16 * w + g, 2 * t + 1),
+               2: (16 * w + g + 8, 2 * t), 3: (16 * w + g + 8, 2 * t + 1)}
+        frag = [acc[0], acc[2], acc[1], acc[3]]      # tf32_frags' order
+        place = [(16 * w + g, t), (16 * w + g + 8, t), (16 * w + g, t + 4),
+                 (16 * w + g + 8, t + 4)]            # ALayout_64x8
+        for src, dst in zip(frag, place):
+            a_hw[dst] = x[src]
+    b_hw = np.zeros_like(b)
+    for i in range(8):
+        b_hw[tf32_pos(i)] = b[i]
+    np.testing.assert_allclose(a_hw @ b_hw, x @ b, rtol=1e-12)
+
+
+@pytest.mark.parametrize("rows", [32, 64, 80])
+def test_f32_panel_layout(rows):
+    """F32Pan<rows> places a tile of 80 columns bijectively on its bytes,
+    each panel the hardware's 32-byte swizzle of 8-column rows (so the
+    descriptor of mode 3, 8-row groups 256 bytes apart, reads what offset
+    wrote), a k-step one panel, and every panel 256-byte aligned."""
+    offs = [pan_offset(rows, r, c) for r in range(rows) for c in range(80)]
+    assert sorted(offs) == list(range(0, rows * 80 * 4, 4))
+    for r in range(rows):
+        for c in range(80):
+            panel = (c >> 3) * rows * 32
+            assert pan_offset(rows, r, c) == panel + hardware_swizzle(
+                r * 32 + (c & 7) * 4, 32)
+    assert rows * 32 % 256 == 0
+
+
+@pytest.mark.parametrize("r_rows,c_cols", [(64, 32), (64, 64), (64, 80),
+                                           (32, 80)])
+def test_split_pass_lanes(r_rows, c_cols):
+    """split_tile: the block's 8 warps (kTf32Threads = 256) take units of
+    8 rows x 4 chunks in turn, which cover every float4 of the tile once,
+    and each transposed store (lane with chunk cq storing column (e + cq) %
+    4 of it) puts a warp's 32 lanes on 32 banks; each quarter-warp's float4
+    accesses are conflict-free."""
+    units, warps = r_rows * c_cols // 128, 8
+    seen = set()
+    for i in range(-(-units // warps)):
+        for warp in range(warps):
+            u = warp + warps * i
+            if u >= units:
+                break
+            lanes = []
+            for lane in range(32):
+                cq = lane >> 3
+                r = (u % (r_rows // 8)) * 8 + (lane & 7)
+                c = (u // (r_rows // 8)) * 16 + 4 * cq
+                lanes.append((r, c, cq))
+                seen.add((r, c))
+            for e in range(4):
+                banks = {(pan_offset(c_cols, c + ((e + cq) & 3),
+                                     (r & ~7) + tf32_pos(r & 7)) // 4) % 32
+                         for r, c, cq in lanes}
+                assert len(banks) == 32
+            for qw in range(4):
+                words = {pan_offset(r_rows, r, c) // 4 % 32 // 4
+                         for r, c, _ in lanes[8 * qw:8 * qw + 8]}
+                assert len(words) == 8
+    assert seen == {(r, c) for r in range(r_rows)
+                    for c in range(0, c_cols, 4)}
+
+
+@pytest.mark.parametrize("d", [32, 64, 80])
+def test_tf32_bwd_shared_memory_fits(d):
+    """dq_smem_tf32 and dkv_smem_tf32 (their tiles, the dk/dv kernel's
+    lse and delta stages, 1 KiB for alignment) fit a block's 227 KiB."""
+    t, x = tile_rows(d), 64 * d * 4
+    dq = 4 * x + 8 * t * d * 4 + 1024
+    dkv = 4 * x + 10 * t * d * 4 + 2 * 2 * t * 4 + 1024
+    assert max(dq, dkv) <= 232448, (dq, dkv)
 
 
 # ------------------------------------------------- Swz<80>, the bf16 core

@@ -570,6 +570,33 @@ def test_attention_f32_and_dh80_repeat_bit_for_bit_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flash_1000", "flash_3", "window"])
+def test_f32_backward_repeats_bit_for_bit_on_card(cuda, case):
+    """The 3xTF32 backward (two kernels, no atomics) called twice on the
+    same inputs gives bitwise-equal dq, dk and dv: at the flash path's
+    (48, 4096, 64) with 1000 and 3 valid keys, and on the detection grid
+    (4, 64, 64) in 16 x 16 windows."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)
+    if case == "window":
+        qkv, dout = rand(4, 64, 64, 3 * C), rand(4, 64, 64, C)
+        o, lse = wa.window_attention_fwd(qkv, H, 16, SCALE)
+        bwd = lambda: wa.window_attention_bwd(qkv, o, lse, dout, H, 16,
+                                              SCALE).split(C, -1)
+    else:
+        n_valid = int(case.split("_")[1])
+        q, k, v, dout = (rand(48, 4096, DH) for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, SCALE, n_valid)
+        bwd = lambda: fa.flash_bwd(q, k, v, o, lse, dout, SCALE, n_valid)
+    first, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_shear_rotate_kernel_matches_plain_on_card(cuda):
     img, angle = _shear_case(5, B=4)
     from ssl4gie_tpu_torch.data.augment import rotation_factors
