@@ -214,8 +214,8 @@
    unfused. Per-rank launches and ms/step on their own lines.
 14. Float32 compute and the head width 80 (the MAE ViT-H), each phase
    beside the bf16 one it mirrors: (a) the kernel phase holds the float32
-   instances (the FFMA forward, `csrc/attention_f32.cuh`, and the 3xTF32
-   wgmma backward, `csrc/attention_tf32.cuh`) of #1/#2 at (64, 197) 12 x 64,
+   instances (the 3xTF32 wgmma forward and backward,
+   `csrc/attention_tf32.cuh`) of #1/#2 at (64, 197) 12 x 64,
    (256, 197) 16 x 32 and (64, 180) 16 x 80, of #4/#5 on the detection grid
    and the eval batch's, of #6/#7 at (48, 4096, 64), the eval batch's and
    the masked cases, and the bf16 Dh-80 instance of #1/#2 at (64, 180),

@@ -1,11 +1,11 @@
 """Times the streaming attention core's kernels on the card at their paths'
 shapes: #1/#2 (dense, B=64 N=197 H=12 Dh=64; the MAE decoder's B=256 H=16
 Dh=32), #4/#5 (windows of 16 x 16 on a (4, 64, 64, 3*768) grid) and #6/#7
-(flash, (48, 4096, 64)), forward and backward in bf16, and the float32
-backward of #2 (the same two shapes and the MAE ViT-H's B=64 N=180 H=16
-Dh=80), #5 and #7, each per call (median of 20 CUDA-event readings) and
-back to back (20 calls between two events). Prints one JSON line with the
-card's name and power limit.
+(flash, (48, 4096, 64)), forward and backward in bf16, and in float32 the
+same plus #1/#2 at the MAE ViT-H's B=64 N=180 H=16 Dh=80 and the forward
+#6 at the eval batch's (24, 4096, 64), each per call (median of 20
+CUDA-event readings) and back to back (20 calls between two events).
+Prints one JSON line with the card's name and power limit.
 
 It imports only the kernel modules, which every checkout of the port has,
 so that two checkouts can be compared in one call on one card:
@@ -63,8 +63,8 @@ def back_to_back_ms(fn) -> float:
 
 
 def cases():
-    """name -> {"fwd": call, "bwd": call} on seeded inputs: every kernel in
-    bf16; in float32 (`_f32`) the backwards alone."""
+    """name -> {"fwd": call, "bwd": call} on seeded inputs, in bf16 and in
+    float32 (`_f32`, with the Dh-80 shape and the flash eval forward)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
     for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
@@ -99,8 +99,12 @@ def cases():
             lambda q=q, k=k, v=v, fo=fo, flse=flse, do=do:
                 fa.flash_bwd(q, k, v, fo, flse, do, 64 ** -0.5))
         for name, (fwd, bwd) in calls.items():
-            out[name + sfx] = {"bwd": bwd} if sfx else {"fwd": fwd,
-                                                         "bwd": bwd}
+            out[name + sfx] = {"fwd": fwd, "bwd": bwd}
+        if sfx:
+            q, k, v = (rand(24, 4096, 64) for _ in range(3))
+            out["flash_eval" + sfx] = {
+                "fwd": lambda q=q, k=k, v=v: fa.flash_fwd(q, k, v,
+                                                          64 ** -0.5)}
     return out
 
 

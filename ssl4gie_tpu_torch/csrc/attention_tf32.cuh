@@ -1,31 +1,33 @@
-// The float32 backward of the attention kernels (dense_attention.cu,
-// window_attention.cu, flash_attention.cu) on Hopper's tensor cores in
-// 3xTF32: a dq kernel, then a dk/dv kernel, for every layout, with the Rows
-// functors of attention_core.cuh (`DenseRows`, `WindowRows`). The float32
-// forward is attention_f32.cuh's.
+// The float32 attention kernels (dense_attention.cu, window_attention.cu,
+// flash_attention.cu) on Hopper's tensor cores in 3xTF32: one
+// online-softmax forward, and a backward of a dq kernel then a dk/dv
+// kernel, for every layout, with the Rows functors of attention_core.cuh
+// (`DenseRows`, `WindowRows`).
 //
-// Replaces the same Pallas TPU kernels as the bf16 backward, run at dt =
-// f32: ssl4gie_tpu/kernels/dense_attention.py (`_bwd_kernel`),
-// window_attention.py (`_bwd_kernel`) and flash_attention.py
-// (`_bwd_dq_kernel`, `_bwd_dkv_kernel`), which accumulate in f32 and, under
-// `--compute-dtype float32`, keep P and dS in float32.
+// Replaces the same Pallas TPU kernels as the bf16 kernels, run at dt =
+// f32: ssl4gie_tpu/kernels/dense_attention.py (`_fwd_kernel`,
+// `_bwd_kernel`), window_attention.py (`_fwd_kernel`, `_bwd_kernel`) and
+// flash_attention.py (`_fwd_kernel`, `_bwd_dq_kernel`, `_bwd_dkv_kernel`),
+// which accumulate in f32 and, under `--compute-dtype float32`, keep P and
+// dS in float32.
 //
-// What bounds it on the card: 10 N^2 D FLOPs per (sequence, head), and
-// float32's precision. One TF32 product (a 10-bit mantissa) errs near 1e-3.
+// What bounds them on the card: 4 N^2 D FLOPs (forward) and 10 N^2 D
+// (backward) per (sequence, head), and float32's precision. One TF32
+// product (a 10-bit mantissa) errs near 1e-3.
 // Split every f32 operand x into hi = rna_tf32(x) and lo = rna_tf32(x - hi)
 // and x = hi + lo holds about 22 bits; a.b = lo_a.hi_b + hi_a.lo_b +
 // hi_a.hi_b (small terms first) drops only lo_a.lo_b, near 2^-22 of the
 // product. Three TF32 wgmmas per product, accumulated in f32: float32's
 // precision at 495 / 3 = 165 TFLOP/s (H100 SXM), against 67 on the FFMA
-// pipes. The design is the bf16 backward's (attention_core.cuh): a block
-// on 64 rows whose warpgroup 0 issues every product as a wgmma
-// (m64nNk8.f32.tf32.tf32), P and dS in registers, no atomics. What TF32
-// changes:
+// pipes. The design is the bf16 core's (attention_core.cuh): every product
+// a wgmma (m64nNk8.f32.tf32.tf32) on 64 rows a warpgroup, the scores, P
+// and dS in registers, no atomics. What TF32 changes:
 // - wgmma reads TF32 operands from shared memory K-major only (no
-//   transpose bits, as CUTLASS's SM90 TF32 atoms are all _TN), so the three
-//   products that the bf16 core reads transposed, dQ += dS.K, dV += P^T.dO
-//   and dK += dS^T.Q, read a transposed copy (K^T, dO^T, Q^T) that the
-//   split pass writes while it splits the streamed tile anyway.
+//   transpose bits, as CUTLASS's SM90 TF32 atoms are all _TN), so the
+//   products that the bf16 core reads transposed, O += P.V in the forward,
+//   dQ += dS.K, dV += P^T.dO and dK += dS^T.Q in the backward, read a
+//   transposed copy (V^T, K^T, dO^T, Q^T) that the split pass writes while
+//   it splits the streamed tile anyway.
 // - the f32 accumulator's layout is not the TF32 register A layout: a
 //   thread's A elements in a k-step of 8 are columns t and t + 4 (t = lane
 //   % 4), its accumulator elements columns 2t and 2t + 1. So P, dS, P^T and
@@ -38,27 +40,45 @@
 //   layout wgmma reads; once landed, the block splits it in place (hi over
 //   the raw value) and writes lo and the transposed hi and lo beside it,
 //   each warp's scalar stores of the transpose rotated onto 32 banks.
-//   The resident tile (Q and dO; K and V) is split once. With one
-//   warpgroup the split took about a third of the #7 backward, so a block
-//   has a second warpgroup that loads and splits with the first and idles
-//   while it multiplies; two warpgroups that each took half of the
-//   products were slower (PERF.md, PR 18,
+//   The resident tile (Q; Q and dO; K and V) is split once.
+// - the forward's block is G warpgroups (G = 2 but at Dh 80, `kFwdGroups`),
+//   each on its own 64 query rows against the shared streamed tile, all of
+//   them loading, splitting and multiplying: two halve the split per
+//   product, and the second issues its S = Q.K^T after the first, so that
+//   one's softmax runs beside the other's products. Each tile's P.V goes
+//   into a fresh partial that a rounded FMA adds to the output (see
+//   attn_fwd_tf32). ptxas serializes every wgmma of a kernel in which a
+//   product sits under a thread-dependent branch, or in which another
+//   instruction touches a wgmma's accumulator while a product is in flight
+//   (ptxas notes C7514, C7515, C7518), so the forward has neither (PERF.md,
+//   section 6; benchmarks/ablate_f32_forward.py).
+// - the backward's block is two warpgroups that both load and split, and
+//   warpgroup 0 alone multiplies: with one warpgroup the split took about
+//   a third of the #7 backward, and two warpgroups that each took half of
+//   the products were slower (PERF.md, section 6,
 //   benchmarks/ablate_f32_backward.py).
-// - the products wait on each other less: dQ += dS.K goes in two groups,
-//   the second half's fragments split while the first is multiplied, and
-//   in the dk/dv kernel dV += P^T.dO runs while dS^T is formed.
+// - the backward's products wait on each other less: dQ += dS.K goes in
+//   two groups, the second half's fragments split while the first is
+//   multiplied, and in the dk/dv kernel dV += P^T.dO runs while dS^T is
+//   formed.
 // Shared memory a block (X = a 64-row f32 tile, 64 D 4 bytes; XT = one of
 // the streamed tile's kTf32Rows<D> rows: 64, or 32 at Dh 80):
+// - forward: Q hi and lo of each warpgroup (2 G X); K lo, V^T hi and lo
+//   (3 XT); two stages of K (landing as hi) and V (4 XT): Dh 32 89 KiB, 64
+//   177 KiB, 80 111 KiB (G = 2, 2, 1).
 // - dq: Q hi, lo, dO hi, lo (4 X); K lo, V lo, K^T hi, lo (4 XT); two
 //   stages of K and V landing as hi (4 XT): Dh 32 97 KiB, 64 193 KiB, 80
 //   161 KiB.
 // - dk/dv: K, V hi and lo (4 X); Q lo, dO lo, Q^T, dO^T hi and lo (6 XT);
 //   two stages of Q and dO (4 XT) with their lse and delta: Dh 32 114 KiB,
 //   64 226 KiB, 80 181.5 KiB.
-// Dh 80 streams 32-row tiles, since 64 would need 241 KiB (dq) and 282 KiB
-// (dk/dv). The masks are the FFMA kernels': keys at or beyond n_valid get
-// p = 0 (their dk and dv are zero; a dk/dv block whose keys are all masked
-// streams nothing), query rows at or beyond N read zeros and get p = 0.
+// Dh 80 streams 32-row tiles, since 64 would need 221 KiB (forward, G = 2),
+// 241 KiB (dq) and 282 KiB (dk/dv). The masks: in the forward keys at or
+// beyond n_valid are -inf before the max and the key loop stops at the
+// last tile that holds a valid key; in the backward they get p = 0 (their
+// dk and dv are zero; a dk/dv block whose keys are all masked streams
+// nothing); query rows at or beyond N read zeros (the backward gives them
+// p = 0) and are never stored.
 
 #pragma once
 
@@ -75,7 +95,8 @@ namespace {
 // the dk/dv kernel)
 template <int D>
 constexpr int kTf32Rows = D == 80 ? 32 : 64;
-// threads a block: warpgroup 0 multiplies; both load and split the tiles
+// threads a backward block: warpgroup 0 multiplies; both load and split
+// the tiles
 constexpr int kTf32Threads = 256;
 
 // A tile of R rows of f32 columns as panels of 8 columns (32 bytes): panel
@@ -121,13 +142,13 @@ __device__ __forceinline__ void tf32_split(float x, unsigned& hi,
 }
 
 // cp.async rows [first, first + R) of a sequence's C-wide f32 column slice
-// at src (row stride ld) into the F32Pan<R> tile at dst, by the block's
+// at src (row stride ld) into the F32Pan<R> tile at dst, by the block's kT
 // threads; rows >= limit become zeros.
-template <int R, int C, class Rows>
+template <int R, int C, int kT = kTf32Threads, class Rows>
 __device__ __forceinline__ void load_pan(unsigned char* dst, const float* src,
                                          int ld, Rows rows, int first,
                                          int limit) {
-  constexpr int kChunks = C / 4, kT = kTf32Threads;
+  constexpr int kChunks = C / 4;
 #pragma unroll
   for (int i = 0; i < (R * kChunks + kT - 1) / kT; ++i) {
     const int idx = threadIdx.x + i * kT;
@@ -141,18 +162,20 @@ __device__ __forceinline__ void load_pan(unsigned char* dst, const float* src,
 }
 
 // The raw R x C tile at `hi` (F32Pan<R>, as load_pan left it) split by the
-// block's threads: in place into its TF32 high parts, its low parts into `lo`
+// block's kT threads: in place into its TF32 high parts, its low parts into `lo`
 // (the same layout), and with kTrans both transposed into `thi` and `tlo`
 // (F32Pan<C>: C rows whose columns are the R source rows, each 8 in
-// tf32_pos order). A warp takes 8 rows x 4 chunks of 4 columns; its lane
-// with chunk cq stores column (e + cq) % 4 of its chunk in transposed store
-// e, so each store's 32 lanes meet 32 banks.
-template <int R, int C, bool kTrans>
+// tf32_pos order); without kPlain only the transposed parts are written
+// (the raw tile stays). A warp takes 8 rows x 4 chunks of 4 columns; its
+// lane with chunk cq stores column (e + cq) % 4 of its chunk in transposed
+// store e, so each store's 32 lanes meet 32 banks.
+template <int R, int C, bool kTrans, bool kPlain = true,
+          int kT = kTf32Threads>
 __device__ __forceinline__ void split_tile(unsigned char* hi,
                                            unsigned char* lo,
                                            unsigned char* thi,
                                            unsigned char* tlo) {
-  constexpr int kUnits = R * C / 128, kWarps = kTf32Threads / 32;
+  constexpr int kUnits = R * C / 128, kWarps = kT / 32;
   static_assert(R % 8 == 0 && C % 16 == 0, "units of 8 rows x 16 columns");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int cq = lane >> 3;
@@ -169,8 +192,12 @@ __device__ __forceinline__ void split_tile(unsigned char* hi,
     tf32_split(x.y, h[1], l[1]);
     tf32_split(x.z, h[2], l[2]);
     tf32_split(x.w, h[3], l[3]);
-    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    if constexpr (kPlain) {
+      *reinterpret_cast<uint4*>(hi + off) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + off) =
+          make_uint4(l[0], l[1], l[2], l[3]);
+    }
     if constexpr (kTrans) {
       // rotate by cq: element e of the rotated pair is column (e + cq) % 4
       const bool s1 = cq & 1, s2 = cq & 2;
@@ -236,11 +263,11 @@ __device__ __forceinline__ void tf32_ss(float (&d)[4][4], unsigned long long a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
-// d (64 x n, n = 32, 64 or 80) += A (64 x 8, registers) . B^T, B (n x 8) a
-// TF32 panel in shared memory, K-major
+// d (64 x n, n = 32, 64 or 80) = (acc ? d : 0) + A (64 x 8, registers) .
+// B^T, B (n x 8) a TF32 panel in shared memory, K-major
 __device__ __forceinline__ void tf32_rs(float (&d)[4][4],
                                         const unsigned (&a)[4],
-                                        unsigned long long b) {
+                                        unsigned long long b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
@@ -250,11 +277,11 @@ __device__ __forceinline__ void tf32_rs(float (&d)[4][4],
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 __device__ __forceinline__ void tf32_rs(float (&d)[8][4],
                                         const unsigned (&a)[4],
-                                        unsigned long long b) {
+                                        unsigned long long b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -269,11 +296,11 @@ __device__ __forceinline__ void tf32_rs(float (&d)[8][4],
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 __device__ __forceinline__ void tf32_rs(float (&d)[10][4],
                                         const unsigned (&a)[4],
-                                        unsigned long long b) {
+                                        unsigned long long b, int acc = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
@@ -291,7 +318,7 @@ __device__ __forceinline__ void tf32_rs(float (&d)[10][4],
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
         "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
         "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 // d = (first k-step ? 0 : d) + A . B^T over K columns: each k-step (panel)
@@ -313,8 +340,10 @@ __device__ __forceinline__ void tf32x3_ss(float (&d)[NJ][4],
 
 // d += X . B over columns [8 J0, 8 J1) of the accumulator-laid x (P, dS,
 // or their transposes), split into A fragments, against the transposed
-// F32Pan<D> tile `bh`/`bl` (D rows, x's columns in tf32_pos order)
-template <int D, int J0, int J1, int NS>
+// F32Pan<D> tile `bh`/`bl` (D rows, x's columns in tf32_pos order); with
+// kFresh, d = X . B (the first product does not read d, so no other
+// instruction need zero it)
+template <int D, int J0, int J1, int NS, bool kFresh = false>
 __device__ __forceinline__ void tf32x3_rs(float (&d)[D / 8][4],
                                           const unsigned (&xh)[NS][4],
                                           const unsigned (&xl)[NS][4],
@@ -322,7 +351,7 @@ __device__ __forceinline__ void tf32x3_rs(float (&d)[D / 8][4],
                                           const unsigned char* bl) {
 #pragma unroll
   for (int j = J0; j < J1; ++j) {
-    tf32_rs(d, xl[j], F32Pan<D>::desc(bh, j));
+    tf32_rs(d, xl[j], F32Pan<D>::desc(bh, j), !kFresh || j > J0);
     tf32_rs(d, xh[j], F32Pan<D>::desc(bl, j));
     tf32_rs(d, xh[j], F32Pan<D>::desc(bh, j));
   }
@@ -373,6 +402,226 @@ __device__ __forceinline__ void store_acc_f32(const float (&acc)[D / 8][4],
             make_float2(acc[n][2 * hf] * mul, acc[n][2 * hf + 1] * mul);
     }
   }
+}
+
+// ---------------------------------------------------------------- forward
+// named barrier `id` of n threads: wait for all of them, or arrive only
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// warpgroups a forward block, each on 64 query rows
+template <int D>
+constexpr int kFwdGroups = D == 80 ? 1 : 2;
+
+template <int D, int G>
+constexpr size_t fwd_smem_tf32() {
+  return (size_t)(2 * 64 * G + 7 * kTf32Rows<D>) * D * 4 + 1024;
+}
+
+// grid (ceil(N / (64 G)), H, sequences), 128 G threads: warpgroup wg owns
+// query rows [64 wg, 64 wg + 64) of the block (warp w of it rows 16 w..);
+// every thread loads, splits and multiplies (a product under a
+// thread-dependent branch would make ptxas serialize every wgmma). q, k, v
+// point at head 0's columns of their row slices (row stride ld_in, head h
+// at + h * D); o at head 0's output columns (row stride ld_out). Keys >=
+// n_valid are masked; query rows >= N are not stored. lse is (sequences,
+// H, N).
+//
+// Per key tile t: split K(t) in place and V(t) into V^T; S = Q.K^T (the
+// two warpgroups staggered); the online softmax; P.V into a partial that starts at zero (the first
+// product does not read it) and is added to the output accumulator by a
+// rounded FMA, o = o * alpha + part. The tensor cores' accumulation does
+// not round to nearest: over the 1536 accumulations of a 4096-key row in
+// one accumulator its error grew with N to 5e-5 of the largest output,
+// against 4e-6 by tiles (PERF.md, section 6).
+template <int D, int G, class Rows>
+__global__ void __launch_bounds__(G * 128)
+attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, int ld_in, float* __restrict__ o,
+              int ld_out, float* __restrict__ lse, Rows rows, int N,
+              int n_valid, float scale) {
+  constexpr int T = kTf32Rows<D>, NS = T / 8, NO = D / 8, kT = G * 128;
+  constexpr int X = 64 * D * 4, XT = T * D * 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<size_t>(smem_raw) + 1023) & ~(size_t)1023);
+  unsigned char* Qh = smem;                    // G tiles of 64 rows
+  unsigned char* Ql = Qh + G * X;
+  unsigned char* Kl = Ql + G * X;
+  unsigned char* VTh = Kl + XT;                // V^T, keys in tf32_pos order
+  unsigned char* VTl = VTh + XT;
+  unsigned char* ring = VTl + XT;              // per stage K (hi), V raw
+  const int h = blockIdx.y, H = gridDim.y, seq = blockIdx.z;
+  const int q0 = blockIdx.x * 64 * G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, g = lane >> 2, c2 = (lane & 3) * 2;
+  const size_t base = rows.base(seq);
+  q += base * ld_in + h * D;
+  k += base * ld_in + h * D;
+  v += base * ld_in + h * D;
+  o += base * ld_out + h * D;
+  const int n_tiles = (n_valid + T - 1) / T;
+
+  // K and V rows of key tile t into stage t % 2; keys >= n_valid are zeros
+  auto load_tile = [&](int t) {
+    unsigned char* Kd = ring + (t & 1) * 2 * XT;
+    load_pan<T, D, kT>(Kd, k, ld_in, rows, t * T, n_valid);
+    load_pan<T, D, kT>(Kd + XT, v, ld_in, rows, t * T, n_valid);
+  };
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    load_pan<64, D, kT>(Qh + i * X, q, ld_in, rows, q0 + 64 * i, N);
+  load_tile(0);                  // with Q: one group
+  cp_async_commit();
+
+  // per thread: rows g and g + 8 of its warp's 16. m: raw score max; l: this
+  // thread's part of the row sum (the quad's parts are added at the end)
+  const unsigned char* Qgh = Qh + wg * X;      // this warpgroup's Q
+  const unsigned char* Qgl = Ql + wg * X;
+  const float sl2 = scale * kLog2e;    // scale * log2(e)
+  float acc[NO][4], part[NO][4], sc[NS][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = part[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();              // tile t (and Q) have landed
+    __syncthreads();                 // for every thread; tile t - 1 is done
+    if (t + 1 < n_tiles) load_tile(t + 1);
+    cp_async_commit();
+    unsigned char* Kh = ring + (t & 1) * 2 * XT;
+    if (t == 0) {
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        split_tile<64, D, false, true, kT>(Qh + i * X, Ql + i * X, nullptr,
+                                          nullptr);
+    }
+    split_tile<T, D, false, true, kT>(Kh, Kl, nullptr, nullptr);
+    split_tile<T, D, true, false, kT>(Kh + XT, nullptr, VTh, VTl);
+    // order the split's stores (generic proxy) before wgmma's reads (async
+    // proxy), for every thread
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S (64 x T) = Q.K^T. With two warpgroups the second issues its S once
+    // the first has issued its own, so that the tensor cores run one's S
+    // (then P.V) while the other computes its softmax
+    if (G == 2 && wg == 1) named_sync(1, 256);
+    wg_fence();
+    tf32x3_ss<D, T>(sc, Qgh, Qgl, Kh, Kl);
+    wg_commit();
+    if (G == 2 && wg == 0) named_arrive(1, 256);
+    wg_wait0();
+    wg_hold(sc);
+    if ((t + 1) * T > n_valid) {     // the tile that holds the last key
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (t * T + j * 8 + c2 + e >= n_valid)
+            sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
+    }
+    // online softmax, rows g (half 0: sc[j][0..1]) and g + 8 (half 1)
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = m[hf];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j][2 * hf], sc[j][2 * hf + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      alpha[hf] = exp2_approx((m[hf] - mx) * sl2);     // 0 at t = 0
+      m[hf] = mx;
+      const float ms = mx * sl2;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+          sc[j][e] = exp2_approx(fmaf(sc[j][e], sl2, -ms));
+          sum += sc[j][e];
+        }
+      l[hf] = l[hf] * alpha[hf] + sum;
+    }
+    // part = P.V against V^T, P split into A fragments; o = o * alpha + part
+    unsigned ph[NS][4], pl[NS][4];
+    tf32_frags<0, NS>(sc, ph, pl);
+    wg_fence();
+    tf32x3_rs<D, 0, NS, NS, true>(part, ph, pl, VTh, VTl);
+    wg_commit();
+    wg_wait0();
+    wg_hold(part);
+    wg_hold_a(ph);
+    wg_hold_a(pl);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], part[n][e]);
+  }
+  cp_async_wait<0>();              // only empty groups can be left
+
+  // o = acc / l; each row's log-sum-exp in natural log
+  const int row0 = q0 + wg * 64 + (warp & 3) * 16 + g;
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float sum = l[hf];
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    inv[hf] = 1.f / sum;
+    const int row = row0 + 8 * hf;
+    if (c2 == 0 && row < N)
+      lse[((size_t)seq * H + h) * N + row] = m[hf] * scale + logf(sum);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    acc[n][0] *= inv[0];
+    acc[n][1] *= inv[0];
+    acc[n][2] *= inv[1];
+    acc[n][3] *= inv[1];
+  }
+  store_acc_f32<D>(acc, 1.f, o, ld_out, rows, row0, N);
+}
+
+// The float32 forward over `seqs` sequences of N rows placed by `rows`, H
+// heads D wide (see attn_fwd_tf32 for the pointers and strides).
+template <int D, class Rows>
+cudaError_t launch_attn_fwd_f32(const void* q, const void* k, const void* v,
+                                int ld_in, void* o, int ld_out, void* lse,
+                                Rows rows, int seqs, int H, int N,
+                                int n_valid, float scale, void* stream) {
+  constexpr int G = kFwdGroups<D>;
+  constexpr size_t smem = fwd_smem_tf32<D, G>();
+  cudaError_t err = allow_smem(attn_fwd_tf32<D, G, Rows>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + 64 * G - 1) / (64 * G), H, seqs);
+  attn_fwd_tf32<D, G, Rows><<<grid, G * 128, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, ld_in, (float*)o,
+      ld_out, (float*)lse, rows, N, n_valid, scale);
+  return cudaGetLastError();
+}
+
+// The float32 packed-QKV forward: qkv (tokens, 3C) -> out (tokens, C), no
+// key mask.
+template <int D, class Rows>
+cudaError_t launch_packed_fwd_f32(const void* qkv, void* out, void* lse,
+                                  Rows rows, int seqs, int N, int H,
+                                  float scale, void* stream) {
+  const int C = H * D;
+  const float* x = (const float*)qkv;
+  return launch_attn_fwd_f32<D>(x, x + C, x + 2 * C, 3 * C, out, C, lse,
+                                rows, seqs, H, N, N, scale, stream);
 }
 
 template <int D>

@@ -12,9 +12,9 @@
 // (`DenseRows`), instantiated for Dh = 64 (ViT-S/B/L), Dh = 32 (the MAE
 // decoder: 512 wide, 16 heads) and Dh = 80 (the MAE ViT-H: 1280 wide, 16
 // heads; its tiles are split into a 64-column and a 16-column part, see
-// `Swz<80>`). The float32 entries run the FFMA forward of attention_f32.cuh
-// and the 3xTF32 wgmma backward of attention_tf32.cuh on the same layout at
-// the same three head widths.
+// `Swz<80>`). The float32 entries run the 3xTF32 wgmma forward and
+// backward of attention_tf32.cuh on the same layout at the same three head
+// widths.
 //
 // What bounds it on the card: at ViT-B 224 (N=197, Dh=64) one (image, head)
 // reads 75 KB of q, k, v and does 197x197x64 products: two in the forward
@@ -32,7 +32,6 @@
 // ring, so shared memory per block does not grow with N.
 
 #include "attention_core.cuh"
-#include "attention_f32.cuh"
 #include "attention_tf32.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in

@@ -32,12 +32,11 @@
 //   with lse < -87 would otherwise give exp(-lse) = inf and inf * 0 = NaN),
 //   so padded keys also get zero dk and dv; a dk/dv block whose keys are
 //   all padded streams nothing.
-// The float32 entries run the FFMA forward of attention_f32.cuh and the
-// 3xTF32 wgmma backward of attention_tf32.cuh on the same layout (blocks
-// of 64 rows), with the same masking.
+// The float32 entries run the 3xTF32 wgmma forward and backward of
+// attention_tf32.cuh on the same layout (forward blocks of two multiplying
+// warpgroups, backward blocks of 64 rows), with the same masking.
 
 #include "attention_core.cuh"
-#include "attention_f32.cuh"
 #include "attention_tf32.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in

@@ -29,11 +29,10 @@
 // log-sum-exp (the TPU kernel recomputes it in the backward; either is
 // right), and the backward is the dq kernel then the dk/dv kernel, so no
 // atomics and gradients that match from run to run. The float32 entries run
-// the FFMA forward of attention_f32.cuh and the 3xTF32 wgmma backward of
-// attention_tf32.cuh over the same `WindowRows`.
+// the 3xTF32 wgmma forward and backward of attention_tf32.cuh over the
+// same `WindowRows`.
 
 #include "attention_core.cuh"
-#include "attention_f32.cuh"
 #include "attention_tf32.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in

@@ -10,9 +10,8 @@ packed dqkv, so no head split or merge copies surround the kernels.
 On a CUDA tensor the forward and backward run the hand-written kernels of
 `csrc/dense_attention.cu` at Dh = 32, 64 or 80, the instance of the
 tensor's dtype: bf16 on the tensor cores (`csrc/attention_core.cuh`),
-float32 with an FFMA forward (`csrc/attention_f32.cuh`) and a 3xTF32
-`wgmma` backward (`csrc/attention_tf32.cuh`); any other dtype or head width
-raises. Each wrapper counts its launches per dtype, `launches` (bf16) and
+float32 with a 3xTF32 `wgmma` forward and backward
+(`csrc/attention_tf32.cuh`); any other dtype or head width raises. Each wrapper counts its launches per dtype, `launches` (bf16) and
 `launches_f32`, and per (dtype, Dh) in `launches_by_dh`. On a CPU tensor
 they run the plain PyTorch version below, which is also what the kernels
 are checked against on the card.

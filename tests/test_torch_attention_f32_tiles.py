@@ -1,24 +1,23 @@
-"""The float32 attention kernels (`ssl4gie_tpu_torch/csrc/attention_f32.cuh`,
-the FFMA forward, and `csrc/attention_tf32.cuh`, the 3xTF32 backward) and
-the Dh-80 tile layout of the bf16 core (`csrc/wgmma.cuh:Swz<80>`),
-emulated in torch on the CPU: the CUDA kernels run only on the card (the
-`gpu`-marked tests of `test_torch_kernels.py` and `chip_smoke.py`).
+"""The float32 attention kernels (`ssl4gie_tpu_torch/csrc/attention_tf32.cuh`,
+the 3xTF32 forward and backward) and the Dh-80 tile layout of the bf16 core
+(`csrc/wgmma.cuh:Swz<80>`), emulated in torch on the CPU: the CUDA kernels
+run only on the card (the `gpu`-marked tests of `test_torch_kernels.py` and
+`chip_smoke.py`).
 
-The forward's emulation follows its index maps and tile loops: a block of
-128 threads on 64 rows, thread (rg, cg) on rows r0 + 2 i (r0 = 16 (rg / 2)
-+ rg % 2) against a tile's rows cg + 16 j, the product's second operand
-read back from the half-warp's slots; keys in tiles of 64 with the loop
-stopping at the last tile that holds a valid key, the online softmax in
-the log2 domain, the log-sum-exp in natural log. The backward's follows
-its arithmetic: every operand split into TF32 hi and lo parts (round to
-nearest, ties away, on the low 13 bits), each product issued a k-step of
-8 at a time as lo.hi, hi.lo, hi.hi into an f32 accumulator, the dq kernel
-(over key tiles) then the dk/dv kernel (over query tiles, 32 rows at Dh
-80), P and dS in float32; its register and shared-memory maps (the TF32 A
-fragment, the transposed tiles' permuted rows, the panels' swizzle, the
-split pass's lanes) are checked apart. Both are held to the plain
-versions at the card checks' float32 limits (outputs 1e-5, gradients 1e-4
-of the largest value; lse 2^-16)."""
+The emulations follow the kernels' arithmetic: every operand split into
+TF32 hi and lo parts (round to nearest, ties away, on the low 13 bits), each
+product issued a k-step of 8 at a time as lo.hi, hi.lo, hi.hi into an f32
+accumulator. The forward runs query blocks of 64 G rows against the
+streamed key tiles (64 rows, 32 at Dh 80) up to the last tile that holds a
+valid key, S = Q.K^T and each tile's P.V so (the latter into a partial
+that is added to the output), the online softmax in the log2 domain, the
+log-sum-exp in natural log. The backward runs the dq kernel
+(over key tiles) then the dk/dv kernel (over query tiles), P and dS in
+float32. Their register and shared-memory maps (the TF32 A fragment, the
+transposed tiles' permuted rows, the panels' swizzle, the split pass's
+lanes) are checked apart. Both are held to the plain versions at the card
+checks' float32 limits (outputs 1e-5, gradients 1e-4 of the largest
+value; lse 2^-16), and the forward to the JAX package's Pallas forwards."""
 
 import numpy as np
 import pytest
@@ -29,79 +28,8 @@ from ssl4gie_tpu_torch.kernels import flash_attention as fa
 
 torch.set_num_threads(1)
 
-ROWS = 64                  # csrc/attention_f32.cuh: kF32Rows
-THREADS = 128              # kF32Threads
 LOG2E = 1.4426950408889634
 F32_OUT, F32_GRAD, LSE_TOL = 1e-5, 1e-4, 2.0 ** -16
-
-
-def thread_rows(rg: int) -> list[int]:
-    """The block rows thread group rg (tid / 16) owns: r0 + 2 i."""
-    r0 = (rg >> 1) * 16 + (rg & 1)
-    return [r0 + 2 * i for i in range(8)]
-
-
-def test_thread_and_slot_maps_cover_the_block():
-    """Every row of a block is owned by one half-warp, and the slots
-    8 rg + i (each half-warp's own columns) are a bijection onto 0..63;
-    a half-warp's two groups (rg, rg + 1 in one warp) own neighbouring
-    rows, which a padded stride of D + 4 floats puts on other banks."""
-    rows = [r for rg in range(THREADS // 16) for r in thread_rows(rg)]
-    assert sorted(rows) == list(range(ROWS))
-    slots = [8 * rg + i for rg in range(8) for i in range(8)]
-    assert sorted(slots) == list(range(ROWS))
-    for d in (32, 64, 80):
-        ld = d + 4
-        for rg in range(0, 8, 2):
-            for a, b in zip(thread_rows(rg), thread_rows(rg + 1)):
-                assert b == a + 1
-                assert (a * ld // 4) % 8 != (b * ld // 4) % 8  # 16 B banks
-
-
-def f32_fwd(q, k, v, scale: float, n_valid=None):
-    """q, k, v (S, N, D) float32 -> (o (S, N, D), lse (S, N)), by the f32
-    forward's blocks, thread tiles and key tiles."""
-    S, N, D = q.shape
-    n = N if n_valid is None else n_valid
-    sl2 = np.float32(scale * LOG2E)
-    o = torch.zeros((S, N, D))
-    lse = torch.zeros((S, N))
-    for q0 in range(0, N, ROWS):
-        qb = torch.zeros((S, ROWS, D))          # rows >= N read zeros
-        qb[:, :min(ROWS, N - q0)] = q[:, q0:q0 + ROWS]
-        m = torch.full((S, ROWS), -torch.inf)
-        l = torch.zeros((S, ROWS))
-        acc = torch.zeros((S, ROWS, D))
-        for t0 in range(0, n, ROWS):
-            kt = torch.zeros((S, ROWS, D))
-            vt = torch.zeros((S, ROWS, D))
-            kt[:, :min(ROWS, n - t0)] = k[:, t0:min(t0 + ROWS, n)]
-            vt[:, :min(ROWS, n - t0)] = v[:, t0:min(t0 + ROWS, n)]
-            slots = torch.zeros((S, ROWS, ROWS))   # [key][slot]
-            for rg in range(8):
-                rows = thread_rows(rg)
-                for cg in range(16):
-                    keys = [cg + 16 * j for j in range(4)]
-                    s = qb[:, rows] @ kt[:, keys].transpose(1, 2)  # (S, 8, 4)
-                    valid = torch.tensor([t0 + kk < n for kk in keys])
-                    s = torch.where(valid, s, -torch.inf)
-                    slots[:, keys, 8 * rg:8 * rg + 8] = s.transpose(1, 2)
-            # the half-warp's reductions over its 16 lanes: whole rows
-            srow = torch.zeros((S, ROWS, ROWS))
-            for rg in range(8):
-                srow[:, thread_rows(rg)] = slots[:, :, 8 * rg:8 * rg + 8] \
-                    .transpose(1, 2)
-            mx = torch.maximum(m, srow.amax(-1))
-            alpha = torch.exp2((m - mx) * sl2)
-            p = torch.exp2((srow.double() * float(sl2)
-                            - (mx * sl2)[..., None].double()).float())
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + p @ vt
-            m = mx
-        live = min(ROWS, N - q0)
-        o[:, q0:q0 + live] = (acc / l[..., None])[:, :live]
-        lse[:, q0:q0 + live] = (m * scale + torch.log(l))[:, :live]
-    return o, lse
 
 
 def rna_tf32(x):
@@ -136,6 +64,51 @@ def tf32_product(acc, a, b, passes: int = 3):
 def tile_rows(d: int) -> int:
     """csrc/attention_tf32.cuh: kTf32Rows, the streamed tile's rows."""
     return 32 if d == 80 else 64
+
+
+def fwd_groups(d: int) -> int:
+    """csrc/attention_tf32.cuh: kFwdGroups, the multiplying warpgroups of a
+    forward block, each on 64 query rows."""
+    return 1 if d == 80 else 2
+
+
+def f32_fwd(q, k, v, scale: float, n_valid=None, passes: int = 3):
+    """q, k, v (S, N, D) float32 -> (o (S, N, D), lse (S, N)), by the 3xTF32
+    forward: query blocks of 64 G rows (rows >= N read zeros and are not
+    stored; a block's rows are independent of the other blocks', so all run
+    at once), keys in the streamed tiles (keys >= n_valid read zeros and
+    score -inf) up to the last tile that holds a valid key, S = Q.K^T and
+    each tile's P.V through tf32_product, the latter into a zeroed partial
+    added to the output as o * alpha + part, the online softmax in the log2
+    domain, the output times 1 / (row sum) at the end, the lse in natural
+    log."""
+    S, N, D = q.shape
+    n = N if n_valid is None else n_valid
+    T, rows = tile_rows(D), 64 * fwd_groups(D)
+    nq, nk = -(-N // rows) * rows, -(-n // T) * T
+    sl2 = np.float32(scale * LOG2E)
+    qp = torch.zeros((S, nq, D))
+    qp[:, :N] = q
+    kp, vp = torch.zeros((S, nk, D)), torch.zeros((S, nk, D))
+    kp[:, :n], vp[:, :n] = k[:, :n], v[:, :n]
+    m = torch.full((S, nq), -torch.inf)
+    l = torch.zeros((S, nq))
+    acc = torch.zeros((S, nq, D))
+    for t0 in range(0, n, T):
+        kt, vt = kp[:, t0:t0 + T], vp[:, t0:t0 + T]
+        s = tf32_product(torch.zeros((S, nq, T)), qp, kt.transpose(1, 2),
+                         passes)
+        s = torch.where(torch.arange(t0, t0 + T) < n, s, -torch.inf)
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - mx) * sl2)
+        p = torch.exp2((s.double() * float(sl2)
+                        - (mx * sl2)[..., None].double()).float())
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + tf32_product(torch.zeros_like(acc),
+                                                    p, vt, passes)
+        m = mx
+    o = acc * (1 / l)[..., None]
+    return o[:, :N], (m * scale + torch.log(l))[:, :N]
 
 
 def f32_bwd(q, k, v, o, lse, do, scale: float, n_valid=None,
@@ -278,6 +251,81 @@ def test_one_tf32_pass_is_a_different_function(flash_4096):
     assert three < F32_GRAD and one >= 100 * three, (three, one)
 
 
+@pytest.fixture(scope="module")
+def flash_4096_o64(flash_4096):
+    """The float64 attention output on flash_4096's inputs."""
+    (q, k, v, *_), _ = flash_4096
+    s = q.double() @ k.double().transpose(1, 2) * 0.125
+    return torch.softmax(s, -1) @ v.double()
+
+
+def test_one_tf32_pass_is_a_different_function_forward(flash_4096,
+                                                       flash_4096_o64):
+    """The forward at N = 4096: one TF32 pass a product (hi.hi alone, in
+    S = Q.K^T and in O += P.V) is at least 100x further from the float64
+    output than the three of the 3xTF32 split, which stays within the
+    output limit."""
+    (q, k, v, *_), _ = flash_4096
+    ref = flash_4096_o64
+    err = lambda passes: ((f32_fwd(q, k, v, 0.125, passes=passes)[0].double()
+                           - ref).abs().max() / ref.abs().max()).item()
+    three, one = err(3), err(1)
+    assert three < F32_OUT and one >= 100 * three, (three, one)
+
+
+def _pallas_fwd(layout: str, rng):
+    """(inputs, the Pallas forward's output, its lse or None) in float32, the
+    JAX kernels in interpret mode: `fused_qkv_attention` at N = 197 (2 heads
+    of 64), `windowed_flash_attention` on a 32 x 32 grid in 16 x 16 windows
+    (2 heads of 64), the flash forward at N = 256 with 200 valid keys."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from ssl4gie_tpu.kernels import dense_attention as jda
+    from ssl4gie_tpu.kernels import flash_attention as jfa
+    from ssl4gie_tpu.kernels import window_attention as jwa
+    heads, d = 2, 64
+    with pltpu.force_tpu_interpret_mode():
+        if layout == "flash":
+            x = rng.normal(0, 1, (3, heads, 256, d)).astype(np.float32)
+            o, res = jfa._flash_fwd(*(jnp.asarray(t) for t in x), d ** -0.5,
+                                    200)
+            return x, np.array(o), np.array(res[4])[:, 0]
+        if layout == "dense":
+            x = rng.normal(0, 1, (1, 197, 3 * heads * d)).astype(np.float32)
+            o = jda.fused_qkv_attention(jnp.asarray(x), heads, d ** -0.5)
+        else:
+            x = rng.normal(0, 1, (1, 32, 32, 3 * heads * d)).astype(
+                np.float32)
+            o = jwa.windowed_flash_attention(jnp.asarray(x), heads, 16,
+                                             d ** -0.5)
+    return x, np.array(o), None
+
+
+@pytest.mark.parametrize("layout", ["dense", "window", "flash"])
+def test_f32_fwd_matches_the_pallas_forwards(layout):
+    """The emulated 3xTF32 forward against the JAX package's Pallas forwards
+    run at float32 (dense_attention.py:146, window_attention.py:97,
+    flash_attention.py:146), each layout cut into the kernel's sequences and
+    heads: outputs within 1e-5 of the largest, the flash lse within 2^-16."""
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    heads, d = 2, 64
+    x, ref, lse_ref = _pallas_fwd(layout, np.random.default_rng(19))
+    x = torch.from_numpy(x)
+    if layout == "flash":
+        o, lse = f32_fwd(x[0], x[1], x[2], d ** -0.5, 200)
+        _close(lse, torch.from_numpy(lse_ref), LSE_TOL)
+    else:
+        seqs = x if layout == "dense" else wa.partition(x, 16)
+        S, n = seqs.shape[:2]
+        t = seqs.reshape(S, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        o, _ = f32_fwd(*(y.reshape(S * heads, n, d) for y in t), d ** -0.5)
+        o = o.reshape(S, heads, n, d).transpose(1, 2).reshape(S, n, -1)
+        if layout == "window":
+            o = wa.merge(o, 1, 32, 32, 16)
+    _close(o, torch.from_numpy(ref), F32_OUT)
+
+
 # ------------------------------------------ the 3xTF32 backward's maps
 def tf32_pos(i: int) -> int:
     """csrc/attention_tf32.cuh:tf32_pos, the k position of row i of 8."""
@@ -377,6 +425,16 @@ def test_tf32_bwd_shared_memory_fits(d):
     dq = 4 * x + 8 * t * d * 4 + 1024
     dkv = 4 * x + 10 * t * d * 4 + 2 * 2 * t * 4 + 1024
     assert max(dq, dkv) <= 232448, (dq, dkv)
+
+
+@pytest.mark.parametrize("d", [32, 64, 80])
+def test_tf32_fwd_shared_memory_fits(d):
+    """fwd_smem_tf32 at kFwdGroups (Q hi and lo of each multiplying
+    warpgroup; K lo, V^T hi and lo; two stages of K and V; 1 KiB for
+    alignment) fits a block's 227 KiB, with the block's two warpgroups."""
+    g, t = fwd_groups(d), tile_rows(d)
+    assert 1 <= g <= 2
+    assert (2 * 64 * g + 7 * t) * d * 4 + 1024 <= 232448
 
 
 # ------------------------------------------------- Swz<80>, the bf16 core

@@ -410,8 +410,8 @@ def test_window_and_flash_kernels_reject_what_they_do_not_take(cuda):
 
 # the float32 instances: outputs within 1e-5 of the largest value,
 # gradients within 1e-4, the log-sum-exp within 2^-16 of the element or of
-# the largest (FFMA sums in another order than the plain version's cuBLAS
-# products, full float32 on both sides)
+# the largest (3xTF32 products sum in another order than the plain
+# version's cuBLAS products, full float32 on both sides)
 F32_OUT, F32_GRAD, LSE_TOL = 1e-5, 1e-4, 2.0 ** -16
 
 
@@ -567,6 +567,39 @@ def test_attention_f32_and_dh80_repeat_bit_for_bit_on_card(cuda):
         assert torch.equal(o, o2) and torch.equal(lse, lse2)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense_dh64", "dense_dh32", "dense_dh80",
+                                  "window", "flash", "flash_1000"])
+def test_f32_forward_repeats_bit_for_bit_on_card(cuda, case):
+    """The 3xTF32 forward (no atomics; each tile's P.V added by an FMA in
+    a fixed order) called twice on the same inputs gives bitwise-equal
+    output and lse, at the paths' shapes: the dense layout at (64, 197) 12
+    x 64, (256, 197) 16 x 32 and (64, 180) 16 x 80, the detection grid (4,
+    64, 64) in 16 x 16 windows, the flash layout at (48, 4096, 64) with
+    all and with 1000 valid keys."""
+    from ssl4gie_tpu_torch.kernels import flash_attention as fa
+    from ssl4gie_tpu_torch.kernels import window_attention as wa
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)
+    dense = {"dense_dh64": (64, 197, 12, 64), "dense_dh32": (256, 197, 16, 32),
+             "dense_dh80": (64, 180, 16, 80)}
+    if case in dense:
+        b, n, heads, dh = dense[case]
+        qkv = rand(b, n, 3 * heads * dh)
+        fwd = lambda: da.attention_fwd(qkv, heads, dh ** -0.5)
+    elif case == "window":
+        qkv = rand(4, 64, 64, 3 * C)
+        fwd = lambda: wa.window_attention_fwd(qkv, H, 16, SCALE)
+    else:
+        n_valid = 1000 if case == "flash_1000" else None
+        q, k, v = (rand(48, 4096, DH) for _ in range(3))
+        fwd = lambda: fa.flash_fwd(q, k, v, SCALE, n_valid)
+    (o, lse), (o2, lse2) = fwd(), fwd()
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.gpu
