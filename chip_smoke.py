@@ -854,6 +854,18 @@ def entry_name(fn, config) -> str:
                                                              config))
 
 
+def resident_forward_ptxas() -> dict:
+    """ptxas's (registers, spill-store bytes) of the persistent forward of
+    #10 and #12, `res_fwd_tma<NK, kWindow>`, from the build's log, by
+    (NK, kWindow)."""
+    log = _build.library_path().with_suffix(".log").read_text()
+    return {(int(m[1]), m[2] == "1"): (int(m[4]), int(m[3]))
+            for m in re.finditer(
+                r"Compiling entry function '\w*res_fwd_tmaILi(\d+)ELb(\d)E"
+                r"\w*'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+                log, re.S)}
+
+
 def variant_configs() -> list:
     """Every (wrapper, configuration) of a variant kernel that a leg of the
     two kernel A/B harnesses launches, in the harnesses' leg order."""
@@ -877,6 +889,7 @@ def variant_kernel_phase(card: str) -> list[dict]:
     src = "benchmarks/bench_attention_kernel.py"
     configs = variant_configs()
     results, b2b_of = [], {}
+    ptxas = resident_forward_ptxas()
 
     def timed(fn):
         """Per call and back to back (the host's launch time hidden)."""
@@ -897,6 +910,14 @@ def variant_kernel_phase(card: str) -> list[dict]:
         ms, b2b = timed(lambda: call(config))
         G, nb = config if isinstance(config, tuple) else (config, None)
         extra = {"G": G, **({"Nb": nb} if nb else {})}
+        regs = ""
+        if fn in (av.attention_v2_fwd, av.window_v2_fwd):
+            # the persistent TMA forward: its registers beside its times
+            instance = (nb or 256, fn is av.window_v2_fwd)
+            extra["registers"], extra["spill_bytes"] = ptxas[instance]
+            regs = (f"; res_fwd_tma<{instance[0]}>: {extra['registers']} "
+                    f"registers at launch (the consumers 240 by "
+                    f"setmaxnreg), {extra['spill_bytes']} B spilled")
         r = result(name, source, replaces, err, ms, plain_ms, lib_ms, *work,
                    b2b_ms=b2b, current_ms=current[0],
                    current_b2b_ms=current[1], **extra)
@@ -907,7 +928,7 @@ def variant_kernel_phase(card: str) -> list[dict]:
               f"({tflops(work[0], b2b)}); current {current[0]:.4f} / "
               f"{current[1]:.4f} ms; plain {plain_ms:.4f} ms, sdpa "
               f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})  [{card}]", flush=True)
+              f"({r['bound_by']}){regs}  [{card}]", flush=True)
 
     qkv, dout = rand(B, TOKENS, 3 * C), rand(B, TOKENS, C)
     q, k, v = heads_of(qkv, HEADS)
@@ -4319,7 +4340,11 @@ def main() -> None:
             mlp = re.search(r"mlp_gemmILi(\d)ELi(\d+)E", kernel)
             res = re.search(
                 r"(res_[a-z_]+?)ILi(\d+)E(Lb1E)?.*?(Dense|Window)Rows", kernel)
+            tma = re.search(r"res_fwd_tmaILi(\d+)ELb(\d)E", kernel)
             kernel = (f"mlp_gemm<mode {mlp[1]}, N tile {mlp[2]}>" if mlp
+                      else f"res_fwd_tma<{tma[1]}, "
+                           f"{'windows' if tma[2] == '1' else 'dense'}>"
+                      if tma
                       else f"{res[1]}<{res[2]}{', save-P' * bool(res[3])}, "
                            f"{res[4]}Rows>" if res else kernel[:60])
         elif any(w in line for w in ("registers", "spill", "wgmma",

@@ -9,27 +9,34 @@
 // and serves every 64-row tile of that sequence from them, then the next of
 // its G sequences (G adjacent images, or G horizontally adjacent windows):
 // the counterpart of the TPU kernels' G sequences a program.
-// - A block is two warpgroups (256 threads); warpgroup wg takes the 64-row
-//   tiles wg, wg + 2, ... of each sequence. Registers (the whole-width
-//   score tile) hold a block to one per SM (__launch_bounds__(256, 1)).
-// - The resident operands come by cp.async; with G > 1 they are kept
+// - The forward of #10 and #12 (`res_fwd_tma`, below) is persistent and
+//   warp-specialised: a producer warpgroup loads each sequence's K, V and Q
+//   by TMA into a two-stage mbarrier ring and stores O by TMA, two
+//   consumer warpgroups multiply (its comment has the design).
+// - The other kernels (#11's forward, every backward): a block is two
+//   warpgroups (256 threads); warpgroup wg takes the 64-row tiles wg, wg +
+//   2, ... of each sequence. Registers (the whole-width score tile) hold a
+//   block to one per SM (__launch_bounds__(256, 1)).
+// - Their resident operands come by cp.async; with G > 1 they are kept
 //   twice, so that the next sequence's copies fly while this one is
 //   computed. A warpgroup's own 64-row tiles come through registers
 //   (copy_rows), outside the cp.async groups.
 // - NK is the width of the resident score tile, 208 or 256 keys (the TPU
 //   kernels' Nb): a 64 x NK product is issued as 64-column wgmma chunks
-//   and, at NK = 208, one 16-column chunk, so columns beyond NK cost nothing.
-// - q is scaled in shared memory, bf16(q * bf16(scale)), the TPU kernels'
-//   rounding point, so the scores need no scale and dK = dS^T.(scaled q)
-//   none either.
-// - Forward (`res_fwd`): K, V and Q resident; per query tile S = Q.K^T over
-//   all NK keys at once (NK / 2 registers a thread) and a single-pass
-//   softmax: no running max, no rescale; keys >= N are -inf.
-//   - #10 / #12: the unnormalised exponent is rounded to bf16 for P.V and
-//     the output divided by the row sum, as the TPU's v2 kernels do; each
-//     row's log-sum-exp is written for the backward.
-//   - #11 (kSaveP): P = exp / sum, rounded to bf16, is the A operand of P.V
-//     and is also written, (seqs, H, N, NK) bf16: N rows, all NK columns
+//   and, at NK = 208, one 16-column chunk (`res_fwd_tma`: one m64nNKk16
+//   product a k-step), so columns beyond NK cost nothing.
+// - q is scaled, bf16(q * bf16(scale)), the TPU kernels' rounding point
+//   (in shared memory; `res_fwd_tma` in registers), so the scores need no
+//   scale and dK = dS^T.(scaled q) none either.
+// - Forward: K, V and Q resident; per query tile S = Q.K^T over all NK keys
+//   at once (NK / 2 registers a thread) and a single-pass softmax: no
+//   running max, no rescale; keys >= N are -inf.
+//   - #10 / #12 (`res_fwd_tma`): the unnormalised exponent is rounded to
+//     bf16 for P.V and the output divided by the row sum, as the TPU's v2
+//     kernels do; each row's log-sum-exp is written for the backward.
+//   - #11 (`res_savep_fwd`): P = exp / sum, rounded to bf16, is the A
+//     operand of P.V and is also written, (seqs, H, N, NK) bf16: N rows,
+//     all NK columns
 //     (columns >= N are exactly 0). Rows >= N are never written: the TPU
 //     kernel fills them from out-of-bounds q and its backward contracts
 //     over them (ROADMAP.md, "Known faults in the reference itself").
@@ -55,7 +62,8 @@
 //     tile (NK / 2 more), which 255 registers a thread cannot.
 //
 // Shared memory per block (64-wide bf16 rows of 128 B; NK rows rounded up
-// to 224 at 208; "x2" with G > 1): forward 2 NK + 256 rows x2; dq 2 NK
+// to 224 at 208; "x2" with G > 1): `res_fwd_tma` 2 NK + 256 rows x2 at
+// every G (168 or 192 KiB); the save-P forward 2 NK + 256 rows x2; dq 2 NK
 // rows x2 + 256; dk/dv 2 NK rows x2 + 256 + 8 NK bytes of statistics; the
 // save-P dq 2 NK rows x2 + 128 + a 64 x NK P tile per warpgroup, its dk/dv
 // the dk/dv's + two 64 x 64 P tiles per warpgroup; at most 193 KiB.
@@ -65,6 +73,7 @@
 #include <type_traits>
 
 #include "attention_core.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -444,20 +453,434 @@ size_t res_dkv_smem(bool save_p, int G) {
          2 * 128 * kRowBytes + (save_p ? 2 * 2 * kPtBytes : 0) + 1024;
 }
 
-// ---------------------------------------------------------------- forward
-// grid (ceil(seqs / G), H), 256 threads; block x takes sequences x G ..
-// x G + G - 1 (< seqs) of head blockIdx.y. q, k, v point at head 0's
-// columns of their row slices (row stride ld_in, head h at + 64 h), o at
-// head 0's output columns (row stride ld_out). lse (seqs, H, N) for #10 /
-// #12; p (seqs, H, N, NK) for #11. A sequence's K, V and Q (NK rows each)
-// come by cp.async into one buffer; with G > 1 there are two, and the next
-// sequence's copies fly while this one is computed.
-template <int NK, bool kSaveP, class Rows>
+// ------------------------------------------------ forward (#10, #12)
+// `res_fwd_tma`: persistent and warp-specialised. A work item is G
+// sequences of one head: item i is head i % H of sequences (i / H) G ..
+// (i / H) G + G - 1 (< seqs), so G changes only the order of the work. A
+// block takes items blockIdx.x, + gridDim.x, ...; the grid is at most one
+// block an SM (kResPersistent).
+// - Warpgroup 0, the producer (setmaxnreg 24): one thread walks the
+//   block's sequences and keeps the next one's K, V and Q in flight by TMA
+//   (one box each) into a ring of two stages of a whole sequence each,
+//   guarded by a full and a done mbarrier. The ring runs on across items,
+//   so every copy overlaps the compute of the sequence before, at G = 1
+//   too. Dense (#10): 3-D maps over qkv (B, N, 3C), boxes of 64 columns by
+//   NK rows (K, V) or 64 ceil(N / 64) rows (Q); TMA zero-fills rows >= N.
+//   Windows (#12): 4-D maps over (B, GH, GW, 3C) with (1, ws, ws, 64)
+//   boxes, which land a window's rows in order (WindowRows' gather); K and
+//   V rows that a box leaves unwritten (ws^2 < NK) are zeroed once. Every
+//   box is in the 128-byte swizzle that wgmma's descriptors read, so no
+//   thread touches an operand on its way in.
+// - Warpgroups 1 and 2, the consumers (setmaxnreg 240), take the
+//   sequence's 64-row query tiles w, w + 2, ...: Q by ldmatrix into
+//   registers and scaled there, bf16(q bf16(scale)); S = Q.K^T over all NK
+//   keys, one register-A wgmma (m64nNKk16) a k-step; the row max over all
+//   NK keys; then per 64-key chunk the exponent (columns >= N skip it,
+//   warps of only padding rows skip it all), bf16(P) and the chunk's
+//   O += P.V (V read MN-major), issued so that it runs under the next
+//   chunk's exponent; O / l staged into the tile's own Q rows (read
+//   already); each row's lse stored. Consumer 1 issues its first product
+//   after consumer 0's, so that the softmax of one runs under the
+//   products of the other.
+// - Once both consumers are through a sequence (its done barrier), the
+//   producer stores its O from the stage by one TMA box (the Q box's shape;
+//   rows past N are not written), and refills the stage after the store
+//   has read it.
+// - Registers: the score tile takes NK / 2 a thread; P a chunk at a time
+//   keeps bf16(P) at 16 (a 64-key chunk) instead of NK / 4, and the
+//   consumers' 240 hold it. (P packed whole beside the score tile needed
+//   about 246 registers at NK = 208 and spilled at 256 even at 255; a
+//   block of 288 threads, nine warps, gets 168 registers a thread.)
+// - The consumers' compute, not the copies, sets its time (PERF.md,
+//   section 6).
+// No atomics: every output is computed once, in one order.
+
+constexpr int kTmaStages = 2;             // whole sequences in flight
+// The design's two choices, switchable for measuring them
+// (benchmarks/ablate_resident_forward.py): a producer warpgroup loads and
+// stores (else thread 0 of consumer 0 does, before each sequence), and the
+// grid is persistent (else a block an item).
+constexpr bool kResProducer = true;
+constexpr bool kResPersistent = true;
+
+template <int NK>
+struct ResTma {
+  static constexpr int kKV = NK * kRowBytes;        // K or V of a sequence
+  static constexpr int kQ = 256 * kRowBytes;        // Q, then O: four tiles
+  static constexpr int kStage = 2 * kKV + kQ;       // 1 KiB multiples
+  static constexpr int kSmem = 1024 + kTmaStages * kStage + 64;
+  static constexpr int kThreads = kResProducer ? 384 : 256;
+};
+
+struct ResTmaArgs {
+  float* lse;               // (seqs, H, N)
+  int seqs, G, H, N;
+  int items;                // ceil(seqs / G) H
+  int nh, nw, ws;           // windows: per image column and row; width
+  int kv_rows;              // rows a K or V box writes
+  int tx_bytes;             // bytes a stage receives
+  float scale;
+};
+
+// The sequences of a block's items, in order
+struct SeqWalk {
+  int item, seq, end, h;
+  __device__ __forceinline__ explicit SeqWalk(const ResTmaArgs& a)
+      : item(blockIdx.x) {
+    begin(a);
+  }
+  __device__ __forceinline__ void begin(const ResTmaArgs& a) {
+    h = item % a.H;
+    seq = item / a.H * a.G;
+    end = min(seq + a.G, a.seqs);
+  }
+  __device__ __forceinline__ bool more(const ResTmaArgs& a) const {
+    return item < a.items;
+  }
+  __device__ __forceinline__ void next(const ResTmaArgs& a) {
+    if (++seq == end) {
+      item += gridDim.x;
+      begin(a);
+    }
+  }
+};
+
+// Sequence seq's box of `map` at column col: (col, 0, seq) of a dense map,
+// (col, x0, y0, image) of a window's
+template <bool kWindow>
+__device__ __forceinline__ void seq_load(const CUtensorMap* map, void* dst,
+                                         unsigned long long* bar, int col,
+                                         int seq, const ResTmaArgs& a) {
+  if constexpr (kWindow) {
+    const int t = seq / a.nw;
+    tma_load_4d(map, dst, bar, col, seq % a.nw * a.ws, t % a.nh * a.ws,
+                t / a.nh);
+  } else {
+    tma_load_3d(map, dst, bar, col, 0, seq);
+  }
+}
+template <bool kWindow>
+__device__ __forceinline__ void seq_store(const CUtensorMap* map,
+                                          const void* src, int col, int seq,
+                                          const ResTmaArgs& a) {
+  if constexpr (kWindow) {
+    const int t = seq / a.nw;
+    tma_store_4d(map, src, col, seq % a.nw * a.ws, t % a.nh * a.ws,
+                 t / a.nh);
+  } else {
+    tma_store_3d(map, src, col, 0, seq);
+  }
+}
+
+// The producer's walk: loads each sequence into stage j % 2 once the
+// sequence two before it is through and its O stored and read.
+template <int NK, bool kWindow>
+struct ResLoader {
+  using T = ResTma<NK>;
+  unsigned char* smem;
+  unsigned long long *full, *done;
+  const CUtensorMap *mKV, *mQ, *mO;
+  SeqWalk ld, st;            // the next sequence to load; to store
+  int j;                     // sequences loaded
+  __device__ __forceinline__ ResLoader(unsigned char* smem_,
+                                       unsigned long long* full_,
+                                       unsigned long long* done_,
+                                       const CUtensorMap* kv,
+                                       const CUtensorMap* q,
+                                       const CUtensorMap* o,
+                                       const ResTmaArgs& a)
+      : smem(smem_), full(full_), done(done_), mKV(kv), mQ(q), mO(o),
+        ld(a), st(a), j(0) {}
+  // O of the block's sequence k, once both consumers are through it
+  __device__ __forceinline__ void store(int k, const ResTmaArgs& a) {
+    const int s = k & 1;
+    mbar_wait(done + s, (k >> 1) & 1);
+    seq_store<kWindow>(mO, smem + s * T::kStage + 2 * T::kKV, st.h * 64,
+                       st.seq, a);
+    bulk_commit();
+    st.next(a);
+  }
+  __device__ __forceinline__ void step(const ResTmaArgs& a) {
+    const int s = j & 1, C = 64 * a.H;
+    unsigned char* buf = smem + s * T::kStage;
+    if (j >= 2) {
+      store(j - 2, a);
+      bulk_wait_read();                // the store has read the stage
+    }
+    mbar_expect_tx(full + s, a.tx_bytes);
+    seq_load<kWindow>(mKV, buf, full + s, C + ld.h * 64, ld.seq, a);
+    seq_load<kWindow>(mKV, buf + T::kKV, full + s, 2 * C + ld.h * 64, ld.seq,
+                      a);
+    seq_load<kWindow>(mQ, buf + 2 * T::kKV, full + s, ld.h * 64, ld.seq, a);
+    ld.next(a);
+    ++j;
+  }
+  __device__ __forceinline__ void drain(const ResTmaArgs& a) {
+    for (int k = j < 2 ? 0 : j - 2; k < j; ++k) store(k, a);
+    bulk_wait();
+  }
+};
+
+// S (64 x NK) = (acc ? S : 0) + A . B^T, NK = 208 or 256, in one product:
+// A (64 x 16) bf16 fragments in registers, B (NK x 16) in shared memory,
+// K-major
+#define RES_ACC4(d, i) \
+  "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[26][4],
+                                              const unsigned (&a)[4],
+                                              unsigned long long b,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103"
+      "}, {%104,%105,%106,%107}, %108, p, 1, 1, 0;\n}\n"
+      : RES_ACC4(d, 0), RES_ACC4(d, 1), RES_ACC4(d, 2),
+        RES_ACC4(d, 3), RES_ACC4(d, 4), RES_ACC4(d, 5),
+        RES_ACC4(d, 6), RES_ACC4(d, 7), RES_ACC4(d, 8),
+        RES_ACC4(d, 9), RES_ACC4(d, 10), RES_ACC4(d, 11),
+        RES_ACC4(d, 12), RES_ACC4(d, 13), RES_ACC4(d, 14),
+        RES_ACC4(d, 15), RES_ACC4(d, 16), RES_ACC4(d, 17),
+        RES_ACC4(d, 18), RES_ACC4(d, 19), RES_ACC4(d, 20),
+        RES_ACC4(d, 21), RES_ACC4(d, 22), RES_ACC4(d, 23),
+        RES_ACC4(d, 24), RES_ACC4(d, 25)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[32][4],
+                                              const unsigned (&a)[4],
+                                              unsigned long long b,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, {%128,%129,%130,%131}, %132, p, 1, 1, 0;\n}\n"
+      : RES_ACC4(d, 0), RES_ACC4(d, 1), RES_ACC4(d, 2),
+        RES_ACC4(d, 3), RES_ACC4(d, 4), RES_ACC4(d, 5),
+        RES_ACC4(d, 6), RES_ACC4(d, 7), RES_ACC4(d, 8),
+        RES_ACC4(d, 9), RES_ACC4(d, 10), RES_ACC4(d, 11),
+        RES_ACC4(d, 12), RES_ACC4(d, 13), RES_ACC4(d, 14),
+        RES_ACC4(d, 15), RES_ACC4(d, 16), RES_ACC4(d, 17),
+        RES_ACC4(d, 18), RES_ACC4(d, 19), RES_ACC4(d, 20),
+        RES_ACC4(d, 21), RES_ACC4(d, 22), RES_ACC4(d, 23),
+        RES_ACC4(d, 24), RES_ACC4(d, 25), RES_ACC4(d, 26),
+        RES_ACC4(d, 27), RES_ACC4(d, 28), RES_ACC4(d, 29),
+        RES_ACC4(d, 30), RES_ACC4(d, 31)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+#undef RES_ACC4
+
+// bf16 pair x s, rounded to a bf16 pair
+__device__ __forceinline__ unsigned scale_pair(unsigned x, float s) {
+  const float2 f = unpack_bf16(x);
+  return pack_bf16(f.x * s, f.y * s);
+}
+
+// One 64-row query tile of a sequence (its Q rows at Qt), by a consumer
+// warpgroup: O staged over the tile's Q rows, lse of rows < N stored at
+// lse + row. `first`: consumer 0's first tile (it lets consumer 1 start).
+template <int NK>
+__device__ __forceinline__ void res_tile(unsigned char* Qt,
+                                         unsigned long long dk,
+                                         unsigned long long dv, int row0,
+                                         int N, float qscale, float* lse,
+                                         bool first) {
+  constexpr int NJ = NK / 8;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5 & 3) * 16;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  // Q's A fragments (ldmatrix: lanes 0-15 rows at k 0-7, 16-31 at k 8-15)
+  unsigned qa[4][4];
+  const int r = wr + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldmatrix_x4(qa[kk], Qt + Swz<64>::offset(r, 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], qscale);
+  }
+  float sc[NJ][4];
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_wide(sc, qa[kk], dk + 2 * kk, kk);
+  wg_commit();
+  if (first) named_arrive(1, 256);
+  wg_wait0();
+  wg_hold(sc);
+  // single-pass softmax of rows g (half 0) and g + 8 (half 1): the row
+  // max over all NK keys (keys >= N are -inf), then per 64-key chunk the
+  // exponent (an 8-column group wholly past N skips it), its row sums,
+  // bf16(P) and the chunk's P.V, which runs under the next chunk's
+  // exponent
+  const bool live = row0 + wr < N;      // the warp holds a row < N
+  float mx[2] = {0.f, 0.f}, ms[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
+  if (live) {
+    if (N < NK) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (j * 8 + c2 + e >= N) sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        m = fmaxf(m, fmaxf(sc[j][2 * hf], sc[j][2 * hf + 1]));
+      m = fmaxf(m, __shfl_xor_sync(kFull, m, 1));
+      mx[hf] = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
+      ms[hf] = mx[hf] * kLog2e;
+    }
+  }
+  float acc[8][4];
+  zero(acc);
+  wg_hold(acc);
+#pragma unroll
+  for (int c = 0; c < (NJ + 7) / 8; ++c) {
+    const int j0 = 8 * c, jn = NJ - j0 < 8 ? NJ - j0 : 8;   // NK = 208: 2
+#pragma unroll
+    for (int j = j0; j < j0 + jn; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = live && j * 8 < N
+                       ? exp2_approx(fmaf(sc[j][e], kLog2e, -ms[e >> 1]))
+                       : 0.f;
+        l[e >> 1] += sc[j][e];
+      }
+    if (c > 0) wg_wait0();              // the last chunk's P.V read its P
+    unsigned pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < jn / 2; ++kk) {
+      const int j = j0 + 2 * kk;
+      pa[kk][0] = pack_bf16(sc[j][0], sc[j][1]);
+      pa[kk][1] = pack_bf16(sc[j][2], sc[j][3]);
+      pa[kk][2] = pack_bf16(sc[j + 1][0], sc[j + 1][1]);
+      pa[kk][3] = pack_bf16(sc[j + 1][2], sc[j + 1][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < jn / 2; ++kk)
+      wgmma_rs_n64(acc, pa[kk],
+                   dv + (4 * c + kk) * (2 * Swz<64>::kAtom >> 4));
+    wg_commit();
+  }
+  wg_wait0();
+  wg_hold(acc);
+  float sum[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float s = l[hf] + __shfl_xor_sync(kFull, l[hf], 1);
+    sum[hf] = s + __shfl_xor_sync(kFull, s, 2);
+  }
+  // O / l over the warp's own Q rows; each row's log-sum-exp
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + wr + g + 8 * hf;
+    if (c2 == 0 && row < N) lse[row] = mx[hf] + logf(sum[hf]);
+    const float inv = live ? 1.f / sum[hf] : 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(
+          Qt + Swz<64>::offset(wr + g + 8 * hf, n) + c2 * 2) =
+          __floats2bfloat162_rn(acc[n][2 * hf] * inv,
+                                acc[n][2 * hf + 1] * inv);
+  }
+}
+
+// mKV, mQ: qkv's maps (K and V boxes; Q boxes), mO: out's (Q's box shape).
+template <int NK, bool kWindow>
+__global__ void __launch_bounds__(ResTma<NK>::kThreads, 1)
+res_fwd_tma(const __grid_constant__ CUtensorMap mKV,
+            const __grid_constant__ CUtensorMap mQ,
+            const __grid_constant__ CUtensorMap mO,
+            const __grid_constant__ ResTmaArgs a) {
+  using T = ResTma<NK>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + kTmaStages * T::kStage);
+  unsigned long long* done = full + kTmaStages;
+  // K and V rows that no box writes (windows of fewer than NK tokens):
+  // zeros, so that P = 0 meets no NaN in V
+  for (int i = a.kv_rows * 8 + threadIdx.x; i < NK * 8; i += T::kThreads)
+#pragma unroll
+    for (int s = 0; s < kTmaStages; ++s) {
+      unsigned char* b = smem + s * T::kStage + i * 16;
+      *reinterpret_cast<uint4*>(b) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(b + T::kKV) = make_uint4(0, 0, 0, 0);
+    }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(done + s, 256);       // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async();
+  __syncthreads();
+  ResLoader<NK, kWindow> loader(smem, full, done, &mKV, &mQ, &mO, a);
+  const int wg = threadIdx.x >> 7;
+  if constexpr (kResProducer) {
+    if (wg == 0) {
+      setmaxnreg_dec<24>();
+      if (threadIdx.x == 0) {
+        while (loader.ld.more(a)) loader.step(a);
+        loader.drain(a);
+      }
+      return;
+    }
+    setmaxnreg_inc<240>();
+  }
+  const int w = kResProducer ? wg - 1 : wg;
+  const bool loads = !kResProducer && threadIdx.x == 0;
+  const int n_qt = (a.N + 63) >> 6;
+  const float qscale = __bfloat162float(__float2bfloat16(a.scale));
+  if (loads) loader.step(a);            // every block has a sequence
+  if (w == 1) named_sync(1, 256);       // behind consumer 0's first S
+  int j = 0;
+  for (SeqWalk sw(a); sw.more(a); sw.next(a), ++j) {
+    if (loads && loader.ld.more(a)) loader.step(a);    // one ahead
+    const int s = j & 1;
+    unsigned char* buf = smem + s * T::kStage;
+    mbar_wait(full + s, (j >> 1) & 1);
+    const unsigned long long dk = Swz<64>::desc(buf);
+    const unsigned long long dv = Swz<64>::desc(buf + T::kKV);
+    float* lse = a.lse + ((size_t)sw.seq * a.H + sw.h) * a.N;
+    for (int qt = w; qt < n_qt; qt += 2)
+      res_tile<NK>(buf + 2 * T::kKV + qt * 64 * kRowBytes, dk, dv, qt * 64,
+                   a.N, qscale, lse, w == 0 && j == 0 && qt == 0);
+    fence_async();                      // the O rows, before TMA reads them
+    mbar_arrive(done + s);
+  }
+  if (loads) loader.drain(a);
+}
+
+// ------------------------------------------------------ save-P forward
+// #11's forward. grid (ceil(seqs / G), H), 256 threads; block x takes
+// sequences x G .. x G + G - 1 (< seqs) of head blockIdx.y. q, k, v point
+// at head 0's columns of their row slices (row stride ld_in, head h at
+// + 64 h), o at head 0's output columns (row stride ld_out); p (seqs, H, N,
+// NK). A sequence's K, V and Q (NK rows each) come by cp.async into one
+// buffer; with G > 1 there are two, and the next sequence's copies fly
+// while this one is computed.
+template <int NK, class Rows>
 __global__ void __launch_bounds__(kResThreads, 1)
-res_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, int ld_in, bf16* __restrict__ o,
-        int ld_out, float* __restrict__ lse, bf16* __restrict__ p, Rows rows,
-        int seqs, int G, int N, float scale) {
+res_savep_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, int ld_in, bf16* __restrict__ o,
+              int ld_out, bf16* __restrict__ p, Rows rows, int seqs, int G,
+              int N, float scale) {
   using S = Swz<64>;
   constexpr int NJ = NK / 8, NR = kResRows<NK>, QR = kQRows<NK>;
   constexpr int kTile = NR * kRowBytes;            // K or V of a sequence
@@ -515,7 +938,7 @@ res_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
             if (j * 8 + c2 + e >= N) sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
       }
       // single-pass softmax of rows g (half 0) and g + 8 (half 1)
-      float mx[2], sum[2];
+      float sum[2];
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         float m = -CUDART_INF_F;
@@ -535,29 +958,25 @@ res_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         l += __shfl_xor_sync(kFull, l, 1);
         l += __shfl_xor_sync(kFull, l, 2);
-        mx[hf] = m;
         sum[hf] = l;
       }
       const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-      if constexpr (kSaveP) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];
-      }
+        for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];
       unsigned pa[NJ / 2][4];
       pack_a(sc, pa);
-      if constexpr (kSaveP) {        // P's rows < N, all NK columns
+      // P's rows < N, all NK columns
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = qt * 64 + wr + g + 8 * hf;
-          if (row < N) {
-            bf16* pr = p + (stat + row) * NK + c2;
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = qt * 64 + wr + g + 8 * hf;
+        if (row < N) {
+          bf16* pr = p + (stat + row) * NK + c2;
 #pragma unroll
-            for (int kk = 0; kk < NJ / 2; ++kk) {
-              *reinterpret_cast<unsigned*>(pr + 16 * kk) = pa[kk][hf];
-              *reinterpret_cast<unsigned*>(pr + 16 * kk + 8) = pa[kk][2 + hf];
-            }
+          for (int kk = 0; kk < NJ / 2; ++kk) {
+            *reinterpret_cast<unsigned*>(pr + 16 * kk) = pa[kk][hf];
+            *reinterpret_cast<unsigned*>(pr + 16 * kk + 8) = pa[kk][2 + hf];
           }
         }
       }
@@ -570,18 +989,6 @@ res_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wg_commit();
       wg_wait0();
       wg_hold(acc);
-      if constexpr (!kSaveP) {     // O / l, and each row's log-sum-exp
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = qt * 64 + wr + g + 8 * hf;
-          if (c2 == 0 && row < N) lse[stat + row] = mx[hf] + logf(sum[hf]);
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            acc[n][2 * hf] *= inv[hf];
-            acc[n][2 * hf + 1] *= inv[hf];
-          }
-        }
-      }
       wg_sync(wg);                 // every wgmma read of this Q tile is done
       store_rows<64>(Qt + wr * kRowBytes, acc, 1.f, ob, ld_out, rows,
                      qt * 64 + wr, N);
@@ -590,7 +997,7 @@ res_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- dq
-// grid and sequences as res_fwd. q, k, v as there; o (the forward's
+// grid and sequences as res_savep_fwd. q, k, v as there; o (the forward's
 // output), dout at head 0's columns (row stride ld_out); dq (row stride
 // ld_dq). lse and delta (seqs, H, N); delta is written here. K and V of a
 // sequence resident (in one of two buffers when G > 1); a Q and a dO tile
@@ -847,7 +1254,7 @@ __device__ __forceinline__ void savep_dkv_step(
 }
 
 // ---------------------------------------------------------------- dk, dv
-// grid and sequences as res_fwd, over KEY tiles. Scaled Q and dO of the
+// grid and sequences as res_savep_fwd, over KEY tiles. Scaled Q and dO of the
 // sequence resident (in one of two buffers when G > 1) with -lse log2(e)
 // and delta of each query; warpgroup wg takes key tiles wg, wg + 2, ..
 // with its own K and V tile. #10 / #12: S^T = K.Qs^T and P^T from lse; #11
@@ -960,20 +1367,106 @@ res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Packed-QKV layouts: qkv (tokens, 3C) with C = 64 H; out and dout (tokens,
 // C); dqkv (tokens, 3C); `seqs` sequences of N <= NK rows placed by `rows`,
 // G of them a block.
-template <int NK, bool kSaveP, class Rows>
-cudaError_t launch_res_fwd(const void* qkv, void* out, void* lse, void* p,
-                           Rows rows, int seqs, int N, int H, int G,
-                           float scale, void* stream) {
+// #11's forward
+template <int NK, class Rows>
+cudaError_t launch_savep_fwd(const void* qkv, void* out, void* p, Rows rows,
+                             int seqs, int N, int H, int G, float scale,
+                             void* stream) {
   const size_t smem = res_fwd_smem<NK>(G);
-  cudaError_t err = allow_smem(res_fwd<NK, kSaveP, Rows>, smem);
+  cudaError_t err = allow_smem(res_savep_fwd<NK, Rows>, smem);
   if (err != cudaSuccess) return err;
   const int C = 64 * H;
   const bf16* x = (const bf16*)qkv;
   dim3 grid((seqs + G - 1) / G, H);
-  res_fwd<NK, kSaveP, Rows><<<grid, kResThreads, smem, (cudaStream_t)stream>>>(
-      x, x + C, x + 2 * C, 3 * C, (bf16*)out, C, (float*)lse, (bf16*)p, rows,
-      seqs, G, N, scale);
+  res_savep_fwd<NK, Rows><<<grid, kResThreads, smem, (cudaStream_t)stream>>>(
+      x, x + C, x + 2 * C, 3 * C, (bf16*)out, C, (bf16*)p, rows, seqs, G, N,
+      scale);
   return cudaGetLastError();
+}
+
+// #10 / #12's forward on its three tensor maps (a's items set here)
+template <int NK, bool kWindow>
+cudaError_t run_res_fwd_tma(const CUtensorMap& mKV, const CUtensorMap& mQ,
+                            const CUtensorMap& mO, ResTmaArgs a,
+                            void* stream) {
+  using T = ResTma<NK>;
+  a.items = (a.seqs + a.G - 1) / a.G * a.H;
+  const int sms = sm_count();
+  if (!sms) return cudaErrorNoDevice;
+  // the shared-memory limit, once per instantiation and device
+  static bool attributed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !attributed[dev]) {
+    err = allow_smem(res_fwd_tma<NK, kWindow>, T::kSmem);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) attributed[dev] = true;
+  }
+  const int grid = kResPersistent && a.items > sms ? sms : a.items;
+  res_fwd_tma<NK, kWindow><<<grid, T::kThreads, T::kSmem,
+                             (cudaStream_t)stream>>>(mKV, mQ, mO, a);
+  return cudaGetLastError();
+}
+
+// #10: qkv (B, N, 3C) -> out (B, N, C), lse (B, H, N); N <= NK
+template <int NK>
+cudaError_t launch_v2_fwd(const void* qkv, void* out, void* lse, int B,
+                          int N, int H, int G, float scale, void* stream) {
+  const cuuint64_t C = 64 * H, q_rows = (N + 63) / 64 * 64;
+  const cuuint64_t din[3] = {3 * C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t sin[2] = {3 * C * 2, N * 3 * C * 2};
+  const cuuint64_t dout[3] = {C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t sout[2] = {C * 2, N * C * 2};
+  const cuuint32_t bkv[3] = {64, NK, 1}, bq[3] = {64, (cuuint32_t)q_rows, 1};
+  CUtensorMap mKV, mQ, mO;
+  if (!encode_map(&mKV, qkv, 3, din, sin, bkv) ||
+      !encode_map(&mQ, qkv, 3, din, sin, bq) ||
+      !encode_map(&mO, out, 3, dout, sout, bq))
+    return cudaErrorInvalidValue;
+  ResTmaArgs a{};
+  a.lse = (float*)lse;
+  a.seqs = B;
+  a.G = G;
+  a.H = H;
+  a.N = N;
+  a.kv_rows = NK;
+  a.tx_bytes = (int)(2 * NK + q_rows) * kRowBytes;
+  a.scale = scale;
+  return run_res_fwd_tma<NK, false>(mKV, mQ, mO, a, stream);
+}
+
+// #12: qkv (B, GH, GW, 3C) -> out (B, GH, GW, C), lse (windows, H, ws^2),
+// ws^2 <= 256
+inline cudaError_t launch_window_v2_fwd(const void* qkv, void* out,
+                                        void* lse, int B, int GH, int GW,
+                                        int ws, int H, int G, float scale,
+                                        void* stream) {
+  const cuuint64_t C = 64 * H;
+  const cuuint64_t din[4] = {3 * C, (cuuint64_t)GW, (cuuint64_t)GH,
+                             (cuuint64_t)B};
+  const cuuint64_t sin[3] = {3 * C * 2, GW * 3 * C * 2, GH * GW * 3 * C * 2};
+  const cuuint64_t dout[4] = {C, (cuuint64_t)GW, (cuuint64_t)GH,
+                              (cuuint64_t)B};
+  const cuuint64_t sout[3] = {C * 2, GW * C * 2, GH * GW * C * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)ws, (cuuint32_t)ws, 1};
+  CUtensorMap mKV, mO;
+  if (!encode_map(&mKV, qkv, 4, din, sin, box) ||
+      !encode_map(&mO, out, 4, dout, sout, box))
+    return cudaErrorInvalidValue;
+  ResTmaArgs a{};
+  a.lse = (float*)lse;
+  a.nh = GH / ws;
+  a.nw = GW / ws;
+  a.ws = ws;
+  a.seqs = B * a.nh * a.nw;
+  a.G = G;
+  a.H = H;
+  a.N = ws * ws;
+  a.kv_rows = ws * ws;
+  a.tx_bytes = 3 * ws * ws * kRowBytes;
+  a.scale = scale;
+  return run_res_fwd_tma<256, true>(mKV, mKV, mO, a, stream);
 }
 
 // #10 / #12: dq (and delta), then dk and dv, both from the forward's lse

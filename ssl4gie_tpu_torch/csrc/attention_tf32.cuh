@@ -405,14 +405,6 @@ __device__ __forceinline__ void store_acc_f32(const float (&acc)[D / 8][4],
 }
 
 // ---------------------------------------------------------------- forward
-// named barrier `id` of n threads: wait for all of them, or arrive only
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 // warpgroups a forward block, each on 64 query rows
 template <int D>
 constexpr int kFwdGroups = D == 80 ? 1 : 2;

@@ -8,13 +8,13 @@
 //   or 208 for its "v3" leg) and G images a program; q scaled in bf16 before
 //   Q.K^T, the unnormalised exponent rounded to bf16 for P.V and the
 //   division applied to the (N, Dh) output; the backward recomputes the
-//   softmax. Here: `res_fwd` (saving each row's log-sum-exp), then
-//   `res_bwd_dq` and `res_bwd_dkv`.
+//   softmax. Here: `res_fwd_tma` (the persistent TMA forward, saving each
+//   row's log-sum-exp), then `res_bwd_dq` and `res_bwd_dkv`.
 // - #11 `_mk_v4` (`_fwd_kernel_v4`, `_bwd_kernel_v4`): "save-P", the forward
 //   also writes the normalised softmax P as bf16, (B, H, N, Nb) here, and
 //   the backward reads it instead of recomputing S and the exponent: delta
 //   = rowsum(P * dP) from the bf16 P, dS = P (dP - delta), dQ, dK, dV. Here:
-//   `res_fwd<kSaveP>`, then `res_savep_dq` and `res_bwd_dkv<kSaveP>`, five
+//   `res_savep_fwd`, then `res_savep_dq` and `res_bwd_dkv<kSaveP>`, five
 //   products where #10's backward takes seven.
 // The TPU's pad handling (zeroed k / v rows and the analytic l - pad
 // exp(-m)) is not carried over: keys >= N are masked by index. P's rows >= N
@@ -31,20 +31,18 @@
 
 // Every entry point returns a cudaError_t value: what the launch left in
 // cudaGetLastError() (cudaErrorInvalidValue for an Nb the kernels are not
-// built for: 208 or 256 for #10, 208 for #11, the harness's). The Python
+// built for: 208 or 256 for #10, 208 for #11, the harness's; or a tensor
+// map that could not be made). The Python
 // wrapper checks the shapes, the dtype (bf16), Dh == 64, Nb, 1 <= N <= Nb
 // and G >= 1 before calling. lse and delta are (B, H, N) float32; p is
 // (B, H, N, Nb) bf16.
 extern "C" int ssl4gie_attn_v2_fwd(const void* qkv, void* out, void* lse,
                                    int B, int N, int H, int Nb, int G,
                                    float scale, void* stream) {
-  const DenseRows rows{N};
   if (Nb == 256)
-    return (int)launch_res_fwd<256, false>(qkv, out, lse, nullptr, rows, B, N,
-                                           H, G, scale, stream);
+    return (int)launch_v2_fwd<256>(qkv, out, lse, B, N, H, G, scale, stream);
   if (Nb == 208)
-    return (int)launch_res_fwd<208, false>(qkv, out, lse, nullptr, rows, B, N,
-                                           H, G, scale, stream);
+    return (int)launch_v2_fwd<208>(qkv, out, lse, B, N, H, G, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -67,8 +65,8 @@ extern "C" int ssl4gie_attn_savep_fwd(const void* qkv, void* out, void* p,
                                       int B, int N, int H, int Nb, int G,
                                       float scale, void* stream) {
   if (Nb != 208) return (int)cudaErrorInvalidValue;
-  return (int)launch_res_fwd<208, true>(qkv, out, nullptr, p, DenseRows{N}, B,
-                                        N, H, G, scale, stream);
+  return (int)launch_savep_fwd<208>(qkv, out, p, DenseRows{N}, B, N, H, G,
+                                    scale, stream);
 }
 
 extern "C" int ssl4gie_attn_savep_bwd(const void* qkv, const void* p,

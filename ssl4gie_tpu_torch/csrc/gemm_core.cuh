@@ -71,6 +71,7 @@
 
 #include <type_traits>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -109,86 +110,6 @@ struct GemmArgs {
   int K, tiles_n, tiles;
   int approx;         // GELU: tanh form if nonzero, else erf
 };
-
-// ------------------------------------------------ mbarrier, TMA, setmaxnreg
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          int parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// the box of `map` at (column c0, row c1) into dst; completes on bar
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
-                                         unsigned long long* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
-      "r"(c0), "r"(c1)
-      : "memory");
-}
-// src into the box of `map` at (column c0, row c1); rows past the end are
-// not written
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
-      "[%1];\n" ::"l"(reinterpret_cast<unsigned long long>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// until the committed stores have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {   // until they are done
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// order this thread's generic-proxy writes to shared memory before the
-// async proxy's (TMA's) reads of them
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// barrier `id` among the `count` threads of a consumer warpgroup
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
 
 // ------------------------------------------------------------------ GELU
 constexpr float kSqrt2OverPi = 0.7978845608028654f;

@@ -2,7 +2,7 @@
 // (attention_core.cuh, attention_resident.cuh) and the GEMM core
 // (gemm_core.cuh): the swizzled shared-memory tile layout wgmma reads and
 // its descriptor, the fence / commit / wait of the asynchronous products,
-// ldmatrix, and bf16 packing.
+// ldmatrix, bf16 packing, and named barriers.
 
 #pragma once
 
@@ -110,6 +110,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
+}
+
+// named barrier `id` of n threads: wait for all of them, or arrive only
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // keep the compiler from touching an accumulator across an async wgmma

@@ -9,8 +9,9 @@
 // bf16, the unnormalised exponent rounded to bf16 for P.V and the division
 // applied to the (N, Dh) output, G windows a program. The windows' rows are
 // found by `WindowRows` as in window_attention.cu, so no window transpose
-// touches device memory. Here: `res_fwd` on 256-key tiles (16 x 16 windows
-// need no key mask), then `res_bwd_dq` and `res_bwd_dkv`.
+// touches device memory; the forward, `res_fwd_tma` on 256-key tiles (16 x
+// 16 windows need no key mask), loads each window as one TMA box of a 4-D
+// map over the grid instead. The backward: `res_bwd_dq` and `res_bwd_dkv`.
 //
 // What bounds it on the card: at ViT-Det 1024 px (4 images, 64 x 64 grid,
 // 16 windows an image, 12 heads) device memory, by a factor of two to three
@@ -21,7 +22,8 @@
 #include "attention_resident.cuh"
 
 // Every entry point returns a cudaError_t value: what the launch left in
-// cudaGetLastError(). The Python wrapper checks the shapes, the dtype
+// cudaGetLastError() (cudaErrorInvalidValue for a tensor map that could
+// not be made). The Python wrapper checks the shapes, the dtype
 // (bf16), Dh == 64, GH and GW multiples of ws, ws * ws <= 256 and that G
 // divides GW / ws before calling. lse and delta are (B * (GH/ws) * (GW/ws),
 // H, ws*ws) float32.
@@ -29,10 +31,8 @@ extern "C" int ssl4gie_window_attn_v2_fwd(const void* qkv, void* out,
                                           void* lse, int B, int GH, int GW,
                                           int ws, int H, int G, float scale,
                                           void* stream) {
-  const int seqs = B * (GH / ws) * (GW / ws);
-  return (int)launch_res_fwd<256, false>(qkv, out, lse, nullptr,
-                                         window_rows(GH, GW, ws), seqs,
-                                         ws * ws, H, G, scale, stream);
+  return (int)launch_window_v2_fwd(qkv, out, lse, B, GH, GW, ws, H, G, scale,
+                                   stream);
 }
 
 extern "C" int ssl4gie_window_attn_v2_bwd(const void* qkv, const void* out,

@@ -9,7 +9,7 @@ library's name carries a hash of the sources, the shared headers
 changes. Each C entry point launches on the stream it is given and returns
 what `cudaGetLastError()` held after the launch; `launch` turns a nonzero
 code into an exception. The link needs no `-lcuda`: the one driver call,
-the TMA tensor-map encoder of `csrc/fused_mlp.cu`, is reached through the
+the TMA tensor-map encoder of `csrc/tma.cuh`, is reached through the
 runtime's `cudaGetDriverEntryPoint`.
 
 Under a process group one process per host builds (local rank 0) while

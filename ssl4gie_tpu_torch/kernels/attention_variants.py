@@ -22,7 +22,10 @@ design:
 On a CUDA tensor each wrapper launches its hand-written kernel of
 `csrc/attention_variants.cu` or `csrc/window_attention_v2.cu` (the resident
 core of `csrc/attention_resident.cuh`: bf16, Dh = 64, N <= Nb, Nb in
-{208, 256}, 208 for save-P; anything else raises). On a CPU tensor it runs
+{208, 256}, 208 for save-P; anything else raises). The forwards of #10 and
+#12 are one persistent kernel, `res_fwd_tma`: work items of G sequences of
+one head, loaded and stored by TMA from a producer warp, multiplied by two
+`wgmma` warpgroups. On a CPU tensor it runs
 the plain PyTorch version below: the TPU kernel's arithmetic at its rounding points, in the
 input dtype with float32 sums, which is also what the kernels are checked
 against on the card. The TPU kernels' pad handling (zeroed k and v rows, the
@@ -216,8 +219,8 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def attention_v2_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
                      G: int = 2, block: int = 256):
     """#10's forward: (B, N, 3C) -> (out (B, N, C), lse (B, H, N) f32).
-    Launches `res_fwd` with G images a block on a CUDA tensor; the plain
-    version on a CPU tensor."""
+    Launches `res_fwd_tma` over work items of G images of one head on a
+    CUDA tensor; the plain version on a CPU tensor."""
     if not _on_cuda(qkv):
         return packed_attention_v2_fwd_plain(qkv, num_heads, scale)
     B, N, C = _check_dense(qkv, num_heads, block)
@@ -267,7 +270,7 @@ attention_v2_bwd.launches = 0
 def attention_save_p_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
                          G: int = 2, block: int = 208):
     """#11's forward: (B, N, 3C) -> (out (B, N, C), P (B, H, N, block) in
-    qkv's dtype). Launches `res_fwd<kSaveP>` on a CUDA tensor; the plain
+    qkv's dtype). Launches `res_savep_fwd` on a CUDA tensor; the plain
     version on a CPU tensor."""
     if not _on_cuda(qkv):
         return packed_attention_save_p_fwd_plain(qkv, num_heads, scale, block)
@@ -333,8 +336,8 @@ def _check_window(qkv: torch.Tensor, num_heads: int, window: int, G: int):
 def window_v2_fwd(qkv: torch.Tensor, num_heads: int, window: int,
                   scale: float, G: int = 1):
     """#12's forward: (B, GH, GW, 3C) -> (out (B, GH, GW, C), lse f32).
-    Launches `res_fwd` over the windows, G adjacent windows a block, on a
-    CUDA tensor; the plain version on a CPU tensor."""
+    Launches `res_fwd_tma` over work items of G adjacent windows of one
+    head on a CUDA tensor; the plain version on a CPU tensor."""
     if not _on_cuda(qkv):
         return window_attention_v2_fwd_plain(qkv, num_heads, window, scale)
     B, GH, GW, C = _check_window(qkv, num_heads, window, G)

@@ -305,23 +305,40 @@ def _close(name, got, ref):
     assert err <= BF16_TOL * ref.abs().max().item(), (name, err)
 
 
+LSE_TOL = 2.0 ** -16                 # the log-sum-exp, relative
+
+
+def _close_lse(got, ref):
+    """Each element within LSE_TOL * (|ref| + max|ref|), as chip_smoke.py's
+    check_close holds the kernels' float32 outputs."""
+    assert bool(torch.isfinite(got).all())
+    err = (got - ref).abs()
+    assert bool((err <= LSE_TOL * (ref.abs() + ref.abs().max())).all()), \
+        err.max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind,batch,n,block,G", [
     ("v2", 4, 197, 256, 2), ("v2", 3, 256, 256, 1), ("v2", 2, 100, 256, 2),
     ("v2", 2, 1, 256, 1), ("v2", 4, 197, 208, 2), ("v2", 2, 208, 208, 4),
+    # the persistent forward's edges: N about a 64-row tile, sequences not a
+    # multiple of G, more work items (B H / G) than the card has SMs
+    ("v2", 5, 1, 208, 2), ("v2", 3, 63, 256, 2), ("v2", 5, 64, 208, 4),
+    ("v2", 3, 65, 256, 2), ("v2", 7, 197, 256, 4), ("v2", 5, 208, 208, 2),
+    ("v2", 3, 256, 256, 2), ("v2", 64, 197, 256, 1), ("v2", 64, 197, 208, 4),
     ("save_p", 4, 197, 208, 2), ("save_p", 3, 50, 208, 1),
     ("save_p", 2, 208, 208, 4),
 ])
 def test_dense_variants_match_plain_on_card(cuda, kind, batch, n, block, G):
-    """#10 and #11: forward, lse or P, and backward against the plain
-    versions at 2^-6 of the largest element."""
+    """#10 and #11: forward, P and backward against the plain versions at
+    2^-6 of the largest element, #10's lse at 2^-16 relative."""
     gen = torch.Generator(device=cuda).manual_seed(batch * 1000 + n)
     qkv, dout = _rand((batch, n, 3 * C), gen, cuda), _rand((batch, n, C),
                                                             gen, cuda)
     if kind == "v2":
         out, lse = av.attention_v2_fwd(qkv, H, SCALE, G, block)
         out_p, lse_p = av.packed_attention_v2_fwd_plain(qkv, H, SCALE)
-        _close("lse", lse, lse_p)
+        _close_lse(lse, lse_p)
         dq = av.attention_v2_bwd(qkv, out, lse, dout, H, SCALE, G, block)
         dq_p = av.packed_attention_v2_bwd_plain(qkv, dout, H, SCALE)
     else:
@@ -338,7 +355,10 @@ def test_dense_variants_match_plain_on_card(cuda, kind, batch, n, block, G):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch,grid,window,G", [
-    (2, 64, 16, 1), (2, 64, 16, 2), (1, 64, 16, 4), (2, 32, 8, 2)])
+    (2, 64, 16, 1), (2, 64, 16, 2), (1, 64, 16, 4), (2, 32, 8, 2),
+    # more work items than SMs; windows of 64 tokens (one query tile) at
+    # each G; 14 x 14 windows (a tile boundary inside a window row)
+    (4, 64, 16, 1), (3, 32, 8, 1), (1, 32, 8, 4), (2, 28, 14, 2)])
 def test_window_v2_matches_plain_on_card(cuda, batch, grid, window, G):
     gen = torch.Generator(device=cuda).manual_seed(grid + G)
     qkv = _rand((batch, grid, grid, 3 * C), gen, cuda)
@@ -349,7 +369,7 @@ def test_window_v2_matches_plain_on_card(cuda, batch, grid, window, G):
     dq_p = av.window_attention_v2_bwd_plain(qkv, dout, H, window, SCALE)
     torch.cuda.synchronize()
     _close("out", out, out_p)
-    _close("lse", lse, lse_p)
+    _close_lse(lse, lse_p)
     _close("dqkv", dq, dq_p)
 
 
@@ -376,6 +396,26 @@ def test_groups_repeat_bit_for_bit_on_card(cuda, kind):
         outs.append((out, g))
     for out, g in outs[1:]:
         assert torch.equal(out, outs[0][0]) and torch.equal(g, outs[0][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["v2", "v3", "window"])
+def test_forward_repeats_bit_for_bit_on_card(cuda, kind):
+    """The persistent forward of #10 / #12 twice on the same input, at
+    every G the harnesses use: the same bits (no atomics, one order)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    if kind == "window":
+        x = _rand((4, 64, 64, 3 * C), gen, cuda)
+        runs = [(G, [av.window_v2_fwd(x, H, 16, SCALE, G) for _ in range(2)])
+                for G in (1, 2, 4)]
+    else:
+        block = 256 if kind == "v2" else 208
+        x = _rand((64, N, 3 * C), gen, cuda)
+        runs = [(G, [av.attention_v2_fwd(x, H, SCALE, G, block)
+                     for _ in range(2)]) for G in (2, 4)]
+    torch.cuda.synchronize()
+    for G, ((o1, l1), (o2, l2)) in runs:
+        assert torch.equal(o1, o2) and torch.equal(l1, l2), G
 
 
 @pytest.mark.gpu
