@@ -854,16 +854,26 @@ def entry_name(fn, config) -> str:
                                                              config))
 
 
-def resident_forward_ptxas() -> dict:
-    """ptxas's (registers, spill-store bytes) of the persistent forward of
-    #10 and #12, `res_fwd_tma<NK, kWindow>`, from the build's log, by
-    (NK, kWindow)."""
+def resident_ptxas(kernel: str) -> dict:
+    """ptxas's (registers, spill-store bytes) of a persistent kernel of #10
+    and #12, `<kernel><NK, kWindow>`, from the build's log, by (NK,
+    kWindow)."""
     log = _build.library_path().with_suffix(".log").read_text()
     return {(int(m[1]), m[2] == "1"): (int(m[4]), int(m[3]))
             for m in re.finditer(
-                r"Compiling entry function '\w*res_fwd_tmaILi(\d+)ELb(\d)E"
+                rf"Compiling entry function '\w*{kernel}ILi(\d+)ELb(\d)E"
                 r"\w*'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
                 log, re.S)}
+
+
+def resident_forward_ptxas() -> dict:
+    """The forward's, `res_fwd_tma`."""
+    return resident_ptxas("res_fwd_tma")
+
+
+def resident_backward_ptxas() -> dict:
+    """The backward's, `res_bwd_tma` (dQ, dK and dV in one kernel)."""
+    return resident_ptxas("res_bwd_tma")
 
 
 def variant_configs() -> list:
@@ -889,7 +899,11 @@ def variant_kernel_phase(card: str) -> list[dict]:
     src = "benchmarks/bench_attention_kernel.py"
     configs = variant_configs()
     results, b2b_of = [], {}
-    ptxas = resident_forward_ptxas()
+    fwd_regs, bwd_regs = resident_forward_ptxas(), resident_backward_ptxas()
+    ptxas = {av.attention_v2_fwd: ("res_fwd_tma", fwd_regs),
+             av.window_v2_fwd: ("res_fwd_tma", fwd_regs),
+             av.attention_v2_bwd: ("res_bwd_tma", bwd_regs),
+             av.window_v2_bwd: ("res_bwd_tma", bwd_regs)}
 
     def timed(fn):
         """Per call and back to back (the host's launch time hidden)."""
@@ -911,11 +925,12 @@ def variant_kernel_phase(card: str) -> list[dict]:
         G, nb = config if isinstance(config, tuple) else (config, None)
         extra = {"G": G, **({"Nb": nb} if nb else {})}
         regs = ""
-        if fn in (av.attention_v2_fwd, av.window_v2_fwd):
-            # the persistent TMA forward: its registers beside its times
-            instance = (nb or 256, fn is av.window_v2_fwd)
-            extra["registers"], extra["spill_bytes"] = ptxas[instance]
-            regs = (f"; res_fwd_tma<{instance[0]}>: {extra['registers']} "
+        if fn in ptxas:
+            # the persistent TMA kernels: their registers beside their times
+            instance = (nb or 256, fn in (av.window_v2_fwd, av.window_v2_bwd))
+            kernel, regs_of = ptxas[fn]
+            extra["registers"], extra["spill_bytes"] = regs_of[instance]
+            regs = (f"; {kernel}<{instance[0]}>: {extra['registers']} "
                     f"registers at launch (the consumers 240 by "
                     f"setmaxnreg), {extra['spill_bytes']} B spilled")
         r = result(name, source, replaces, err, ms, plain_ms, lib_ms, *work,

@@ -9,9 +9,8 @@ registers and spills of the forward kernels and the largest difference
 from the plain version:
 
 - base: the header as it is;
-- no_persistent: a block per work item (G sequences of one head), the grid
-  (ceil(seqs / G) H) of the cp.async kernels, in place of at most one
-  block an SM walking the items;
+- no_persistent: as many blocks as work items (ceil(seqs / G) H, the grid
+  of the cp.async kernels), in place of at most one block an SM;
 - no_producer: no producer warp; thread 0 of consumer 0 issues the next
   sequence's loads and the last one's store before each sequence (256
   threads a block);
@@ -76,16 +75,21 @@ ENTRIES = ("ssl4gie_attn_v2_fwd", "ssl4gie_window_attn_v2_fwd")
 HEADS, SCALE = 12, 0.125
 
 
-def start_build(variant: list, work: Path) -> list:
-    """Copy csrc/ into `work`, apply the variant, start one nvcc a source."""
+def start_build(variant: list, work: Path, section: str = "") -> list:
+    """Copy csrc/ into `work`, apply the variant (each text replaced where
+    it first occurs from the header's line `section` on, else where it
+    first occurs), start one nvcc a source."""
     src = work / "csrc"
     shutil.copytree(_build.CSRC_DIR, src)
     header = src / "attention_resident.cuh"
     text = header.read_text()
+    start = text.index(section) if section else 0
     for old, new in variant:
-        if old not in text:
+        at = text.find(old, start)
+        at = text.find(old) if at < 0 else at
+        if at < 0:
             raise RuntimeError(f"variant text not found: {old[:60]!r}")
-        text = text.replace(old, new)
+        text = text[:at] + new + text[at + len(old):]
     header.write_text(text)
     jobs = []
     for name in SOURCES:
@@ -97,25 +101,26 @@ def start_build(variant: list, work: Path) -> list:
     return jobs
 
 
-def finish_build(jobs: list, work: Path) -> tuple[ctypes.CDLL, Path, list]:
+def finish_build(jobs: list, work: Path, kernel: str = "res_fwd_tma",
+                 entries=ENTRIES) -> tuple[ctypes.CDLL, Path, list]:
     """Wait for the compilers, link, load; ptxas's (kernel, registers,
-    spill stores) of the forward kernels."""
+    spill stores) of the instances of `kernel`."""
     log = ""
     for _, proc in jobs:
         text = proc.communicate()[0]
         log += text
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{text[-4000:]}")
-    lib = work / "fwd.so"
+    lib = work / "variant.so"
     subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-shared", "-o",
                     str(lib), *(str(obj) for obj, _ in jobs)], check=True,
                    capture_output=True)
     fn = ctypes.CDLL(str(lib))
-    for name in ENTRIES:
+    for name in entries:
         getattr(fn, name).argtypes = _build.SIGNATURES[name]
         getattr(fn, name).restype = ctypes.c_int
     regs = []
-    for m in re.finditer(r"Compiling entry function '(\w*res_fwd_tma\w*)'"
+    for m in re.finditer(rf"Compiling entry function '(\w*{kernel}\w*)'"
                          r".*?(\d+) bytes spill stores.*?Used (\d+) "
                          r"registers", log, re.S):
         nk, window = re.search(r"ILi(\d+)ELb(\d)E", m.group(1)).groups()
@@ -149,15 +154,16 @@ def rows(gen) -> dict:
     return out
 
 
-def sass_count(lib: Path) -> str:
-    """HGMMA, UTMALDG and UTMASTG instructions in the forward kernels."""
+def sass_count(lib: Path, kernel: str = "res_fwd_tma") -> str:
+    """HGMMA, UTMALDG and UTMASTG instructions in the instances of
+    `kernel`."""
     sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
                            str(lib)], capture_output=True, text=True,
                           check=True).stdout
     counts, first, current = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = "res_fwd_tma" in line
+            current = kernel in line
         elif current:
             for op in ("HGMMA", "UTMALDG", "UTMASTG"):
                 if re.search(rf"\b{op}\b", line):

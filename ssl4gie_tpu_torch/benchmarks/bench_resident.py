@@ -4,12 +4,14 @@ backward (`attention_variants.attention_v2_fwd` / `_bwd` at G 2 and 4, Nb
 256 and 208) and #11's (save-P, G 2, Nb 208) at the classification shape
 (64, 197, 3*768), 12 heads of 64; #12's (`window_v2_fwd` / `_bwd` at G 1,
 2, 4) on the detection grid (4, 64, 64, 3*768) with 16 x 16 windows; and,
-beside them, the streaming forwards #1 and #4 at the same inputs. Each per
-call (median of 20 CUDA-event readings) and back to back (20 calls between
-two events). Also `F.scaled_dot_product_attention`'s forward on the same
-inputs, split into contiguous (B, H, N, Dh) tensors outside the timing,
-the one PyTorch call that computes the forwards' function. Prints one JSON
-line with the card's name and power limit.
+beside them, the production twins on the same inputs: the streaming
+forwards #1 and #4 and backwards #2 and #5. Each per call (median of 20
+CUDA-event readings) and back to back (20 calls between two events). Also
+`F.scaled_dot_product_attention` on the same inputs, split into contiguous
+(B, H, N, Dh) tensors outside the timing, the one PyTorch call that
+computes the kernels' function: its forward, and its backward alone
+(autograd of a recorded forward). Prints one JSON line with the card's name
+and power limit.
 
 It imports only the kernel modules, which every checkout of the port since
 the harnesses has, so that two checkouts can be compared in one call on one
@@ -43,14 +45,27 @@ DENSE_BWD = ((2, 256), (4, 256), (2, 208), (4, 208))
 WINDOW_G = (1, 2, 4)
 
 
+def heads(x: torch.Tensor) -> torch.Tensor:
+    """(S, N, C) -> contiguous (S, H, N, Dh)."""
+    S, N, _ = x.shape
+    return x.reshape(S, N, HEADS, DH).transpose(1, 2).contiguous()
+
+
 def sdpa_call(qkv: torch.Tensor):
     """SDPA's forward on packed (S, N, 3C) qkv, split once into contiguous
     (S, H, N, Dh) q, k, v."""
-    S, N, _ = qkv.shape
-    q, k, v = (t.reshape(S, N, HEADS, DH).transpose(1, 2).contiguous()
-               for t in qkv.chunk(3, dim=-1))
+    q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(q, k, v, scale=SCALE)
+
+
+def sdpa_bwd_call(qkv: torch.Tensor, dout: torch.Tensor):
+    """SDPA's backward alone: autograd of one recorded forward on the split
+    q, k, v, with dO (S, N, C) split the same way."""
+    xs = [heads(t).requires_grad_(True) for t in qkv.chunk(3, dim=-1)]
+    o = torch.nn.functional.scaled_dot_product_attention(*xs, scale=SCALE)
+    g = heads(dout)
+    return lambda: torch.autograd.grad(o, xs, g, retain_graph=True)
 
 
 def cases() -> dict:
@@ -62,8 +77,12 @@ def cases() -> dict:
     out = {}
     qkv, dout = rand(BATCH, TOKENS, 3 * C), rand(BATCH, TOKENS, C)
     o, lse = av.attention_v2_fwd(qkv, HEADS, SCALE)
+    o1, lse1 = da.attention_fwd(qkv, HEADS, SCALE)
     out["dense_1_fwd"] = lambda: da.attention_fwd(qkv, HEADS, SCALE)
     out["dense_sdpa_fwd"] = sdpa_call(qkv)
+    out["dense_2_bwd"] = lambda: da.attention_bwd(qkv, o1, lse1, dout, HEADS,
+                                                  SCALE)
+    out["dense_sdpa_bwd"] = sdpa_bwd_call(qkv, dout)
     for G, nb in DENSE_FWD:
         out[f"dense_10_fwd_g{G}_nb{nb}"] = (
             lambda G=G, nb=nb: av.attention_v2_fwd(qkv, HEADS, SCALE, G, nb))
@@ -80,8 +99,13 @@ def cases() -> dict:
     wdout = rand(GRID_B, GRID, GRID, C)
     args = (HEADS, WINDOW, SCALE)
     wo, wlse = av.window_v2_fwd(wqkv, *args)
+    wo4, wlse4 = wa.window_attention_fwd(wqkv, *args)
     out["window_4_fwd"] = lambda: wa.window_attention_fwd(wqkv, *args)
     out["window_sdpa_fwd"] = sdpa_call(wa.partition(wqkv, WINDOW))
+    out["window_5_bwd"] = lambda: wa.window_attention_bwd(wqkv, wo4, wlse4,
+                                                          wdout, *args)
+    out["window_sdpa_bwd"] = sdpa_bwd_call(wa.partition(wqkv, WINDOW),
+                                           wa.partition(wdout, WINDOW))
     for G in WINDOW_G:
         out[f"window_12_fwd_g{G}"] = (
             lambda G=G: av.window_v2_fwd(wqkv, *args, G))

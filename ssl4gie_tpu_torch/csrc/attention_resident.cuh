@@ -9,18 +9,16 @@
 // and serves every 64-row tile of that sequence from them, then the next of
 // its G sequences (G adjacent images, or G horizontally adjacent windows):
 // the counterpart of the TPU kernels' G sequences a program.
-// - The forward of #10 and #12 (`res_fwd_tma`, below) is persistent and
-//   warp-specialised: a producer warpgroup loads each sequence's K, V and Q
-//   by TMA into a two-stage mbarrier ring and stores O by TMA, two
-//   consumer warpgroups multiply (its comment has the design).
-// - The other kernels (#11's forward, every backward): a block is two
-//   warpgroups (256 threads); warpgroup wg takes the 64-row tiles wg, wg +
-//   2, ... of each sequence. Registers (the whole-width score tile) hold a
-//   block to one per SM (__launch_bounds__(256, 1)).
-// - Their resident operands come by cp.async; with G > 1 they are kept
-//   twice, so that the next sequence's copies fly while this one is
-//   computed. A warpgroup's own 64-row tiles come through registers
-//   (copy_rows), outside the cp.async groups.
+// - #10 and #12 run two persistent, warp-specialised kernels: a producer
+//   warpgroup moves every operand in and every output out by TMA
+//   (csrc/tma.cuh), two consumer warpgroups multiply (setmaxnreg 240).
+//   `res_fwd_tma` (the forward; its comment has the design) and
+//   `res_bwd_tma` (dQ, dK and dV in one pass; its comment has the design).
+// - #11 (`res_savep_fwd`, `res_savep_dq`, `res_savep_dkv`): a block is two
+//   warpgroups (256 threads, __launch_bounds__(256, 1)); its resident
+//   operands come by cp.async, kept twice with G > 1 so that the next
+//   sequence's copies fly while this one is computed; a warpgroup's own
+//   64-row tiles come through registers (copy_rows).
 // - NK is the width of the resident score tile, 208 or 256 keys (the TPU
 //   kernels' Nb): a 64 x NK product is issued as 64-column wgmma chunks
 //   and, at NK = 208, one 16-column chunk (`res_fwd_tma`: one m64nNKk16
@@ -28,45 +26,39 @@
 // - q is scaled, bf16(q * bf16(scale)), the TPU kernels' rounding point
 //   (in shared memory; `res_fwd_tma` in registers), so the scores need no
 //   scale and dK = dS^T.(scaled q) none either.
-// - Forward: K, V and Q resident; per query tile S = Q.K^T over all NK keys
-//   at once (NK / 2 registers a thread) and a single-pass softmax: no
-//   running max, no rescale; keys >= N are -inf.
-//   - #10 / #12 (`res_fwd_tma`): the unnormalised exponent is rounded to
-//     bf16 for P.V and the output divided by the row sum, as the TPU's v2
-//     kernels do; each row's log-sum-exp is written for the backward.
-//   - #11 (`res_savep_fwd`): P = exp / sum, rounded to bf16, is the A
-//     operand of P.V and is also written, (seqs, H, N, NK) bf16: N rows,
-//     all NK columns
-//     (columns >= N are exactly 0). Rows >= N are never written: the TPU
-//     kernel fills them from out-of-bounds q and its backward contracts
-//     over them (ROADMAP.md, "Known faults in the reference itself").
-// - Backward, the port's split form (a dq kernel, then a dk/dv kernel; no
-//   atomics, bitwise repeatable), with the operand that the streaming core
-//   re-reads resident instead, and the streaming core's tile arithmetic
-//   as step functions (dq_step, dkv_step below) on 64- and 16-wide chunks:
-//   - `res_bwd_dq`: K and V resident; per query tile and key chunk S, dP,
-//     P from the forward's log-sum-exp, dS, dQ += dS.K (three products);
-//     delta = rowsum(dO * O), as the port's #2 (the TPU's v2 takes
-//     rowsum(P * dP): equal in exact arithmetic).
-//   - `res_bwd_dkv`: scaled Q, dO, lse and delta resident; per key tile and
-//     query chunk S^T, dP^T, dV, dK (four products).
-//   - #11 reads P in place of S and the exponent: `res_savep_dq` takes a
-//     whole 64 x NK dP tile and P's 64 rows (through registers into shared
-//     memory, then ldmatrix in the accumulator layout), delta = rowsum(P *
-//     dP) from the bf16 P (the TPU's rounding point), dS, dQ (two
-//     products); `res_bwd_dkv<kSaveP>` takes 64 x 64 tiles of P the same
-//     way, transposed by ldmatrix .trans into the A layout of dV = P^T.dO,
-//     and runs dP^T, dV and dK (three). Five products, not four: one block
-//     owning a whole (sequence, head) would hold dK and dV of all NK keys
-//     (NK / 2 f32 registers a thread over two warpgroups) beside the dP
-//     tile (NK / 2 more), which 255 registers a thread cannot.
+// - Forward: per query tile S = Q.K^T over all NK keys at once (NK / 2
+//   registers a thread) and a single-pass softmax: no running max, no
+//   rescale; keys >= N are -inf.
+//   - #10 / #12: the unnormalised exponent is rounded to bf16 for P.V and
+//     the output divided by the row sum, as the TPU's v2 kernels do; each
+//     row's log-sum-exp is written for the backward.
+//   - #11: P = exp / sum, rounded to bf16, is the A operand of P.V and is
+//     also written, (seqs, H, N, NK) bf16: N rows, all NK columns (columns
+//     >= N are exactly 0). Rows >= N are never written: the TPU kernel
+//     fills them from out-of-bounds q and its backward contracts over them
+//     (ROADMAP.md, "Known faults in the reference itself").
+// - Backward, no atomics, bitwise repeatable:
+//   - #10 / #12 (`res_bwd_tma`): per (64-key tile, query chunk) S^T, dP^T
+//     and, from the forward's lse, P^T, dS^T, then dV, dK and the chunk's
+//     dQ partial: five products and one exponent, as the TPU's v2 kernels
+//     compute dq, dk and dv of a sequence in one program. delta =
+//     rowsum(dO * O), as the port's #2 (the TPU's v2 takes rowsum(P * dP):
+//     equal in exact arithmetic).
+//   - #11 reads P in place of S and the exponent, in two kernels:
+//     `res_savep_dq` takes a whole 64 x NK dP tile and P's 64 rows (through
+//     registers into shared memory, then ldmatrix in the accumulator
+//     layout), delta = rowsum(P * dP) from the bf16 P (the TPU's rounding
+//     point), dS, dQ (two products); `res_savep_dkv` takes 64 x 64 tiles of
+//     P the same way, transposed by ldmatrix .trans into the A layout of
+//     dV = P^T.dO, and runs dP^T, dV and dK (three).
 //
 // Shared memory per block (64-wide bf16 rows of 128 B; NK rows rounded up
-// to 224 at 208; "x2" with G > 1): `res_fwd_tma` 2 NK + 256 rows x2 at
-// every G (168 or 192 KiB); the save-P forward 2 NK + 256 rows x2; dq 2 NK
-// rows x2 + 256; dk/dv 2 NK rows x2 + 256 + 8 NK bytes of statistics; the
-// save-P dq 2 NK rows x2 + 128 + a 64 x NK P tile per warpgroup, its dk/dv
-// the dk/dv's + two 64 x 64 P tiles per warpgroup; at most 193 KiB.
+// to 224 at 208 in #11's kernels; "x2" with G > 1): `res_fwd_tma` 2 NK +
+// 256 rows x2 at every G (168 or 192 KiB); `res_bwd_tma` 4 NK rows, 2 NK
+// f32 rows, two 64-row tiles and 8 NK bytes (174 or 211 KiB); the save-P
+// forward 2 NK + 256 rows x2; the save-P dq 2 NK rows x2 + 128 + a 64 x NK
+// P tile per warpgroup, its dk/dv 2 NK rows x2 + 256 + 8 NK bytes of
+// statistics + two 64 x 64 P tiles per warpgroup.
 
 #pragma once
 
@@ -121,82 +113,7 @@ __device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
     wgmma_pv(acc, a[kk], b + kk * (2 * Swz<D>::kAtom >> 4));
 }
 
-// delta = rowsum(dO * O) of `row` (0 if row >= N) for the quad of the
-// calling lane: its four lanes take the row's 16-byte chunks in turn
-template <int D, class Rows>
-__device__ __forceinline__ float row_delta(const bf16* o, const bf16* dout,
-                                           int ld, Rows rows, int row, int N) {
-  float sum = 0.f;
-  if (row < N) {
-    const size_t off = (size_t)rows.offset(row) * ld;
-    for (int c = threadIdx.x & 3; c < Swz<D>::kChunks; c += 4)
-      sum = dot8(*reinterpret_cast<const uint4*>(o + off + c * 8),
-                 *reinterpret_cast<const uint4*>(dout + off + c * 8), sum);
-  }
-  sum += __shfl_xor_sync(kFull, sum, 1);
-  return sum + __shfl_xor_sync(kFull, sum, 2);
-}
-
-// ------------------------------------------- the backward's chunk steps
-// The arithmetic of the streaming core's backward tiles (attn_bwd_dq and
-// attn_bwd_dkv of attention_core.cuh keep it inline on their 64-key
-// tiles) as step functions over a W-wide chunk, W = 64 or 16.
-// res_bwd_dq's step:
-// W keys from key c0 (dk, dv: the chunk's K and V rows); per thread rows g
-// and g + 8 with nl = -lse log2(e) and dl = delta. S = Q.K^T, then dP =
-// dO.V^T as a second group, so that the exponent runs while dP is
-// multiplied; keys >= limit are masked; P = exp2(S sl2 + nl); dS = P (dP -
-// dl); acc += bf16(dS).K with K read MN-major.
-template <int D, int W>
-__device__ __forceinline__ void dq_step(float (&acc)[D / 8][4],
-                                        unsigned long long dq,
-                                        unsigned long long dg,
-                                        unsigned long long dk,
-                                        unsigned long long dv, int c0,
-                                        int limit, float sl2,
-                                        const float (&nl)[2],
-                                        const float (&dl)[2]) {
-  const int c2 = (threadIdx.x & 3) * 2;
-  float sc[W / 8][4], dp[W / 8][4];
-  zero(sc);
-  zero(dp);
-  wg_fence();
-  mma_scores<D, W>(sc, dq, dk);
-  wg_commit();
-  mma_scores<D, W>(dp, dg, dv);
-  wg_commit();
-  wg_wait1();
-  wg_hold(sc);
-  if (c0 + W > limit) {              // the chunk that holds the last key
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (c0 + j * 8 + c2 + e >= limit)
-          sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
-  }
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      sc[j][e] = exp2_approx(fmaf(sc[j][e], sl2, nl[e >> 1]));
-  wg_wait0();
-  wg_hold(dp);
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      dp[j][e] = sc[j][e] * (dp[j][e] - dl[e >> 1]);      // dS
-  unsigned da[W / 16][4];
-  pack_a(dp, da);
-  wg_hold(acc);
-  wg_fence();
-  mma_pv<D, W / 16>(acc, da, dk);
-  wg_commit();
-  wg_wait0();
-  wg_hold(acc);
-}
-
+// ------------------------------------------- #11's backward steps
 // The end of a dk/dv step: with P^T of the warp's keys at W query columns
 // (st in f32, pa its bf16 A fragments) and dP^T = V.dO^T the last wgmma
 // group in flight, dS^T = P^T (dP^T - delta) (the chunk's delta at dl),
@@ -233,63 +150,6 @@ __device__ __forceinline__ void dkv_tail(float (&dka)[D / 8][4],
   wg_wait0();
   wg_hold(dva);
   wg_hold(dka);
-}
-
-// res_bwd_dkv's step: the warp's keys
-// `key` and key + 8 (the warpgroup's K and V rows at dk, dv), W queries
-// from query c0 (their Q and dO rows at dq, dg; their lse and delta at ls
-// and dl). S^T = K.Q^T, then dP^T = V.dO^T as a second group; keys >=
-// key_limit and queries >= q_limit get p = 0 (with k zero, exp(-lse)
-// overflows for a row whose lse < -87, and inf * 0 is NaN); P^T =
-// exp2(S^T sl2 - lse log2(e)); then dkv_tail.
-template <int D, int W>
-__device__ __forceinline__ void dkv_step(float (&dka)[D / 8][4],
-                                         float (&dva)[D / 8][4],
-                                         unsigned long long dk,
-                                         unsigned long long dv,
-                                         unsigned long long dq,
-                                         unsigned long long dg, int key,
-                                         int key_limit, int c0, int q_limit,
-                                         float sl2, const float* ls,
-                                         const float* dl) {
-  const int c2 = (threadIdx.x & 3) * 2;
-  float st[W / 8][4], dpt[W / 8][4];
-  zero(st);
-  zero(dpt);
-  wg_fence();
-  mma_scores<D, W>(st, dk, dq);
-  wg_commit();
-  mma_scores<D, W>(dpt, dv, dg);
-  wg_commit();
-  wg_wait1();
-  wg_hold(st);
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-    if (key + 8 * hf >= key_limit)
-#pragma unroll
-      for (int j = 0; j < W / 8; ++j)
-        st[j][2 * hf] = st[j][2 * hf + 1] = -CUDART_INF_F;
-  if (c0 + W > q_limit) {
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (c0 + j * 8 + c2 + e >= q_limit)
-          st[j][e] = st[j][e + 2] = -CUDART_INF_F;
-  }
-  // P^T from each query column's lse: columns 8 j + c2 and + 1
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j) {
-    const float2 l = *reinterpret_cast<const float2*>(ls + j * 8 + c2);
-    const float n0 = -l.x * kLog2e, n1 = -l.y * kLog2e;
-    st[j][0] = exp2_approx(fmaf(st[j][0], sl2, n0));
-    st[j][1] = exp2_approx(fmaf(st[j][1], sl2, n1));
-    st[j][2] = exp2_approx(fmaf(st[j][2], sl2, n0));
-    st[j][3] = exp2_approx(fmaf(st[j][3], sl2, n1));
-  }
-  unsigned pa[W / 16][4];
-  pack_a(st, pa);                                   // bf16(P^T)
-  dkv_tail<D, W>(dka, dva, st, pa, dpt, dl, dq, dg);
 }
 
 constexpr int kResThreads = 256;          // two warpgroups a block
@@ -353,9 +213,13 @@ __device__ __forceinline__ void scale_rows(unsigned char* tile, int tid,
   }
 }
 
+// The shared array p from its first 1 KiB boundary on, as an offset of p
+// itself: the compiler keeps knowing that the pointers derived from it are
+// shared and addresses them in 32 bits (rounding the address as an integer
+// makes them generic, 64 bits a pointer, which cost the backward its
+// registers: 564 bytes of spills).
 __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<size_t>(p) + 1023) & ~(size_t)1023);
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
 // Rows [first, first + R) of a sequence's 64-wide column slice at src (row
@@ -442,23 +306,22 @@ size_t res_fwd_smem(int G) {
              kRowBytes + 1024;
 }
 template <int NK>
-size_t res_dq_smem(bool save_p, int G) {
-  return resident_bytes<NK>(2, G) +
-         (save_p ? 2 * 64 * (kRowBytes + kPRowBytes<NK>)
-                 : 2 * 128 * kRowBytes) + 1024;
+size_t res_dq_smem(int G) {
+  return resident_bytes<NK>(2, G) + 2 * 64 * (kRowBytes + kPRowBytes<NK>) +
+         1024;
 }
 template <int NK>
-size_t res_dkv_smem(bool save_p, int G) {
-  return resident_bytes<NK>(2, G) + 8 * kResRows<NK> +
-         2 * 128 * kRowBytes + (save_p ? 2 * 2 * kPtBytes : 0) + 1024;
+size_t res_dkv_smem(int G) {
+  return resident_bytes<NK>(2, G) + 8 * kResRows<NK> + 2 * 128 * kRowBytes +
+         2 * 2 * kPtBytes + 1024;
 }
 
 // ------------------------------------------------ forward (#10, #12)
 // `res_fwd_tma`: persistent and warp-specialised. A work item is G
 // sequences of one head: item i is head i % H of sequences (i / H) G ..
 // (i / H) G + G - 1 (< seqs), so G changes only the order of the work. A
-// block takes items blockIdx.x, + gridDim.x, ...; the grid is at most one
-// block an SM (kResPersistent).
+// block takes every gridDim.x-th sequence in item order (SeqWalk); the
+// grid is at most one block an SM (kResPersistent).
 // - Warpgroup 0, the producer (setmaxnreg 24): one thread walks the
 //   block's sequences and keeps the next one's K, V and Q in flight by TMA
 //   (one box each) into a ring of two stages of a whole sequence each,
@@ -497,7 +360,8 @@ size_t res_dkv_smem(bool save_p, int G) {
 
 constexpr int kTmaStages = 2;             // whole sequences in flight
 // The design's two choices, switchable for measuring them
-// (benchmarks/ablate_resident_forward.py): a producer warpgroup loads and
+// (benchmarks/ablate_resident_forward.py, ablate_resident_backward.py),
+// in the forward and the backward alike: a producer warpgroup loads and
 // stores (else thread 0 of consumer 0 does, before each sequence), and the
 // grid is persistent (else a block an item).
 constexpr bool kResProducer = true;
@@ -515,33 +379,37 @@ struct ResTma {
 struct ResTmaArgs {
   float* lse;               // (seqs, H, N)
   int seqs, G, H, N;
-  int items;                // ceil(seqs / G) H
+  int items;                // ceil(seqs / G) H: the grid of a block an item
   int nh, nw, ws;           // windows: per image column and row; width
   int kv_rows;              // rows a K or V box writes
   int tx_bytes;             // bytes a stage receives
   float scale;
 };
 
-// The sequences of a block's items, in order
+// The sequences of a block, in order: the f-th of all seqs H sequences
+// in item order for f = blockIdx.x, + gridDim.x, ..., so that every block
+// takes an equal share (to one sequence) whatever G is, and the blocks at
+// work at one time hold neighbouring sequences, all heads of one image
+// together. Row r of items holds sequences r G .. r G + G - 1 (< seqs),
+// head 0's, then head 1's, ...: G changes only the order of the work.
 struct SeqWalk {
-  int item, seq, end, h;
+  int f, seq, h;
   __device__ __forceinline__ explicit SeqWalk(const ResTmaArgs& a)
-      : item(blockIdx.x) {
-    begin(a);
+      : f(blockIdx.x) {
+    locate(a);
   }
-  __device__ __forceinline__ void begin(const ResTmaArgs& a) {
-    h = item % a.H;
-    seq = item / a.H * a.G;
-    end = min(seq + a.G, a.seqs);
+  __device__ __forceinline__ void locate(const ResTmaArgs& a) {
+    const int r = f / (a.G * a.H), rem = f - r * a.G * a.H;
+    const int gr = min(a.G, a.seqs - r * a.G);    // the row's sequences
+    h = rem / gr;
+    seq = r * a.G + rem - h * gr;
   }
   __device__ __forceinline__ bool more(const ResTmaArgs& a) const {
-    return item < a.items;
+    return f < a.seqs * a.H;
   }
   __device__ __forceinline__ void next(const ResTmaArgs& a) {
-    if (++seq == end) {
-      item += gridDim.x;
-      begin(a);
-    }
+    f += gridDim.x;
+    if (more(a)) locate(a);
   }
 };
 
@@ -569,6 +437,18 @@ __device__ __forceinline__ void seq_store(const CUtensorMap* map,
                  t / a.nh);
   } else {
     tma_store_3d(map, src, col, 0, seq);
+  }
+}
+
+// Sequence seq's box of `map` at column col into L2 (seq_load's box)
+template <bool kWindow>
+__device__ __forceinline__ void seq_prefetch(const CUtensorMap* map, int col,
+                                             int seq, const ResTmaArgs& a) {
+  if constexpr (kWindow) {
+    const int t = seq / a.nw;
+    tma_prefetch_4d(map, col, seq % a.nw * a.ws, t % a.nh * a.ws, t / a.nh);
+  } else {
+    tma_prefetch_3d(map, col, 0, seq);
   }
 }
 
@@ -867,6 +747,502 @@ res_fwd_tma(const __grid_constant__ CUtensorMap mKV,
   if (loads) loader.drain(a);
 }
 
+// ------------------------------------------------ backward (#10, #12)
+// `res_bwd_tma`: dQ, dK and dV of a sequence in one pass, persistent and
+// warp-specialised like res_fwd_tma, on the same walk (SeqWalk), with the
+// forward's lse. Per sequence (one whole-sequence stage in shared memory,
+// ResBwd):
+// - The producer warpgroup (setmaxnreg 24): one thread loads Q, K, V (a
+//   map over qkv), dO and O (maps over dout and out) by TMA, one box each,
+//   and once both consumers are through the sequence stores dQ, dK and dV
+//   by three boxes of one map over dqkv from where Q, K and V were; then
+//   it loads the next sequence, which it has already brought into L2
+//   (seq_prefetch) while this one was computed. Warp 1 brings -lse
+//   log2(e) (load_lse). No multiplying thread touches an operand on its
+//   way in or out.
+// - The two consumers (setmaxnreg 240) first take, one row a thread,
+//   q's scaling in place (bf16(q bf16(scale))) and delta = rowsum(dO * O)
+//   (rows >= N: delta 0; their -lse log2(e) is -inf, so P^T = 0 there).
+// - Then a key-major loop: consumer w owns the 64-key tiles w, w + 2, ...
+//   and holds their dK and dV in registers, 64 f32 a thread. Per query
+//   chunk c (64 rows; at NK = 208 the last is 16) it issues S^T = K.Qs^T
+//   and dP^T = V.dO^T as two groups; P^T = exp2(S^T log2(e) - lse
+//   log2(e)) (keys >= N masked); dS^T = P^T (dP^T - delta); bf16(dS^T) to
+//   the consumer's staging tile (stmatrix); then dV += bf16(P^T).dO (P^T
+//   in registers), dK += bf16(dS^T).Qs and the partial dQ_c = bf16(dS).K
+//   (the staging tile read K-major, then MN-major). Five products a (key
+//   tile, chunk) and one exponent, as the TPU kernel. Chunk c + 1's S^T
+//   and dP^T are issued before chunk c's dV, dK and dQ, so those run under
+//   chunk c + 1's exponent; a step waits for chunk c - 1's products once,
+//   where it reuses their P^T registers and the staging tile.
+// - dQ without atomics: the partials of chunk c are summed in f32 in
+//   shared memory (where O lay: delta is taken first) in key-tile order,
+//   ((p0 + p1) + p2) + p3, so every run gives the same bits. The consumer
+//   of key tile k takes its turn on chunk c after the one of k - 1 (named
+//   barriers, one per chunk and direction); key tile 0 writes the sum,
+//   the last adds, scales, rounds to bf16 once and writes dQ over Q's
+//   rows of the chunk (every product that reads them is through: the
+//   turns order them). The sums keep the accumulator's layout, a float4 a
+//   thread and column group, so a warp's accesses are 512 contiguous
+//   bytes. With consumer 1 a step behind consumer 0 the turns cost little
+//   waiting; their shared-memory traffic is what they cost.
+// - Each key tile's dK and dV go, as bf16, over its own K and V rows
+//   (only its owner reads them).
+// - Buffers: at NK = 256 the stage takes 211 KiB (Q, K, V, dO 4 x 32, the
+//   f32 sums 64 with O in them first, two 8 KiB staging tiles, lse and
+//   delta), so no second stage fits and a sequence's loads wait for the
+//   last one's stores to be read; every SM reloads at about the same time,
+//   so the L2 prefetch shortens that wait only a little. NK = 208 (174
+//   KiB) has the same design.
+// - Rows a box leaves unwritten (windows of fewer than NK tokens) are
+//   zeroed once; the outputs written over Q, K and V are zeros there
+//   again, so no row meets a NaN. At NK = 208 a 64-key tile's rows past
+//   208 lie in the next buffer: finite, masked, never written.
+
+template <int NK>
+struct ResBwd {
+  static constexpr int kOp = NK * kRowBytes;        // Q, K, V or dO rows
+  static constexpr int kQ = 0, kK = kOp, kV = 2 * kOp, kG = 3 * kOp;
+  static constexpr int kAcc = 4 * kOp;              // dQ's f32 sums; O first
+  static constexpr int kStage = kAcc + NK * 256;    // a dS^T tile a consumer
+  static constexpr int kLse = kStage + 2 * 64 * kRowBytes;  // -lse log2(e)
+  static constexpr int kDelta = kLse + NK * 4;
+  static constexpr int kBar = kDelta + NK * 4;      // full, done
+  static constexpr int kSmem = 1024 + kBar + 16;
+  static constexpr int kThreads = kResProducer ? 384 : 256;
+  static constexpr int kChunks = (NK + 63) / 64;    // query chunks
+  // the width of query chunk c: 64, the last 16 at NK = 208
+  __host__ __device__ static constexpr int width(int c) {
+    return NK - 64 * c < 64 ? NK - 64 * c : 64;
+  }
+};
+static_assert(ResBwd<256>::kSmem <= 232448 && ResBwd<208>::kSmem <= 232448,
+              "one stage fits the block's shared memory");
+
+// named barriers: 1 + w a consumer's own, the prologue's, then one per
+// query chunk and direction of the dQ turns
+constexpr int kBarPro = 3, kBarTurn = 4;
+
+// S (64 x 64) = (acc ? S : 0) + A . B^T from shared memory, A MN-major if
+// TA, B MN-major if TB (the 16-row k-step at +2 atoms / 16 then)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64t(float (&d)[8][4],
+                                              unsigned long long a,
+                                              unsigned long long b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// Four 8 x 8 b16 matrices into shared memory, lane l addressing row l % 8
+// of matrix l / 8, thread t giving row t / 4, columns 2 (t % 4) and + 1 of
+// each (the accumulator layout of a 16 x 16 block, bf16-packed)
+__device__ __forceinline__ void stmatrix_x4(void* p, const unsigned (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// keep the compiler from touching A fragments a wgmma in flight reads
+template <int K>
+__device__ __forceinline__ void wg_hold_a(unsigned (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e])::"memory");
+}
+
+// until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the first W / 8 column groups of a 64-column accumulator, and the first
+// W / 16 k-steps of its A fragments
+template <int W>
+using Cols = float[W / 8][4];
+template <int W>
+using Steps = unsigned[W / 16][4];
+template <int W>
+__device__ __forceinline__ Cols<W>& cols(float (&x)[8][4]) {
+  return *reinterpret_cast<Cols<W>*>(&x[0]);
+}
+template <int W>
+__device__ __forceinline__ Steps<W>& steps(unsigned (&x)[4][4]) {
+  return *reinterpret_cast<Steps<W>*>(&x[0]);
+}
+
+// -lse log2(e) of sequence j (rows >= N: -inf, so that P^T = 0 there)
+// into the stage, by one warp (producer warp 1), once the consumers are
+// through sequence j - 1: each lane's rows are read before the wait. Plain
+// loads: a sequence's lse starts at any 4 bytes, and one TMA box of a 1-D
+// map over lse a sequence stopped the kernel with an illegal instruction
+// on the H100.
+constexpr int kLseArrivals = 32;
+template <int NK>
+__device__ __forceinline__ void load_lse(unsigned char* smem,
+                                         unsigned long long* full,
+                                         unsigned long long* done,
+                                         const SeqWalk& sw, int j,
+                                         const ResTmaArgs& a) {
+  constexpr int kPer = (NK + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const float* src = a.lse + ((size_t)sw.seq * a.H + sw.h) * a.N;
+  float v[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = lane + 32 * i;
+    v[i] = r < a.N ? -src[r] * kLog2e : -CUDART_INF_F;
+  }
+  if (j >= 1) mbar_wait(done, (j - 1) & 1);
+  float* nl = reinterpret_cast<float*>(smem + ResBwd<NK>::kLse);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (lane + 32 * i < NK) nl[lane + 32 * i] = v[i];
+  mbar_arrive(full);
+}
+
+// The producer's walk: loads sequence j once sequence j - 1's outputs are
+// stored and read (one stage).
+template <int NK, bool kWindow>
+struct BwdLoader {
+  using T = ResBwd<NK>;
+  unsigned char* smem;
+  unsigned long long *full, *done;
+  const CUtensorMap *mIn, *mO, *mG, *mD;
+  SeqWalk ld, st;            // the next sequence to load; to store
+  int j;                     // sequences loaded
+  __device__ __forceinline__ BwdLoader(unsigned char* smem_,
+                                       unsigned long long* full_,
+                                       unsigned long long* done_,
+                                       const CUtensorMap* in,
+                                       const CUtensorMap* o,
+                                       const CUtensorMap* g,
+                                       const CUtensorMap* d,
+                                       const ResTmaArgs& a)
+      : smem(smem_), full(full_), done(done_), mIn(in), mO(o), mG(g), mD(d),
+        ld(a), st(a), j(0) {}
+  // dQ, dK, dV of the block's last sequence, once both consumers are
+  // through it
+  __device__ __forceinline__ void store(const ResTmaArgs& a) {
+    const int C = 64 * a.H;
+    mbar_wait(done, (j - 1) & 1);
+    seq_store<kWindow>(mD, smem + T::kQ, st.h * 64, st.seq, a);
+    seq_store<kWindow>(mD, smem + T::kK, C + st.h * 64, st.seq, a);
+    seq_store<kWindow>(mD, smem + T::kV, 2 * C + st.h * 64, st.seq, a);
+    bulk_commit();
+    st.next(a);
+  }
+  __device__ __forceinline__ void step(const ResTmaArgs& a) {
+    const int C = 64 * a.H, col = ld.h * 64;
+    if (j >= 1) {
+      store(a);
+      bulk_wait_read();                // the stores have read the stage
+    }
+    mbar_expect_tx(full, a.tx_bytes);
+    seq_load<kWindow>(mIn, smem + T::kQ, full, col, ld.seq, a);
+    seq_load<kWindow>(mIn, smem + T::kK, full, C + col, ld.seq, a);
+    seq_load<kWindow>(mIn, smem + T::kV, full, 2 * C + col, ld.seq, a);
+    seq_load<kWindow>(mG, smem + T::kG, full, col, ld.seq, a);
+    seq_load<kWindow>(mO, smem + T::kAcc, full, col, ld.seq, a);
+    ld.next(a);
+    ++j;
+    // the next sequence into L2 while this one is computed: its loads
+    // wait for this one's stores, but then read L2
+    if (ld.more(a)) {
+      const int ncol = ld.h * 64;
+      seq_prefetch<kWindow>(mIn, ncol, ld.seq, a);
+      seq_prefetch<kWindow>(mIn, C + ncol, ld.seq, a);
+      seq_prefetch<kWindow>(mIn, 2 * C + ncol, ld.seq, a);
+      seq_prefetch<kWindow>(mG, ncol, ld.seq, a);
+      seq_prefetch<kWindow>(mO, ncol, ld.seq, a);
+    }
+  }
+  __device__ __forceinline__ void drain(const ResTmaArgs& a) {
+    if (j >= 1) store(a);
+    bulk_wait();
+  }
+};
+
+// One key tile kt (keys 64 kt..) of a sequence, by consumer w: every query
+// chunk's five products, the chunks' dQ turns, then dK and dV over the
+// tile's K and V rows.
+template <int NK>
+__device__ __forceinline__ void bwd_key_tile(unsigned char* smem, int w,
+                                             int kt, int n_kt, int N,
+                                             float scale) {
+  using T = ResBwd<NK>;
+  using S = Swz<64>;
+  constexpr unsigned long long kStep = 2 * S::kAtom >> 4;   // 16 rows
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5 & 3) * 16;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  unsigned char* Kt = smem + T::kK + kt * 64 * kRowBytes;
+  unsigned char* Vt = smem + T::kV + kt * 64 * kRowBytes;
+  unsigned char* Dt = smem + T::kStage + w * 64 * kRowBytes;   // dS^T
+  const unsigned long long kd = S::desc(Kt), vd = S::desc(Vt);
+  const unsigned long long sd = S::desc(Dt);
+  const unsigned long long qd = S::desc(smem + T::kQ);
+  const unsigned long long gd = S::desc(smem + T::kG);
+  const float* nl = reinterpret_cast<const float*>(smem + T::kLse);
+  const float* dl = reinterpret_cast<const float*>(smem + T::kDelta);
+  float* acc = reinterpret_cast<float*>(smem + T::kAcc);
+  const bool first = kt == 0, last = kt == n_kt - 1;
+  const bool edge = kt * 64 + 64 > N;            // the tile holds keys >= N
+  float dka[8][4], dva[8][4], st[8][4], dpt[8][4], dqp[8][4];
+  unsigned pa[4][4], da[4][4];
+  zero(dka);
+  zero(dva);
+
+  // S^T and dP^T of chunk c, two groups
+  auto issue_s = [&](auto cc) {
+    constexpr int c = decltype(cc)::value, W = T::width(c);
+    const unsigned long long off = c * 4 * kStep;           // 64 c rows
+    wg_fence();
+    mma_scores<64, W>(cols<W>(st), kd, qd + off);
+    wg_commit();
+    mma_scores<64, W>(cols<W>(dpt), vd, gd + off);
+    wg_commit();
+  };
+  // chunk c's dQ partial (in dqp) into the f32 sums in key-tile order; the
+  // last key tile writes bf16(sum scale) over Q's rows of the chunk
+  auto turn = [&](auto cc) {
+    constexpr int c = decltype(cc)::value, W = T::width(c);
+    if (!first) named_sync(kBarTurn + 2 * c + ((kt - 1) & 1), 256);
+    if (W == 64 || wr == 0) {             // W = 16: warp 0's rows only
+      // the sums in the accumulator's own layout: a thread's four values
+      // of column group n (rows g and g + 8) as one float4, a warp's 32
+      // float4 of one n side by side (conflict-free, 16 bytes a thread)
+      float4* r = reinterpret_cast<float4*>(acc) +
+                  ((c * 4 + wr / 16) * 8) * 32 + (threadIdx.x & 31);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float4 v = make_float4(dqp[n][0], dqp[n][1], dqp[n][2], dqp[n][3]);
+        if (!first) {
+          const float4 o = r[n * 32];
+          v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+        }
+        if (last) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              smem + T::kQ + S::offset(c * 64 + wr + g, n) + c2 * 2) =
+              __floats2bfloat162_rn(v.x * scale, v.y * scale);
+          *reinterpret_cast<__nv_bfloat162*>(
+              smem + T::kQ + S::offset(c * 64 + wr + g + 8, n) + c2 * 2) =
+              __floats2bfloat162_rn(v.z * scale, v.w * scale);
+        } else {
+          r[n * 32] = v;
+        }
+      }
+    }
+    if (!last) {
+      __threadfence_block();
+      named_arrive(kBarTurn + 2 * c + (kt & 1), 256);
+    }
+  };
+  // one chunk: P^T and dS^T under chunk c - 1's products, then that
+  // chunk's dQ turn, the next chunk's S^T and dP^T, and this chunk's dV,
+  // dK and dQ products
+  auto chunk = [&](auto cc) {
+    constexpr int c = decltype(cc)::value, W = T::width(c);
+    const unsigned long long off = c * 4 * kStep;
+    // pending: S^T(c), dP^T(c), and chunk c - 1's two groups
+    if constexpr (c == 0) wg_wait1();
+    else wg_wait<3>();
+    wg_hold(cols<W>(st));
+    if (edge) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (kt * 64 + wr + g + 8 * hf >= N)
+#pragma unroll
+          for (int j = 0; j < W / 8; ++j)
+            st[j][2 * hf] = st[j][2 * hf + 1] = -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(nl + c * 64 + j * 8 +
+                                                        c2);
+      st[j][0] = exp2_approx(fmaf(st[j][0], kLog2e, l.x));
+      st[j][1] = exp2_approx(fmaf(st[j][1], kLog2e, l.y));
+      st[j][2] = exp2_approx(fmaf(st[j][2], kLog2e, l.x));
+      st[j][3] = exp2_approx(fmaf(st[j][3], kLog2e, l.y));
+    }
+    if constexpr (c == 0) wg_wait0();
+    else wg_wait<2>();
+    wg_hold(cols<W>(dpt));
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(dl + c * 64 + j * 8 +
+                                                        c2);
+      dpt[j][0] = st[j][0] * (dpt[j][0] - d.x);
+      dpt[j][1] = st[j][1] * (dpt[j][1] - d.y);
+      dpt[j][2] = st[j][2] * (dpt[j][2] - d.x);
+      dpt[j][3] = st[j][3] * (dpt[j][3] - d.y);
+    }
+    pack_a(cols<W>(dpt), steps<W>(da));                 // bf16(dS^T)
+    if constexpr (c > 0) {
+      // chunk c - 1's products are through: its dQ turn; the staging tile
+      // and the P^T fragments are free
+      wg_wait0();
+      wg_hold(dqp);
+      wg_hold(dka);
+      wg_hold(dva);
+      wg_hold_a(pa);
+      turn(std::integral_constant<int, c - 1>());
+    }
+    pack_a(cols<W>(st), steps<W>(pa));                  // bf16(P^T)
+    if constexpr (c + 1 < T::kChunks)
+      issue_s(std::integral_constant<int, c + 1>());
+    // bf16(dS^T) by stmatrix: per k-step four 8 x 8 matrices, lane l
+    // addressing row l % 8 of matrix l / 8 (rows + 8 for odd matrices,
+    // 16-byte chunk + 1 for matrices 2 and 3)
+    {
+      const int lane = threadIdx.x & 31, m = lane >> 3;
+      unsigned char* row = Dt + (wr + (lane & 7) + 8 * (m & 1)) * kRowBytes;
+#pragma unroll
+      for (int kk = 0; kk < W / 16; ++kk)
+        stmatrix_x4(row + (((2 * kk + (m >> 1)) ^ (lane & 7)) << 4), da[kk]);
+    }
+    fence_async();
+    named_sync(1 + w, 128);             // the whole dS^T tile is written
+    wg_fence();
+    mma_pv<64, W / 16>(dva, steps<W>(pa), gd + off);    // dV += P^T.dO
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk)                 // dK += dS^T.Qs
+      wgmma_ss_n64t<0, 1>(dka, sd + 2 * kk, qd + off + kk * kStep, 1);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)                      // dQ_c = dS.K
+      wgmma_ss_n64t<1, 1>(dqp, sd + kk * kStep, kd + kk * kStep, kk);
+    wg_commit();
+  };
+
+  static_assert(T::kChunks == 4, "four query chunks");
+  issue_s(std::integral_constant<int, 0>());
+  chunk(std::integral_constant<int, 0>());
+  chunk(std::integral_constant<int, 1>());
+  chunk(std::integral_constant<int, 2>());
+  chunk(std::integral_constant<int, 3>());
+  wg_wait0();
+  wg_hold(dqp);
+  wg_hold(dka);
+  wg_hold(dva);
+  wg_hold_a(pa);
+  turn(std::integral_constant<int, 3>());
+  // dK (the scale is in Qs already) and dV over the tile's rows < NK
+  if (kt * 64 + wr < NK) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int o = S::offset(wr + g + 8 * hf, n) + c2 * 2;
+        *reinterpret_cast<__nv_bfloat162*>(Kt + o) =
+            __floats2bfloat162_rn(dka[n][2 * hf], dka[n][2 * hf + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(Vt + o) =
+            __floats2bfloat162_rn(dva[n][2 * hf], dva[n][2 * hf + 1]);
+      }
+  }
+}
+
+// mIn: qkv's map (Q, K, V boxes), mO, mG: out's and dout's, mD: dqkv's
+// (the boxes of mIn); a.lse the forward's lse.
+template <int NK, bool kWindow>
+__global__ void __launch_bounds__(ResBwd<NK>::kThreads, 1)
+res_bwd_tma(const __grid_constant__ CUtensorMap mIn,
+            const __grid_constant__ CUtensorMap mO,
+            const __grid_constant__ CUtensorMap mG,
+            const __grid_constant__ CUtensorMap mD,
+            const __grid_constant__ ResTmaArgs a) {
+  using T = ResBwd<NK>;
+  using S = Swz<64>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1k(smem_raw);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + T::kBar);
+  unsigned long long* done = full + 1;
+  // Q, K, V and dO rows that no box writes (windows of fewer than NK
+  // tokens): zeros
+  for (int i = a.kv_rows * 8 + threadIdx.x; i < NK * 8; i += T::kThreads)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      *reinterpret_cast<uint4*>(smem + b * T::kOp + i * 16) =
+          make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    mbar_init(full, kLseArrivals + 1);   // + the loads' expect_tx
+    mbar_init(done, 256);             // every consumer thread arrives
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async();
+  __syncthreads();
+  BwdLoader<NK, kWindow> loader(smem, full, done, &mIn, &mO, &mG, &mD, a);
+  const int wg = threadIdx.x >> 7;
+  if constexpr (kResProducer) {
+    if (wg == 0) {
+      setmaxnreg_dec<24>();
+      if (threadIdx.x == 0) {
+        while (loader.ld.more(a)) loader.step(a);
+        loader.drain(a);
+      } else if (threadIdx.x >> 5 == 1) {
+        int j = 0;
+        for (SeqWalk sw(a); sw.more(a); sw.next(a), ++j)
+          load_lse<NK>(smem, full, done, sw, j, a);
+      }
+      return;
+    }
+    setmaxnreg_inc<240>();
+  }
+  const int w = kResProducer ? wg - 1 : wg;
+  const int t = threadIdx.x - (kResProducer ? 128 : 0);   // 0..255
+  const bool loads = !kResProducer && threadIdx.x == 0;
+  const int n_kt = (a.N + 63) >> 6;
+  const float qscale = __bfloat162float(__float2bfloat16(a.scale));
+  int j = 0;
+  for (SeqWalk sw(a); sw.more(a); sw.next(a), ++j) {
+    if (loads) loader.step(a);
+    if (!kResProducer && t < 32) load_lse<NK>(smem, full, done, sw, j, a);
+    mbar_wait(full, j & 1);
+    // row t: q scaled in place, delta = rowsum(dO * O) (O where the sums
+    // go; rows >= N: 0)
+    if (t < NK) {
+      float* dl = reinterpret_cast<float*>(smem + T::kDelta);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int o = S::offset(t, c);
+        uint4* q = reinterpret_cast<uint4*>(smem + T::kQ + o);
+        uint4 u = *q;
+        u.x = scale_pair(u.x, qscale);
+        u.y = scale_pair(u.y, qscale);
+        u.z = scale_pair(u.z, qscale);
+        u.w = scale_pair(u.w, qscale);
+        *q = u;
+        sum = dot8(*reinterpret_cast<const uint4*>(smem + T::kAcc + o),
+                   *reinterpret_cast<const uint4*>(smem + T::kG + o), sum);
+      }
+      dl[t] = t < a.N ? sum : 0.f;
+    }
+    fence_async();                      // the scaled Q, before wgmma reads
+    named_sync(kBarPro, 256);           // ... and O is read: the sums start
+    for (int kt = w; kt < n_kt; kt += 2)
+      bwd_key_tile<NK>(smem, w, kt, n_kt, a.N, a.scale);
+    fence_async();                      // the outputs, before TMA reads them
+    mbar_arrive(done);
+  }
+  if (loads) loader.drain(a);
+}
+
 // ------------------------------------------------------ save-P forward
 // #11's forward. grid (ceil(seqs / G), H), 256 threads; block x takes
 // sequences x G .. x G + G - 1 (< seqs) of head blockIdx.y. q, k, v point
@@ -996,99 +1372,9 @@ res_savep_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- dq
-// grid and sequences as res_savep_fwd. q, k, v as there; o (the forward's
-// output), dout at head 0's columns (row stride ld_out); dq (row stride
-// ld_dq). lse and delta (seqs, H, N); delta is written here. K and V of a
-// sequence resident (in one of two buffers when G > 1); a Q and a dO tile
-// per warpgroup.
-template <int NK, class Rows>
-__global__ void __launch_bounds__(kResThreads, 1)
-res_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, int ld_in, const bf16* __restrict__ o,
-           const bf16* __restrict__ dout, int ld_out,
-           const float* __restrict__ lse, float* __restrict__ delta,
-           bf16* __restrict__ dq, int ld_dq, Rows rows, int seqs, int G, int N,
-           float scale) {
-  using S = Swz<64>;
-  constexpr int NR = kResRows<NK>, kTile = NR * kRowBytes;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1k(smem_raw);
-  const int h = blockIdx.y, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  unsigned char* Qs = smem + resident_bytes<NK>(2, G) + wg * 128 * kRowBytes;
-  unsigned char* Gs = Qs + 64 * kRowBytes;           // dO
-  const unsigned long long dqd = S::desc(Qs), dgd = S::desc(Gs);
-  const int n_qt = (N + 63) / 64;
-  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  auto load_kv = [&](int i) {        // K, V of sequence first + i
-    unsigned char* b = smem + (i & 1) * 2 * kTile;
-    const size_t off = rows.base(first + i) * ld_in + h * 64;
-    load_rows<64, NR, kResThreads>(b, k + off, ld_in, rows, 0, N, tid);
-    load_rows<64, NR, kResThreads>(b + kTile, v + off, ld_in, rows, 0, N,
-                                   tid);
-    cp_async_commit();
-  };
-  load_kv(0);
-
-  for (int gi = 0; gi < n_seq; ++gi) {
-    const int seq = first + gi;
-    const size_t base = rows.base(seq);
-    const bf16* qb = q + base * ld_in + h * 64;
-    const bf16* ob = o + base * ld_out + h * 64;
-    const bf16* gb = dout + base * ld_out + h * 64;
-    bf16* dqb = dq + base * ld_dq + h * 64;
-    const size_t stat = ((size_t)seq * H + h) * N;
-    const unsigned char* Ks = smem + (gi & 1) * 2 * kTile;
-    const unsigned long long dkd = S::desc(Ks), dvd = S::desc(Ks + kTile);
-    cp_async_wait<0>();              // this sequence's K and V
-    fence_async();
-    __syncthreads();                 // ... everyone's; the last one is read
-    if (gi + 1 < n_seq) load_kv(gi + 1);
-
-    for (int qt = wg; qt < n_qt; qt += 2) {
-      wg_sync(wg);                   // the staged rows are read back
-      copy_rows<64, 128>(Qs, qb, ld_in, rows, qt * 64, N, wt);
-      copy_rows<64, 128>(Gs, gb, ld_out, rows, qt * 64, N, wt);
-      scale_rows<64, 128>(Qs, wt, qscale);
-      fence_async();
-      wg_sync(wg);
-      // delta = rowsum(dO * O) of rows g and g + 8, and -lse log2(e); rows
-      // >= N get p = 0
-      float dl[2], nl[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = qt * 64 + wr + g + 8 * hf;
-        const float s = row_delta<64>(ob, gb, ld_out, rows, row, N);
-        dl[hf] = s;
-        nl[hf] = row < N ? -lse[stat + row] * kLog2e : -CUDART_INF_F;
-        if (c2 == 0 && row < N) delta[stat + row] = s;
-      }
-
-      float acc[8][4];
-      zero(acc);
-      // chunks of 64 keys, then NK % 64
-#pragma unroll
-      for (int c = 0; c < NK / 64; ++c)
-        if (c * 64 < N)
-          dq_step<64, 64>(acc, dqd, dgd, dkd + c * kChunkDesc,
-                          dvd + c * kChunkDesc, c * 64, N, kLog2e, nl, dl);
-      if constexpr (NK % 64 != 0)
-        if (NK / 64 * 64 < N)
-          dq_step<64, NK % 64>(acc, dqd, dgd, dkd + NK / 64 * kChunkDesc,
-                               dvd + NK / 64 * kChunkDesc, NK / 64 * 64, N,
-                               kLog2e, nl, dl);
-      wg_sync(wg);                   // every wgmma read of Q is done
-      store_rows<64>(Qs + wr * kRowBytes, acc, scale, dqb, ld_dq, rows,
-                     qt * 64 + wr, N);
-    }
-  }
-}
-
-// The save-P dq kernel (#11): K and V resident as in res_bwd_dq; a dO tile
+// ---------------------------------------------------------------- #11's dq
+// grid and sequences as res_savep_fwd. K and V of a sequence resident (in
+// one of two buffers when G > 1); a dO tile
 // and a P row tile (64 x NK of p (seqs, H, N, NK)) per warpgroup; per query
 // tile dP = dO.V^T over all NK keys, P by ldmatrix in the accumulator
 // layout, delta = rowsum(P * dP) (written for the dk/dv kernel), dS = P (dP
@@ -1253,41 +1539,36 @@ __device__ __forceinline__ void savep_dkv_step(
   dkv_tail<64, W>(dka, dva, st, pa, dpt, dl, dq, dg);
 }
 
-// ---------------------------------------------------------------- dk, dv
+// ---------------------------------------------------------- #11's dk, dv
 // grid and sequences as res_savep_fwd, over KEY tiles. Scaled Q and dO of the
-// sequence resident (in one of two buffers when G > 1) with -lse log2(e)
-// and delta of each query; warpgroup wg takes key tiles wg, wg + 2, ..
-// with its own K and V tile. #10 / #12: S^T = K.Qs^T and P^T from lse; #11
-// (kSaveP): no S, no exponent, and k is not read: per query chunk the
-// 64 x 64 tile of p (seqs, H, N, NK) goes to one of two tiles of the
-// warpgroup and P^T comes by ldmatrix .trans, straight in the A layout (P's
-// columns >= N are zeros, as the forward writes them). dk, dv (row stride
-// ld_dkv); delta from the dq kernel.
-template <int NK, bool kSaveP, class Rows>
+// sequence resident (in one of two buffers when G > 1) with delta of each
+// query; warpgroup wg takes key tiles wg, wg + 2, .. with its own V tile.
+// No S, no exponent: per query chunk the 64 x 64 tile of p (seqs, H, N,
+// NK) goes to one of two tiles of the warpgroup and P^T comes by ldmatrix
+// .trans, straight in the A layout (P's columns >= N are zeros, as the
+// forward writes them). dk, dv (row stride ld_dkv); delta from the dq
+// kernel.
+template <int NK, class Rows>
 __global__ void __launch_bounds__(kResThreads, 1)
-res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, int ld_in,
-            const bf16* __restrict__ dout, int ld_out,
-            const float* __restrict__ lse, const bf16* __restrict__ p,
-            const float* __restrict__ delta, bf16* __restrict__ dk,
-            bf16* __restrict__ dv, int ld_dkv, Rows rows, int seqs, int G,
-            int N, float scale) {
+res_savep_dkv(const bf16* __restrict__ q, const bf16* __restrict__ v,
+              int ld_in, const bf16* __restrict__ dout, int ld_out,
+              const bf16* __restrict__ p, const float* __restrict__ delta,
+              bf16* __restrict__ dk, bf16* __restrict__ dv, int ld_dkv,
+              Rows rows, int seqs, int G, int N, float scale) {
   using S = Swz<64>;
   constexpr int NR = kResRows<NK>, kTile = NR * kRowBytes;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1k(smem_raw);
   const int h = blockIdx.y, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
-  const int g = lane >> 2;
   unsigned char* Kt = smem + resident_bytes<NK>(2, G) + wg * 128 * kRowBytes;
   unsigned char* Vt = Kt + 64 * kRowBytes;
-  float* lses = reinterpret_cast<float*>(smem + resident_bytes<NK>(2, G) +
-                                         256 * kRowBytes);
-  float* dls = lses + NR;
+  float* dls = reinterpret_cast<float*>(smem + resident_bytes<NK>(2, G) +
+                                        256 * kRowBytes) + NR;
   unsigned char* Pts = reinterpret_cast<unsigned char*>(dls + NR) +
-                       wg * 2 * kPtBytes;          // two P tiles (kSaveP)
-  const unsigned long long dkt = S::desc(Kt), dvt = S::desc(Vt);
+                       wg * 2 * kPtBytes;          // two P tiles
+  const unsigned long long dvt = S::desc(Vt);
   const int n_kt = (N + 63) / 64;
   const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
   const float qscale = __bfloat162float(__float2bfloat16(scale));
@@ -1305,20 +1586,17 @@ res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int gi = 0; gi < n_seq; ++gi) {
     const int seq = first + gi;
     const size_t base = rows.base(seq);
-    const bf16* kb = k + base * ld_in + h * 64;
     const bf16* vb = v + base * ld_in + h * 64;
     bf16* dkb = dk + base * ld_dkv + h * 64;
     bf16* dvb = dv + base * ld_dkv + h * 64;
     const size_t stat = ((size_t)seq * H + h) * N;
-    const bf16* pb = kSaveP ? p + stat * NK : nullptr;
+    const bf16* pb = p + stat * NK;
     unsigned char* Qs = smem + (gi & 1) * 2 * kTile;
     const unsigned long long dqs = S::desc(Qs), dgs = S::desc(Qs + kTile);
     cp_async_wait<0>();              // this sequence's Q and dO
     __syncthreads();                 // the last sequence's statistics are read
-    for (int i = tid; i < NR; i += kResThreads) {   // masked: i >= N
-      if constexpr (!kSaveP) lses[i] = i < N ? lse[stat + i] : 0.f;
+    for (int i = tid; i < NR; i += kResThreads)     // masked: i >= N
       dls[i] = i < N ? delta[stat + i] : 0.f;
-    }
     scale_rows<NR, kResThreads>(Qs, tid, qscale);
     fence_async();
     __syncthreads();
@@ -1326,12 +1604,9 @@ res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     for (int kt = wg; kt < n_kt; kt += 2) {
       wg_sync(wg);                   // the staged rows are read back
-      if constexpr (!kSaveP)
-        copy_rows<64, 128>(Kt, kb, ld_in, rows, kt * 64, N, wt);
       copy_rows<64, 128>(Vt, vb, ld_in, rows, kt * 64, N, wt);
       fence_async();
       wg_sync(wg);
-      const int key = kt * 64 + wr + g;        // rows key and key + 8
       float dka[8][4], dva[8][4];
       zero(dka);
       zero(dva);
@@ -1339,13 +1614,9 @@ res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
       auto chunk = [&](auto width, int c0) {
         constexpr int W = decltype(width)::value;
         const unsigned long long qoff = (unsigned long long)c0 * 8;  // rows
-        if constexpr (kSaveP)
-          savep_dkv_step<NK, W>(dka, dva, dvt, dqs + qoff, dgs + qoff,
-                                Pts + (c0 / 64 & 1) * kPtBytes, pb, c0, kt,
-                                N, dls + c0);
-        else
-          dkv_step<64, W>(dka, dva, dkt, dvt, dqs + qoff, dgs + qoff, key, N,
-                          c0, N, kLog2e, lses + c0, dls + c0);
+        savep_dkv_step<NK, W>(dka, dva, dvt, dqs + qoff, dgs + qoff,
+                              Pts + (c0 / 64 & 1) * kPtBytes, pb, c0, kt, N,
+                              dls + c0);
       };
 #pragma unroll
       for (int c = 0; c < NK / 64; ++c)
@@ -1367,13 +1638,31 @@ res_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Packed-QKV layouts: qkv (tokens, 3C) with C = 64 H; out and dout (tokens,
 // C); dqkv (tokens, 3C); `seqs` sequences of N <= NK rows placed by `rows`,
 // G of them a block.
+
+// A kernel's shared-memory cap, set on the current device once: `done` is
+// a static of the calling launcher, one per kernel instantiation. The cap
+// is the most any launch of the kernel asks for.
+constexpr int kDevices = 64;
+template <typename Kern>
+cudaError_t allow_smem_once(Kern kernel, size_t bytes,
+                            bool (&done)[kDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kDevices && done[dev])) return err;
+  err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess && dev < kDevices) done[dev] = true;
+  return err;
+}
+
 // #11's forward
 template <int NK, class Rows>
 cudaError_t launch_savep_fwd(const void* qkv, void* out, void* p, Rows rows,
                              int seqs, int N, int H, int G, float scale,
                              void* stream) {
   const size_t smem = res_fwd_smem<NK>(G);
-  cudaError_t err = allow_smem(res_savep_fwd<NK, Rows>, smem);
+  static bool attributed[kDevices] = {};
+  cudaError_t err = allow_smem_once(res_savep_fwd<NK, Rows>,
+                                    res_fwd_smem<NK>(2), attributed);
   if (err != cudaSuccess) return err;
   const int C = 64 * H;
   const bf16* x = (const bf16*)qkv;
@@ -1393,17 +1682,11 @@ cudaError_t run_res_fwd_tma(const CUtensorMap& mKV, const CUtensorMap& mQ,
   a.items = (a.seqs + a.G - 1) / a.G * a.H;
   const int sms = sm_count();
   if (!sms) return cudaErrorNoDevice;
-  // the shared-memory limit, once per instantiation and device
-  static bool attributed[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static bool attributed[kDevices] = {};
+  cudaError_t err =
+      allow_smem_once(res_fwd_tma<NK, kWindow>, T::kSmem, attributed);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !attributed[dev]) {
-    err = allow_smem(res_fwd_tma<NK, kWindow>, T::kSmem);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) attributed[dev] = true;
-  }
-  const int grid = kResPersistent && a.items > sms ? sms : a.items;
+  const int grid = kResPersistent ? min(sms, a.seqs * a.H) : a.items;
   res_fwd_tma<NK, kWindow><<<grid, T::kThreads, T::kSmem,
                              (cudaStream_t)stream>>>(mKV, mQ, mO, a);
   return cudaGetLastError();
@@ -1469,33 +1752,88 @@ inline cudaError_t launch_window_v2_fwd(const void* qkv, void* out,
   return run_res_fwd_tma<256, true>(mKV, mKV, mO, a, stream);
 }
 
-// #10 / #12: dq (and delta), then dk and dv, both from the forward's lse
-template <int NK, class Rows>
-cudaError_t launch_res_bwd(const void* qkv, const void* out, const void* lse,
-                           const void* dout, void* delta, void* dqkv,
-                           Rows rows, int seqs, int N, int H, int G,
-                           float scale, void* stream) {
-  const size_t dq_smem = res_dq_smem<NK>(false, G);
-  const size_t dkv_smem = res_dkv_smem<NK>(false, G);
-  cudaError_t err = allow_smem(res_bwd_dq<NK, Rows>, dq_smem);
+// #10 / #12's backward on its four tensor maps (a's items set here)
+template <int NK, bool kWindow>
+cudaError_t run_res_bwd_tma(const CUtensorMap (&m)[4], ResTmaArgs a,
+                            void* stream) {
+  using T = ResBwd<NK>;
+  a.items = (a.seqs + a.G - 1) / a.G * a.H;
+  const int sms = sm_count();
+  if (!sms) return cudaErrorNoDevice;
+  static bool attributed[kDevices] = {};
+  cudaError_t err =
+      allow_smem_once(res_bwd_tma<NK, kWindow>, T::kSmem, attributed);
   if (err != cudaSuccess) return err;
-  err = allow_smem(res_bwd_dkv<NK, false, Rows>, dkv_smem);
-  if (err != cudaSuccess) return err;
-  const int C = 64 * H;
-  const bf16* x = (const bf16*)qkv;
-  bf16* dx = (bf16*)dqkv;
-  dim3 grid((seqs + G - 1) / G, H);
-  cudaStream_t s = (cudaStream_t)stream;
-  res_bwd_dq<NK, Rows><<<grid, kResThreads, dq_smem, s>>>(
-      x, x + C, x + 2 * C, 3 * C, (const bf16*)out, (const bf16*)dout, C,
-      (const float*)lse, (float*)delta, dx, 3 * C, rows, seqs, G, N, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  res_bwd_dkv<NK, false, Rows><<<grid, kResThreads, dkv_smem, s>>>(
-      x, x + C, x + 2 * C, 3 * C, (const bf16*)dout, C, (const float*)lse,
-      nullptr, (const float*)delta, dx + C, dx + 2 * C, 3 * C, rows, seqs, G,
-      N, scale);
+  const int grid = kResPersistent ? min(sms, a.seqs * a.H) : a.items;
+  res_bwd_tma<NK, kWindow><<<grid, T::kThreads, T::kSmem,
+                             (cudaStream_t)stream>>>(m[0], m[1], m[2], m[3],
+                                                     a);
   return cudaGetLastError();
+}
+
+// #10: qkv, dqkv (B, N, 3C), out, dout (B, N, C), lse (B, H, N); N <= NK
+template <int NK>
+cudaError_t launch_v2_bwd(const void* qkv, const void* out, const void* lse,
+                          const void* dout, void* dqkv, int B, int N, int H,
+                          int G, float scale, void* stream) {
+  const cuuint64_t C = 64 * H;
+  const cuuint64_t din[3] = {3 * C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t sin[2] = {3 * C * 2, N * 3 * C * 2};
+  const cuuint64_t dout_[3] = {C, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t sout[2] = {C * 2, N * C * 2};
+  const cuuint32_t box[3] = {64, NK, 1};
+  CUtensorMap m[4];
+  if (!encode_map(&m[0], qkv, 3, din, sin, box) ||
+      !encode_map(&m[1], out, 3, dout_, sout, box) ||
+      !encode_map(&m[2], dout, 3, dout_, sout, box) ||
+      !encode_map(&m[3], dqkv, 3, din, sin, box))
+    return cudaErrorInvalidValue;
+  ResTmaArgs a{};
+  a.lse = (float*)lse;
+  a.seqs = B;
+  a.G = G;
+  a.H = H;
+  a.N = N;
+  a.kv_rows = NK;
+  a.tx_bytes = 5 * NK * kRowBytes;
+  a.scale = scale;
+  return run_res_bwd_tma<NK, false>(m, a, stream);
+}
+
+// #12: qkv, dqkv (B, GH, GW, 3C), out, dout (B, GH, GW, C), lse (windows,
+// H, ws^2); ws^2 <= 256
+inline cudaError_t launch_window_v2_bwd(const void* qkv, const void* out,
+                                        const void* lse, const void* dout,
+                                        void* dqkv, int B, int GH, int GW,
+                                        int ws, int H, int G, float scale,
+                                        void* stream) {
+  const cuuint64_t C = 64 * H;
+  const cuuint64_t din[4] = {3 * C, (cuuint64_t)GW, (cuuint64_t)GH,
+                             (cuuint64_t)B};
+  const cuuint64_t sin[3] = {3 * C * 2, GW * 3 * C * 2, GH * GW * 3 * C * 2};
+  const cuuint64_t dout_[4] = {C, (cuuint64_t)GW, (cuuint64_t)GH,
+                               (cuuint64_t)B};
+  const cuuint64_t sout[3] = {C * 2, GW * C * 2, GH * GW * C * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)ws, (cuuint32_t)ws, 1};
+  CUtensorMap m[4];
+  if (!encode_map(&m[0], qkv, 4, din, sin, box) ||
+      !encode_map(&m[1], out, 4, dout_, sout, box) ||
+      !encode_map(&m[2], dout, 4, dout_, sout, box) ||
+      !encode_map(&m[3], dqkv, 4, din, sin, box))
+    return cudaErrorInvalidValue;
+  ResTmaArgs a{};
+  a.lse = (float*)lse;
+  a.nh = GH / ws;
+  a.nw = GW / ws;
+  a.ws = ws;
+  a.seqs = B * a.nh * a.nw;
+  a.G = G;
+  a.H = H;
+  a.N = ws * ws;
+  a.kv_rows = ws * ws;
+  a.tx_bytes = 5 * ws * ws * kRowBytes;
+  a.scale = scale;
+  return run_res_bwd_tma<256, true>(m, a, stream);
 }
 
 // #11: dq (and delta = rowsum(P * dP)), then dk and dv, both reading P
@@ -1503,11 +1841,14 @@ template <int NK, class Rows>
 cudaError_t launch_savep_bwd(const void* qkv, const void* p, const void* dout,
                              void* delta, void* dqkv, Rows rows, int seqs,
                              int N, int H, int G, float scale, void* stream) {
-  const size_t dq_smem = res_dq_smem<NK>(true, G);
-  const size_t dkv_smem = res_dkv_smem<NK>(true, G);
-  cudaError_t err = allow_smem(res_savep_dq<NK, Rows>, dq_smem);
+  const size_t dq_smem = res_dq_smem<NK>(G);
+  const size_t dkv_smem = res_dkv_smem<NK>(G);
+  static bool dq_attributed[kDevices] = {}, dkv_attributed[kDevices] = {};
+  cudaError_t err = allow_smem_once(res_savep_dq<NK, Rows>,
+                                    res_dq_smem<NK>(2), dq_attributed);
   if (err != cudaSuccess) return err;
-  err = allow_smem(res_bwd_dkv<NK, true, Rows>, dkv_smem);
+  err = allow_smem_once(res_savep_dkv<NK, Rows>, res_dkv_smem<NK>(2),
+                        dkv_attributed);
   if (err != cudaSuccess) return err;
   const int C = 64 * H;
   const bf16* x = (const bf16*)qkv;
@@ -1519,10 +1860,10 @@ cudaError_t launch_savep_bwd(const void* qkv, const void* p, const void* dout,
       (float*)delta, dx, 3 * C, rows, seqs, G, N, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  res_bwd_dkv<NK, true, Rows><<<grid, kResThreads, dkv_smem, s>>>(
-      x, x + C, x + 2 * C, 3 * C, (const bf16*)dout, C, nullptr,
-      (const bf16*)p, (const float*)delta, dx + C, dx + 2 * C, 3 * C, rows,
-      seqs, G, N, scale);
+  res_savep_dkv<NK, Rows><<<grid, kResThreads, dkv_smem, s>>>(
+      x, x + 2 * C, 3 * C, (const bf16*)dout, C, (const bf16*)p,
+      (const float*)delta, dx + C, dx + 2 * C, 3 * C, rows, seqs, G, N,
+      scale);
   return cudaGetLastError();
 }
 

@@ -9,13 +9,15 @@
 //   Q.K^T, the unnormalised exponent rounded to bf16 for P.V and the
 //   division applied to the (N, Dh) output; the backward recomputes the
 //   softmax. Here: `res_fwd_tma` (the persistent TMA forward, saving each
-//   row's log-sum-exp), then `res_bwd_dq` and `res_bwd_dkv`.
+//   row's log-sum-exp) and `res_bwd_tma` (the persistent TMA backward: dQ,
+//   dK and dV of a sequence in one pass, five products, as `_bwd_kernel_v2`
+//   does in one program).
 // - #11 `_mk_v4` (`_fwd_kernel_v4`, `_bwd_kernel_v4`): "save-P", the forward
 //   also writes the normalised softmax P as bf16, (B, H, N, Nb) here, and
 //   the backward reads it instead of recomputing S and the exponent: delta
 //   = rowsum(P * dP) from the bf16 P, dS = P (dP - delta), dQ, dK, dV. Here:
-//   `res_savep_fwd`, then `res_savep_dq` and `res_bwd_dkv<kSaveP>`, five
-//   products where #10's backward takes seven.
+//   `res_savep_fwd`, then `res_savep_dq` and `res_savep_dkv`, five
+//   products, as #10's backward.
 // The TPU's pad handling (zeroed k / v rows and the analytic l - pad
 // exp(-m)) is not carried over: keys >= N are masked by index. P's rows >= N
 // are never written (the TPU kernel fills them from out-of-bounds q).
@@ -34,8 +36,8 @@
 // built for: 208 or 256 for #10, 208 for #11, the harness's; or a tensor
 // map that could not be made). The Python
 // wrapper checks the shapes, the dtype (bf16), Dh == 64, Nb, 1 <= N <= Nb
-// and G >= 1 before calling. lse and delta are (B, H, N) float32; p is
-// (B, H, N, Nb) bf16.
+// and G >= 1 before calling. lse and #11's delta are (B, H, N) float32; p
+// is (B, H, N, Nb) bf16.
 extern "C" int ssl4gie_attn_v2_fwd(const void* qkv, void* out, void* lse,
                                    int B, int N, int H, int Nb, int G,
                                    float scale, void* stream) {
@@ -48,16 +50,14 @@ extern "C" int ssl4gie_attn_v2_fwd(const void* qkv, void* out, void* lse,
 
 extern "C" int ssl4gie_attn_v2_bwd(const void* qkv, const void* out,
                                    const void* lse, const void* dout,
-                                   void* delta, void* dqkv, int B, int N,
-                                   int H, int Nb, int G, float scale,
-                                   void* stream) {
-  const DenseRows rows{N};
+                                   void* dqkv, int B, int N, int H, int Nb,
+                                   int G, float scale, void* stream) {
   if (Nb == 256)
-    return (int)launch_res_bwd<256>(qkv, out, lse, dout, delta, dqkv, rows,
-                                    B, N, H, G, scale, stream);
+    return (int)launch_v2_bwd<256>(qkv, out, lse, dout, dqkv, B, N, H, G,
+                                   scale, stream);
   if (Nb == 208)
-    return (int)launch_res_bwd<208>(qkv, out, lse, dout, delta, dqkv, rows,
-                                    B, N, H, G, scale, stream);
+    return (int)launch_v2_bwd<208>(qkv, out, lse, dout, dqkv, B, N, H, G,
+                                   scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 // Hopper's asynchronous data movement, shared by the TMA kernels (the GEMM
-// core of gemm_core.cuh and the resident attention forward of
-// attention_resident.cuh): mbarriers, TMA loads and stores of 2- to 4-D
-// boxes with their bulk groups, setmaxnreg, and on the host the tensor maps
-// (cuTensorMapEncodeTiled) and the card's SM count.
+// core of gemm_core.cuh and the resident attention forward and backward of
+// attention_resident.cuh): mbarriers, TMA loads, L2 prefetches and stores
+// of 2- to 4-D boxes with their bulk groups, setmaxnreg, and on the host
+// the tensor maps (cuTensorMapEncodeTiled) and the card's SM count.
 
 #pragma once
 
@@ -88,6 +88,26 @@ __device__ __forceinline__ void tma_load_4d(const CUtensorMap* map, void* dst,
       "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// the 3-D / 4-D box of `map` at (c0, c1, c2[, c3]) into L2 only: a later
+// load of it reads L2 instead of device memory
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map,
+                                                int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\n"
+      ::"l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_prefetch_4d(const CUtensorMap* map,
+                                                int c0, int c1, int c2,
+                                                int c3) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.4d.L2.global.tile "
+      "[%0, {%1, %2, %3, %4}];\n"
+      ::"l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
 // src into the 3-D box of `map` at (c0, c1, c2); elements past a
 // dimension's end are not written
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
@@ -168,9 +188,19 @@ EncodeTiled encode_tiled() {
 // elements in the 128-byte swizzle that wgmma's descriptors read (box[0]
 // is 64: one 128-byte row); elements past a dimension's end read as zeros
 // and are not written.
+// The encoder fails in a thread with no current context: one that has made
+// no runtime call yet, as autograd's worker thread may be when it runs a
+// backward first. Binding the device's primary context once a thread
+// (cudaSetDevice) gives it one.
 bool encode_map(CUtensorMap* map, const void* p, int rank,
                 const cuuint64_t* dims, const cuuint64_t* strides,
                 const cuuint32_t* box) {
+  static thread_local bool bound = false;
+  int dev = 0;
+  if (!bound && (cudaGetDevice(&dev) != cudaSuccess ||
+                 cudaSetDevice(dev) != cudaSuccess))
+    return false;
+  bound = true;
   EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};

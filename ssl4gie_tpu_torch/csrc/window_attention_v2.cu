@@ -7,17 +7,19 @@
 // Replaces the Pallas TPU kernels of benchmarks/bench_window_kernel.py #12
 // `_mk_v2` (`_fwd_kernel_v2`, `_bwd_kernel_v2`): the scale folded into q in
 // bf16, the unnormalised exponent rounded to bf16 for P.V and the division
-// applied to the (N, Dh) output, G windows a program. The windows' rows are
-// found by `WindowRows` as in window_attention.cu, so no window transpose
-// touches device memory; the forward, `res_fwd_tma` on 256-key tiles (16 x
-// 16 windows need no key mask), loads each window as one TMA box of a 4-D
-// map over the grid instead. The backward: `res_bwd_dq` and `res_bwd_dkv`.
+// applied to the (N, Dh) output, G windows a program. Both kernels are the
+// persistent TMA kernels of #10 on 256-key tiles (16 x 16 windows need no
+// key mask): `res_fwd_tma` and `res_bwd_tma` (dQ, dK and dV of a window in
+// one pass, as `_bwd_kernel_v2` in one program). Each moves a window's
+// rows as one TMA box of a 4-D map over the grid, (1, ws, ws, 64), which
+// lands them in window order, so no window transpose touches device
+// memory.
 //
 // What bounds it on the card: at ViT-Det 1024 px (4 images, 64 x 64 grid,
 // 16 windows an image, 12 heads) device memory, by a factor of two to three
-// over the products. Each window's K and V (or Q and dO) are read once per
-// head, where the streaming core of #4 / #5 re-reads them once per 64-row
-// tile (four times a window).
+// over the products. Each window's operands are read once per head, where
+// the streaming core of #4 / #5 re-reads K and V (or Q and dO) once per
+// 64-row tile (four times a window).
 
 #include "attention_resident.cuh"
 
@@ -25,8 +27,8 @@
 // cudaGetLastError() (cudaErrorInvalidValue for a tensor map that could
 // not be made). The Python wrapper checks the shapes, the dtype
 // (bf16), Dh == 64, GH and GW multiples of ws, ws * ws <= 256 and that G
-// divides GW / ws before calling. lse and delta are (B * (GH/ws) * (GW/ws),
-// H, ws*ws) float32.
+// divides GW / ws before calling. lse is (B * (GH/ws) * (GW/ws), H, ws*ws)
+// float32.
 extern "C" int ssl4gie_window_attn_v2_fwd(const void* qkv, void* out,
                                           void* lse, int B, int GH, int GW,
                                           int ws, int H, int G, float scale,
@@ -37,11 +39,9 @@ extern "C" int ssl4gie_window_attn_v2_fwd(const void* qkv, void* out,
 
 extern "C" int ssl4gie_window_attn_v2_bwd(const void* qkv, const void* out,
                                           const void* lse, const void* dout,
-                                          void* delta, void* dqkv, int B,
-                                          int GH, int GW, int ws, int H,
-                                          int G, float scale, void* stream) {
-  const int seqs = B * (GH / ws) * (GW / ws);
-  return (int)launch_res_bwd<256>(qkv, out, lse, dout, delta, dqkv,
-                                  window_rows(GH, GW, ws), seqs, ws * ws, H,
-                                  G, scale, stream);
+                                          void* dqkv, int B, int GH, int GW,
+                                          int ws, int H, int G, float scale,
+                                          void* stream) {
+  return (int)launch_window_v2_bwd(qkv, out, lse, dout, dqkv, B, GH, GW, ws,
+                                   H, G, scale, stream);
 }

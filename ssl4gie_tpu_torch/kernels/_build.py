@@ -54,15 +54,14 @@ SIGNATURES = {
     "ssl4gie_mlp_gemm": (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ssl4gie_mlp_smem": (_I, _I),
     "ssl4gie_attn_v2_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "ssl4gie_attn_v2_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _P),
+    "ssl4gie_attn_v2_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ssl4gie_attn_savep_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ssl4gie_attn_savep_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                _P),
     "ssl4gie_window_attn_v2_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P),
-    "ssl4gie_window_attn_v2_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _F, _P),
+    "ssl4gie_window_attn_v2_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _F, _P),
 }
 # the float32 instances of the attention kernels take what the bf16 ones take
 SIGNATURES.update({

@@ -23,9 +23,11 @@ On a CUDA tensor each wrapper launches its hand-written kernel of
 `csrc/attention_variants.cu` or `csrc/window_attention_v2.cu` (the resident
 core of `csrc/attention_resident.cuh`: bf16, Dh = 64, N <= Nb, Nb in
 {208, 256}, 208 for save-P; anything else raises). The forwards of #10 and
-#12 are one persistent kernel, `res_fwd_tma`: work items of G sequences of
-one head, loaded and stored by TMA from a producer warp, multiplied by two
-`wgmma` warpgroups. On a CPU tensor it runs
+#12 are one persistent kernel, `res_fwd_tma`, and their backwards another,
+`res_bwd_tma` (dQ, dK and dV of a sequence in one pass): each block takes
+every n-th (sequence, head) in an order G sets (G adjacent sequences of one
+head together), loaded and stored by TMA from a producer warpgroup,
+multiplied by two `wgmma` warpgroups. On a CPU tensor it runs
 the plain PyTorch version below: the TPU kernel's arithmetic at its rounding points, in the
 input dtype with float32 sums, which is also what the kernels are checked
 against on the card. The TPU kernels' pad handling (zeroed k and v rows, the
@@ -219,8 +221,8 @@ def _on_cuda(t: torch.Tensor) -> bool:
 def attention_v2_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
                      G: int = 2, block: int = 256):
     """#10's forward: (B, N, 3C) -> (out (B, N, C), lse (B, H, N) f32).
-    Launches `res_fwd_tma` over work items of G images of one head on a
-    CUDA tensor; the plain version on a CPU tensor."""
+    Launches `res_fwd_tma` (G images of one head adjacent in its order) on
+    a CUDA tensor; the plain version on a CPU tensor."""
     if not _on_cuda(qkv):
         return packed_attention_v2_fwd_plain(qkv, num_heads, scale)
     B, N, C = _check_dense(qkv, num_heads, block)
@@ -243,8 +245,9 @@ def attention_v2_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                      dout: torch.Tensor, num_heads: int, scale: float,
                      G: int = 2, block: int = 256) -> torch.Tensor:
     """#10's backward: (qkv, the forward's out and lse, dO) -> dqkv
-    (B, N, 3C). Launches `res_bwd_dq` then `res_bwd_dkv` on CUDA tensors; on
-    CPU tensors the plain backward (which needs neither out nor lse)."""
+    (B, N, 3C). Launches `res_bwd_tma` (G images of one head adjacent in
+    its order) on CUDA tensors; on CPU tensors the plain backward (which
+    needs neither out nor lse)."""
     if not _on_cuda(qkv):
         return packed_attention_v2_bwd_plain(qkv, dout, num_heads, scale)
     B, N, C = _check_dense(qkv, num_heads, block)
@@ -254,12 +257,10 @@ def attention_v2_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     _check_cuda("dout", dout, (B, N, C))
     _check_stats("lse", lse, (B, num_heads, N))
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
     with torch.cuda.device(qkv.device):
         _build.launch("ssl4gie_attn_v2_bwd", qkv.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                      dqkv.data_ptr(), B, N, num_heads, block, G,
-                      float(scale), _stream(qkv))
+                      lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
+                      num_heads, block, G, float(scale), _stream(qkv))
     attention_v2_bwd.launches += 1
     return dqkv
 
@@ -293,7 +294,7 @@ def attention_save_p_bwd(qkv: torch.Tensor, p: torch.Tensor,
                          dout: torch.Tensor, num_heads: int, scale: float,
                          G: int = 2) -> torch.Tensor:
     """#11's backward: (qkv, the forward's P, dO) -> dqkv (B, N, 3C).
-    Launches `res_savep_dq` then `res_bwd_dkv<kSaveP>` on CUDA tensors; the
+    Launches `res_savep_dq` then `res_savep_dkv` on CUDA tensors; the
     plain backward on CPU tensors."""
     if not _on_cuda(qkv):
         return packed_attention_save_p_bwd_plain(qkv, p, dout, num_heads,
@@ -336,8 +337,8 @@ def _check_window(qkv: torch.Tensor, num_heads: int, window: int, G: int):
 def window_v2_fwd(qkv: torch.Tensor, num_heads: int, window: int,
                   scale: float, G: int = 1):
     """#12's forward: (B, GH, GW, 3C) -> (out (B, GH, GW, C), lse f32).
-    Launches `res_fwd_tma` over work items of G adjacent windows of one
-    head on a CUDA tensor; the plain version on a CPU tensor."""
+    Launches `res_fwd_tma` (G adjacent windows of one head adjacent in its
+    order) on a CUDA tensor; the plain version on a CPU tensor."""
     if not _on_cuda(qkv):
         return window_attention_v2_fwd_plain(qkv, num_heads, window, scale)
     B, GH, GW, C = _check_window(qkv, num_heads, window, G)
@@ -359,8 +360,9 @@ def window_v2_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                   dout: torch.Tensor, num_heads: int, window: int,
                   scale: float, G: int = 1) -> torch.Tensor:
     """#12's backward: (qkv, the forward's out and lse, dO (B, GH, GW, C))
-    -> dqkv (B, GH, GW, 3C). Launches `res_bwd_dq` then `res_bwd_dkv` over
-    the windows on CUDA tensors; the plain backward on CPU tensors."""
+    -> dqkv (B, GH, GW, 3C). Launches `res_bwd_tma` (G adjacent windows of
+    one head adjacent in its order) on CUDA tensors; the plain backward on
+    CPU tensors."""
     if not _on_cuda(qkv):
         return window_attention_v2_bwd_plain(qkv, dout, num_heads, window,
                                              scale)
@@ -370,12 +372,11 @@ def window_v2_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     _check_cuda("dout", dout, (B, GH, GW, C))
     _check_stats("lse", lse, _lse_shape(B, GH, GW, num_heads, window))
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
     with torch.cuda.device(qkv.device):
         _build.launch("ssl4gie_window_attn_v2_bwd", qkv.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                      delta.data_ptr(), dqkv.data_ptr(), B, GH, GW, window,
-                      num_heads, int(G), float(scale), _stream(qkv))
+                      dqkv.data_ptr(), B, GH, GW, window, num_heads, int(G),
+                      float(scale), _stream(qkv))
     window_v2_bwd.launches += 1
     return dqkv
 

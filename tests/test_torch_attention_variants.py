@@ -269,6 +269,16 @@ def test_harness_needs_a_card_or_the_cpu_flag():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_backward_ablation_needs_a_card():
+    """`benchmarks/ablate_resident_backward.py` measures only on the card:
+    without one it stops before building anything."""
+    if torch.cuda.is_available():
+        pytest.skip("there is a card")
+    from ssl4gie_tpu_torch.benchmarks import ablate_resident_backward as arb
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        arb.main()
+
+
 @pytest.mark.parametrize("bad", ["dh", "block", "n", "dtype", "window_g"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     """The checks the wrappers make before a launch, on a meta tensor
@@ -416,6 +426,64 @@ def test_forward_repeats_bit_for_bit_on_card(cuda, kind):
     torch.cuda.synchronize()
     for G, ((o1, l1), (o2, l2)) in runs:
         assert torch.equal(o1, o2) and torch.equal(l1, l2), G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["v2", "v3", "window"])
+def test_backward_repeats_bit_for_bit_on_card(cuda, kind):
+    """The fused backward of #10 / #12 twice on the same input, at every G
+    the harnesses use: the same bits (dQ's partials are summed in one fixed
+    order, no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    if kind == "window":
+        x = _rand((4, 64, 64, 3 * C), gen, cuda)
+        dout = _rand((4, 64, 64, C), gen, cuda)
+        out, lse = av.window_v2_fwd(x, H, 16, SCALE)
+        runs = [(G, [av.window_v2_bwd(x, out, lse, dout, H, 16, SCALE, G)
+                     for _ in range(2)]) for G in (1, 2, 4)]
+    else:
+        block = 256 if kind == "v2" else 208
+        x = _rand((64, N, 3 * C), gen, cuda)
+        dout = _rand((64, N, C), gen, cuda)
+        out, lse = av.attention_v2_fwd(x, H, SCALE, 2, block)
+        runs = [(G, [av.attention_v2_bwd(x, out, lse, dout, H, SCALE, G,
+                                         block) for _ in range(2)])
+                for G in (2, 4)]
+    torch.cuda.synchronize()
+    for G, (g1, g2) in runs:
+        assert torch.equal(g1, g2), G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,block", [("v2", 256), ("v2", 208),
+                                        ("window", 256)])
+def test_backward_holds_rows_of_tiny_lse_on_card(cuda, kind, block):
+    """Rows whose scores are all far below zero (lse < -87, where exp(-lse)
+    overflows float32) beside masked keys (N < Nb; 14 x 14 windows): the
+    kernel's gradient is finite and matches the plain version at 2^-6."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    shape = (2, 28, 28, 3 * C) if kind == "window" else (3, N, 3 * C)
+    x = _rand(shape, gen, cuda).float()
+    q, k, v = x.split(C, dim=-1)
+    u = torch.randn((H, DH), generator=gen, device=cuda)
+    # every key of a head near u, the queries of every other row -12.5 u:
+    # scores about -12.5 |u|^2 / 8 = -100
+    k = u.reshape(C) + 0.1 * k
+    q = torch.where(torch.arange(q.shape[-2], device=cuda)[:, None] % 2 == 0,
+                    -12.5 * u.reshape(C) + 0.1 * q, q)
+    x = torch.cat([q, k, v], dim=-1).to(torch.bfloat16)
+    dout = _rand(shape[:-1] + (C,), gen, cuda)
+    if kind == "window":
+        out, lse = av.window_v2_fwd(x, H, 14, SCALE)
+        dq = av.window_v2_bwd(x, out, lse, dout, H, 14, SCALE)
+        dq_p = av.window_attention_v2_bwd_plain(x, dout, H, 14, SCALE)
+    else:
+        out, lse = av.attention_v2_fwd(x, H, SCALE, 2, block)
+        dq = av.attention_v2_bwd(x, out, lse, dout, H, SCALE, 2, block)
+        dq_p = av.packed_attention_v2_bwd_plain(x, dout, H, SCALE)
+    torch.cuda.synchronize()
+    assert lse.min().item() < -87
+    _close("dqkv", dq, dq_p)
 
 
 @pytest.mark.gpu

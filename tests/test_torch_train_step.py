@@ -261,7 +261,8 @@ def test_port_imports_no_jax():
         " 'data.native_loader', 'data.augment', 'data.randaug',"
         " 'data.transfer', 'ssl.lr_decay', 'ssl.probe',"
         " 'convert.torch_names', 'convert.loaders', 'utils', 'cli.convert',"
-        " 'core.mesh', 'parallel.distributed', 'parallel.tp'):\n"
+        " 'core.mesh', 'parallel.distributed', 'parallel.tp',"
+        " 'benchmarks.ablate_resident_backward'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax', 'ssl4gie_tpu')"
         " if m in sys.modules))\n")
