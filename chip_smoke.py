@@ -855,15 +855,15 @@ def entry_name(fn, config) -> str:
 
 
 def resident_ptxas(kernel: str) -> dict:
-    """ptxas's (registers, spill-store bytes) of a persistent kernel of #10
-    and #12, `<kernel><NK, kWindow>`, from the build's log, by (NK,
-    kWindow)."""
+    """ptxas's (registers, spill-store bytes) of a persistent kernel of #10,
+    #11 and #12, `<kernel><NK, kWindow, kSaveP>`, from the build's log, by
+    (NK, kWindow, kSaveP)."""
     log = _build.library_path().with_suffix(".log").read_text()
-    return {(int(m[1]), m[2] == "1"): (int(m[4]), int(m[3]))
+    return {(int(m[1]), m[2] == "1", m[3] == "1"): (int(m[5]), int(m[4]))
             for m in re.finditer(
                 rf"Compiling entry function '\w*{kernel}ILi(\d+)ELb(\d)E"
-                r"\w*'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
-                log, re.S)}
+                r"Lb(\d)E\w*'.*?(\d+) bytes spill stores.*?Used (\d+) "
+                r"registers", log, re.S)}
 
 
 def resident_forward_ptxas() -> dict:
@@ -902,8 +902,12 @@ def variant_kernel_phase(card: str) -> list[dict]:
     fwd_regs, bwd_regs = resident_forward_ptxas(), resident_backward_ptxas()
     ptxas = {av.attention_v2_fwd: ("res_fwd_tma", fwd_regs),
              av.window_v2_fwd: ("res_fwd_tma", fwd_regs),
+             av.attention_save_p_fwd: ("res_fwd_tma", fwd_regs),
              av.attention_v2_bwd: ("res_bwd_tma", bwd_regs),
-             av.window_v2_bwd: ("res_bwd_tma", bwd_regs)}
+             av.window_v2_bwd: ("res_bwd_tma", bwd_regs),
+             av.attention_save_p_bwd: ("res_bwd_tma", bwd_regs)}
+    windows = (av.window_v2_fwd, av.window_v2_bwd)
+    save_p = (av.attention_save_p_fwd, av.attention_save_p_bwd)
 
     def timed(fn):
         """Per call and back to back (the host's launch time hidden)."""
@@ -924,15 +928,17 @@ def variant_kernel_phase(card: str) -> list[dict]:
         ms, b2b = timed(lambda: call(config))
         G, nb = config if isinstance(config, tuple) else (config, None)
         extra = {"G": G, **({"Nb": nb} if nb else {})}
-        regs = ""
-        if fn in ptxas:
-            # the persistent TMA kernels: their registers beside their times
-            instance = (nb or 256, fn in (av.window_v2_fwd, av.window_v2_bwd))
-            kernel, regs_of = ptxas[fn]
-            extra["registers"], extra["spill_bytes"] = regs_of[instance]
-            regs = (f"; {kernel}<{instance[0]}>: {extra['registers']} "
-                    f"registers at launch (the consumers 240 by "
-                    f"setmaxnreg), {extra['spill_bytes']} B spilled")
+        # the persistent TMA kernel and its instance: its registers beside
+        # its times
+        instance = (nb or 256, fn in windows, fn in save_p)
+        kernel, regs_of = ptxas[fn]
+        extra["kernel"] = (f"{kernel}<{instance[0]}"
+                           f"{', window' if instance[1] else ''}"
+                           f"{', save-P' if instance[2] else ''}>")
+        extra["registers"], extra["spill_bytes"] = regs_of[instance]
+        regs = (f"; {extra['kernel']}: {extra['registers']} registers at "
+                f"launch (the consumers 240 by setmaxnreg), "
+                f"{extra['spill_bytes']} B spilled")
         r = result(name, source, replaces, err, ms, plain_ms, lib_ms, *work,
                    b2b_ms=b2b, current_ms=current[0],
                    current_b2b_ms=current[1], **extra)
@@ -4353,15 +4359,13 @@ def main() -> None:
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
             mlp = re.search(r"mlp_gemmILi(\d)ELi(\d+)E", kernel)
-            res = re.search(
-                r"(res_[a-z_]+?)ILi(\d+)E(Lb1E)?.*?(Dense|Window)Rows", kernel)
-            tma = re.search(r"res_fwd_tmaILi(\d+)ELb(\d)E", kernel)
+            tma = re.search(r"(res_[a-z]+_tma)ILi(\d+)ELb(\d)ELb(\d)E",
+                            kernel)
             kernel = (f"mlp_gemm<mode {mlp[1]}, N tile {mlp[2]}>" if mlp
-                      else f"res_fwd_tma<{tma[1]}, "
-                           f"{'windows' if tma[2] == '1' else 'dense'}>"
-                      if tma
-                      else f"{res[1]}<{res[2]}{', save-P' * bool(res[3])}, "
-                           f"{res[4]}Rows>" if res else kernel[:60])
+                      else f"{tma[1]}<{tma[2]}, "
+                           f"{'windows' if tma[3] == '1' else 'dense'}"
+                           f"{', save-P' * (tma[4] == '1')}>"
+                      if tma else kernel[:60])
         elif any(w in line for w in ("registers", "spill", "wgmma",
                                      "setmaxnreg")):
             print(f"  ptxas: {kernel}: {line.strip()}")

@@ -123,8 +123,10 @@ def finish_build(jobs: list, work: Path, kernel: str = "res_fwd_tma",
     for m in re.finditer(rf"Compiling entry function '(\w*{kernel}\w*)'"
                          r".*?(\d+) bytes spill stores.*?Used (\d+) "
                          r"registers", log, re.S):
-        nk, window = re.search(r"ILi(\d+)ELb(\d)E", m.group(1)).groups()
-        kind = f"{'window' if window == '1' else 'dense'} NK {nk}"
+        nk, window, save_p = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E",
+                                       m.group(1)).groups()
+        kind = (f"{'window' if window == '1' else 'dense'} NK {nk}"
+                f"{' save-P' if save_p == '1' else ''}")
         regs.append((kind, int(m.group(3)), int(m.group(2))))
     return fn, lib, sorted(set(regs))
 

@@ -6,26 +6,21 @@
 // The streaming core of attention_core.cuh walks 64-key tiles through a
 // cp.async ring, and each 64-row query block re-reads all of K and V. Here
 // one block holds a whole sequence's operands for one head in shared memory
-// and serves every 64-row tile of that sequence from them, then the next of
-// its G sequences (G adjacent images, or G horizontally adjacent windows):
-// the counterpart of the TPU kernels' G sequences a program.
-// - #10 and #12 run two persistent, warp-specialised kernels: a producer
-//   warpgroup moves every operand in and every output out by TMA
+// and serves every 64-row tile of that sequence from them, then the next
+// sequence of its walk (G adjacent images, or G horizontally adjacent
+// windows, of one head together): the counterpart of the TPU kernels' G
+// sequences a program.
+// - Two persistent, warp-specialised kernels serve all three variants: a
+//   producer warpgroup moves every operand in and every output out by TMA
 //   (csrc/tma.cuh), two consumer warpgroups multiply (setmaxnreg 240).
-//   `res_fwd_tma` (the forward; its comment has the design) and
-//   `res_bwd_tma` (dQ, dK and dV in one pass; its comment has the design).
-// - #11 (`res_savep_fwd`, `res_savep_dq`, `res_savep_dkv`): a block is two
-//   warpgroups (256 threads, __launch_bounds__(256, 1)); its resident
-//   operands come by cp.async, kept twice with G > 1 so that the next
-//   sequence's copies fly while this one is computed; a warpgroup's own
-//   64-row tiles come through registers (copy_rows).
+//   `res_fwd_tma` is the forward and `res_bwd_tma` the backward (dQ, dK and
+//   dV in one pass); their comments have the design, and #11 is their
+//   kSaveP instance.
 // - NK is the width of the resident score tile, 208 or 256 keys (the TPU
-//   kernels' Nb): a 64 x NK product is issued as 64-column wgmma chunks
-//   and, at NK = 208, one 16-column chunk (`res_fwd_tma`: one m64nNKk16
-//   product a k-step), so columns beyond NK cost nothing.
-// - q is scaled, bf16(q * bf16(scale)), the TPU kernels' rounding point
-//   (in shared memory; `res_fwd_tma` in registers), so the scores need no
-//   scale and dK = dS^T.(scaled q) none either.
+//   kernels' Nb): a 64 x NK product is one m64nNKk16 wgmma a k-step, so
+//   columns beyond NK cost nothing.
+// - q is scaled, bf16(q * bf16(scale)), the TPU kernels' rounding point, so
+//   the scores need no scale and dK = dS^T.(scaled q) none either.
 // - Forward: per query tile S = Q.K^T over all NK keys at once (NK / 2
 //   registers a thread) and a single-pass softmax: no running max, no
 //   rescale; keys >= N are -inf.
@@ -37,28 +32,23 @@
 //     >= N are exactly 0). Rows >= N are never written: the TPU kernel
 //     fills them from out-of-bounds q and its backward contracts over them
 //     (ROADMAP.md, "Known faults in the reference itself").
-// - Backward, no atomics, bitwise repeatable:
-//   - #10 / #12 (`res_bwd_tma`): per (64-key tile, query chunk) S^T, dP^T
-//     and, from the forward's lse, P^T, dS^T, then dV, dK and the chunk's
-//     dQ partial: five products and one exponent, as the TPU's v2 kernels
-//     compute dq, dk and dv of a sequence in one program. delta =
-//     rowsum(dO * O), as the port's #2 (the TPU's v2 takes rowsum(P * dP):
-//     equal in exact arithmetic).
-//   - #11 reads P in place of S and the exponent, in two kernels:
-//     `res_savep_dq` takes a whole 64 x NK dP tile and P's 64 rows (through
-//     registers into shared memory, then ldmatrix in the accumulator
-//     layout), delta = rowsum(P * dP) from the bf16 P (the TPU's rounding
-//     point), dS, dQ (two products); `res_savep_dkv` takes 64 x 64 tiles of
-//     P the same way, transposed by ldmatrix .trans into the A layout of
-//     dV = P^T.dO, and runs dP^T, dV and dK (three).
+// - Backward, no atomics, bitwise repeatable: per (64-key tile, query
+//   chunk) dP^T and P^T, then dS^T = P^T (dP^T - delta), dV, dK and the
+//   chunk's dQ partial, the partials summed in key-tile order.
+//   - #10 / #12: P^T from S^T and the forward's lse: five products and one
+//     exponent, as the TPU's v2 kernels compute dq, dk and dv of a sequence
+//     in one program. delta = rowsum(dO * O), as the port's #2 (the TPU's
+//     v2 takes rowsum(P * dP): equal in exact arithmetic).
+//   - #11 reads the saved P in place of S^T and the exponent: four
+//     products, P streamed in 64 x 64 boxes; delta = rowsum(P * dP) from the
+//     bf16 P (the TPU's rounding point), one more product a query tile.
 //
-// Shared memory per block (64-wide bf16 rows of 128 B; NK rows rounded up
-// to 224 at 208 in #11's kernels; "x2" with G > 1): `res_fwd_tma` 2 NK +
-// 256 rows x2 at every G (168 or 192 KiB); `res_bwd_tma` 4 NK rows, 2 NK
-// f32 rows, two 64-row tiles and 8 NK bytes (174 or 211 KiB); the save-P
-// forward 2 NK + 256 rows x2; the save-P dq 2 NK rows x2 + 128 + a 64 x NK
-// P tile per warpgroup, its dk/dv 2 NK rows x2 + 256 + 8 NK bytes of
-// statistics + two 64 x 64 P tiles per warpgroup.
+// Shared memory per block (64-wide bf16 rows of 128 B): `res_fwd_tma` two
+// stages of 2 NK + 256 rows (168 or 192 KiB), and for #11 two 8 KiB P
+// staging tiles a consumer (201 KiB at NK = 208); `res_bwd_tma` 4 NK rows,
+// 2 NK f32 rows, two 64-row tiles and 8 NK bytes (175 or 211 KiB), and
+// for #11 a ring of kPRing 64-row P boxes a consumer in place of lse (222
+// KiB at NK = 208: three slots).
 
 #pragma once
 
@@ -113,104 +103,12 @@ __device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4],
     wgmma_pv(acc, a[kk], b + kk * (2 * Swz<D>::kAtom >> 4));
 }
 
-// ------------------------------------------- #11's backward steps
-// The end of a dk/dv step: with P^T of the warp's keys at W query columns
-// (st in f32, pa its bf16 A fragments) and dP^T = V.dO^T the last wgmma
-// group in flight, dS^T = P^T (dP^T - delta) (the chunk's delta at dl),
-// then dV += bf16(P^T).dO and dK += bf16(dS^T).Q with the chunk's dO and Q
-// rows (at dg, dq) read MN-major.
-template <int D, int W>
-__device__ __forceinline__ void dkv_tail(float (&dka)[D / 8][4],
-                                         float (&dva)[D / 8][4],
-                                         const float (&st)[W / 8][4],
-                                         const unsigned (&pa)[W / 16][4],
-                                         float (&dpt)[W / 8][4],
-                                         const float* dl,
-                                         unsigned long long dq,
-                                         unsigned long long dg) {
-  const int c2 = (threadIdx.x & 3) * 2;
-  wg_wait0();
-  wg_hold(dpt);
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j) {
-    const float2 d = *reinterpret_cast<const float2*>(dl + j * 8 + c2);
-    dpt[j][0] = st[j][0] * (dpt[j][0] - d.x);
-    dpt[j][1] = st[j][1] * (dpt[j][1] - d.y);
-    dpt[j][2] = st[j][2] * (dpt[j][2] - d.x);
-    dpt[j][3] = st[j][3] * (dpt[j][3] - d.y);
-  }
-  unsigned da[W / 16][4];
-  pack_a(dpt, da);                                  // bf16(dS^T)
-  wg_hold(dva);
-  wg_hold(dka);
-  wg_fence();
-  mma_pv<D, W / 16>(dva, pa, dg);
-  mma_pv<D, W / 16>(dka, da, dq);
-  wg_commit();
-  wg_wait0();
-  wg_hold(dva);
-  wg_hold(dka);
-}
-
-constexpr int kResThreads = 256;          // two warpgroups a block
 constexpr int kRowBytes = 128;            // one 64-wide bf16 row
-constexpr unsigned long long kChunkDesc = 64 * kRowBytes >> 4;   // 64 rows
-
-// Rows of a resident buffer of NK rows: whole copies for 256 threads (8
-// 16-byte chunks a row), so 224 at NK = 208; the rows >= N are zeros.
-template <int NK>
-constexpr int kResRows = (NK + 31) / 32 * 32;
-// Rows of the forward's resident Q: whole 64-row query tiles (256)
-template <int NK>
-constexpr int kQRows = (NK + 63) / 64 * 64;
-
-// A 64 x NK product: 64-column chunks, then NK % 64 (16) columns; B's rows
-// 64 c.. are chunk c
-template <int NK>
-__device__ __forceinline__ void mma_wide(float (&d)[NK / 8][4],
-                                         unsigned long long a,
-                                         unsigned long long b) {
-  static_assert(NK % 64 == 0 || NK % 64 == 16, "chunks of 64, then 16");
-#pragma unroll
-  for (int c = 0; c < NK / 64; ++c)
-    mma_scores<64, 64>(*reinterpret_cast<float(*)[8][4]>(&d[8 * c]), a,
-                       b + c * kChunkDesc);
-  if constexpr (NK % 64 != 0)
-    mma_scores<64, 16>(*reinterpret_cast<float(*)[2][4]>(&d[8 * (NK / 64)]),
-                       a, b + (NK / 64) * kChunkDesc);
-}
-
-// barrier of warpgroup wg's 128 threads (barrier 0 is __syncthreads)
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
 
 // order this thread's shared-memory writes (cp.async or plain) before the
 // wgmma reads that follow the next barrier
 __device__ __forceinline__ void fence_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The chunks that thread tid (of T) copied into an R-row tile by load_rows,
-// times s, rounded to bf16: bf16(q * bf16(scale)), the TPU kernels' q. Call
-// after the thread's own cp.async has landed.
-template <int R, int T>
-__device__ __forceinline__ void scale_rows(unsigned char* tile, int tid,
-                                           float s) {
-#pragma unroll
-  for (int i = 0; i < R * 8 / T; ++i) {
-    const int idx = tid + i * T;
-    uint4* p = reinterpret_cast<uint4*>(tile +
-                                        Swz<64>::offset(idx / 8, idx % 8));
-    uint4 u = *p;
-    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(x[e]);
-      x[e] = __floats2bfloat162_rn(f.x * s, f.y * s);
-    }
-    *p = u;
-  }
 }
 
 // The shared array p from its first 1 KiB boundary on, as an offset of p
@@ -222,101 +120,41 @@ __device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// Rows [first, first + R) of a sequence's 64-wide column slice at src (row
-// stride ld) into the swizzled tile at dst, by the T threads tid = 0..T-1,
-// through registers: all loads, then all stores. Unlike load_rows it joins
-// no cp.async group, so it neither waits for nor is waited for by the
-// copies of the next sequence in flight. Rows >= limit become zeros.
-template <int R, int T, class Rows>
-__device__ __forceinline__ void copy_rows(unsigned char* dst, const bf16* src,
-                                          int ld, Rows rows, int first,
-                                          int limit, int tid) {
-  constexpr int kN = R * 8 / T;
-  static_assert(R * 8 % T == 0, "whole copies per thread");
-  uint4 x[kN];
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    const int idx = tid + i * T, r = idx / 8;
-    x[i] = first + r < limit
-               ? *reinterpret_cast<const uint4*>(
-                     src + (size_t)rows.offset(first + r) * ld + idx % 8 * 8)
-               : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    const int idx = tid + i * T;
-    *reinterpret_cast<uint4*>(dst + Swz<64>::offset(idx / 8, idx % 8)) = x[i];
-  }
-}
-
-// A tile of P (bf16, row stride NK elements): rows [r0, r0 + R) from column
-// col0, CH 16-byte chunks a row, by a warpgroup's 128 threads (wt), through
-// registers (`load_p` into x, then `store_p`) into rows of CH * 16 + 16
-// bytes (the 16 bytes of padding put the 8 rows an ldmatrix reads on
-// distinct banks); rows >= N and columns >= NK are zeros.
-template <int R, int CH>
-constexpr int kPCopies = (R * CH + 127) / 128;
-template <int R, int CH>
-__device__ __forceinline__ void load_p(uint4 (&x)[kPCopies<R, CH>],
-                                       const bf16* p, int NK, int r0,
-                                       int col0, int N, int wt) {
-#pragma unroll
-  for (int i = 0; i < kPCopies<R, CH>; ++i) {
-    const int idx = wt + i * 128, r = idx / CH, c = idx % CH;
-    x[i] = idx < R * CH && r0 + r < N && col0 + c * 8 < NK
-               ? *reinterpret_cast<const uint4*>(p + (size_t)(r0 + r) * NK +
-                                                 col0 + c * 8)
-               : make_uint4(0, 0, 0, 0);
-  }
-}
-template <int R, int CH>
-__device__ __forceinline__ void store_p(unsigned char* dst,
-                                        const uint4 (&x)[kPCopies<R, CH>],
-                                        int wt) {
-#pragma unroll
-  for (int i = 0; i < kPCopies<R, CH>; ++i) {
-    const int idx = wt + i * 128;
-    if (idx < R * CH)
-      *reinterpret_cast<uint4*>(dst + idx / CH * (CH * 16 + 16) +
-                                idx % CH * 16) = x[i];
-  }
-}
-
 // bf16 pair -> two floats
 __device__ __forceinline__ float2 unpack_bf16(unsigned u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
-// Shared memory of the kernels. The resident operands of a sequence (the
-// forward's K, V and Q; the dq kernels' K and V; the dk/dv kernel's Q and
-// dO) are kept twice when G > 1, so that the next sequence's cp.async
-// copies fly while this one is computed; then per warpgroup its 64-row
-// tiles, the dk/dv kernel's statistics and the save-P kernels' P tiles (a
-// 64 x NK row tile per warpgroup in dq, two 64 x 64 tiles in dk/dv).
-template <int NK>
-constexpr int kPRowBytes = NK * 2 + 16;
-constexpr int kPtBytes = 64 * (64 * 2 + 16);
-template <int NK>
-__host__ __device__ constexpr size_t resident_bytes(int operands, int G) {
-  return (size_t)(G > 1 ? 2 : 1) * operands * kResRows<NK> * kRowBytes;
-}
-template <int NK>
-size_t res_fwd_smem(int G) {
-  return (size_t)(G > 1 ? 2 : 1) * (2 * kResRows<NK> + kQRows<NK>) *
-             kRowBytes + 1024;
-}
-template <int NK>
-size_t res_dq_smem(int G) {
-  return resident_bytes<NK>(2, G) + 2 * 64 * (kRowBytes + kPRowBytes<NK>) +
-         1024;
-}
-template <int NK>
-size_t res_dkv_smem(int G) {
-  return resident_bytes<NK>(2, G) + 8 * kResRows<NK> + 2 * 128 * kRowBytes +
-         2 * 2 * kPtBytes + 1024;
+// Four 8 x 8 b16 matrices into shared memory, lane l addressing row l % 8
+// of matrix l / 8, thread t giving row t / 4, columns 2 (t % 4) and + 1 of
+// each (the accumulator layout of a 16 x 16 block, bf16-packed)
+__device__ __forceinline__ void stmatrix_x4(void* p, const unsigned (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
-// ------------------------------------------------ forward (#10, #12)
+// The first ks k-steps (16 columns each) of a warpgroup's bf16 A fragments
+// (pack_a's layout, 64 rows) into the 64-row swizzled tile at `tile`, by
+// stmatrix: per k-step four 8 x 8 matrices, lane l addressing row l % 8 of
+// matrix l / 8 (rows + 8 for odd matrices, 16-byte chunk + 1 for matrices 2
+// and 3)
+template <int K>
+__device__ __forceinline__ void stage_a(unsigned char* tile,
+                                        const unsigned (&a)[K][4], int ks) {
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  unsigned char* row = tile + ((threadIdx.x >> 5 & 3) * 16 + (lane & 7) +
+                               8 * (m & 1)) * kRowBytes;
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+    if (kk < ks)
+      stmatrix_x4(row + (((2 * kk + (m >> 1)) ^ (lane & 7)) << 4), a[kk]);
+}
+
+constexpr int kPBox = 64 * kRowBytes;     // a 64 x 64 tile of #11's P
+
+// ------------------------------------------------ forward (#10, #11, #12)
 // `res_fwd_tma`: persistent and warp-specialised. A work item is G
 // sequences of one head: item i is head i % H of sequences (i / H) G ..
 // (i / H) G + G - 1 (< seqs), so G changes only the order of the work. A
@@ -356,6 +194,15 @@ size_t res_dkv_smem(int G) {
 //   block of 288 threads, nine warps, gets 168 registers a thread.)
 // - The consumers' compute, not the copies, sets its time (PERF.md,
 //   section 6).
+// - #11 (kSaveP, dense, NK = 208): P = bf16(e / l) needs the row's whole
+//   sum before its first P.V, so the consumers take the exponent of every
+//   chunk first (in the score registers); then per 64-key chunk bf16(P) is
+//   the A operand of the chunk's O += P.V and goes out, staged by stmatrix
+//   into one of the consumer's two 8 KiB tiles (the 128-byte swizzle) and
+//   stored by one TMA box of a 3-D map over P, (NK, N, seqs H), by the
+//   consumer's first thread (POut). The box clips rows >= N and columns
+//   >= NK, so no thread masks the store, and a tile's store runs under the
+//   next chunk. O needs no division; there is no lse.
 // No atomics: every output is computed once, in one order.
 
 constexpr int kTmaStages = 2;             // whole sequences in flight
@@ -367,17 +214,22 @@ constexpr int kTmaStages = 2;             // whole sequences in flight
 constexpr bool kResProducer = true;
 constexpr bool kResPersistent = true;
 
-template <int NK>
+template <int NK, bool kSaveP = false>
 struct ResTma {
   static constexpr int kKV = NK * kRowBytes;        // K or V of a sequence
   static constexpr int kQ = 256 * kRowBytes;        // Q, then O: four tiles
   static constexpr int kStage = 2 * kKV + kQ;       // 1 KiB multiples
-  static constexpr int kSmem = 1024 + kTmaStages * kStage + 64;
+  static constexpr int kPOut = kTmaStages * kStage; // #11's P tiles
+  static constexpr int kBar = kPOut + (kSaveP ? 4 * kPBox : 0);
+  static constexpr int kSmem = 1024 + kBar + 64;
   static constexpr int kThreads = kResProducer ? 384 : 256;
 };
+static_assert(ResTma<256>::kSmem <= 232448 &&
+                  ResTma<208, true>::kSmem <= 232448,
+              "two stages fit the block's shared memory");
 
 struct ResTmaArgs {
-  float* lse;               // (seqs, H, N)
+  float* lse;               // (seqs, H, N); #11: none
   int seqs, G, H, N;
   int items;                // ceil(seqs / G) H: the grid of a block an item
   int nh, nw, ws;           // windows: per image column and row; width
@@ -569,15 +421,41 @@ __device__ __forceinline__ unsigned scale_pair(unsigned x, float s) {
   return pack_bf16(f.x * s, f.y * s);
 }
 
+// #11's P out of a consumer warpgroup: the 64 x 64 tile of P at (rows
+// row0.., columns 64 c..) of sequence-head `plane`, staged from its A
+// fragments into tile c % 2 of the consumer's two and stored by one TMA
+// box of `map`. The storing thread waits, before the barrier that hands
+// the tile over, until its earlier stores have read theirs, so the tile
+// that the next chunk writes is free.
+struct POut {
+  const CUtensorMap* map;
+  unsigned char* tiles;     // the consumer's two staging tiles
+  int bar, plane;           // the consumer's named barrier; seq H + h
+  bool issuer;              // the consumer's first thread
+  __device__ __forceinline__ void put(const unsigned (&pa)[4][4], int ks,
+                                      int c, int row0) const {
+    unsigned char* tile = tiles + (c & 1) * kPBox;
+    stage_a(tile, pa, ks);
+    fence_async();                      // before TMA reads the tile
+    if (issuer) bulk_wait_read();
+    named_sync(bar, 128);
+    if (issuer) {
+      tma_store_3d(map, tile, 64 * c, row0, plane);
+      bulk_commit();
+    }
+  }
+};
+
 // One 64-row query tile of a sequence (its Q rows at Qt), by a consumer
 // warpgroup: O staged over the tile's Q rows, lse of rows < N stored at
-// lse + row. `first`: consumer 0's first tile (it lets consumer 1 start).
-template <int NK>
+// lse + row (#11: P stored through po). `first`: consumer 0's first tile
+// (it lets consumer 1 start).
+template <int NK, bool kSaveP>
 __device__ __forceinline__ void res_tile(unsigned char* Qt,
                                          unsigned long long dk,
                                          unsigned long long dv, int row0,
                                          int N, float qscale, float* lse,
-                                         bool first) {
+                                         bool first, const POut& po) {
   constexpr int NJ = NK / 8;
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5 & 3) * 16;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -602,7 +480,7 @@ __device__ __forceinline__ void res_tile(unsigned char* Qt,
   // max over all NK keys (keys >= N are -inf), then per 64-key chunk the
   // exponent (an 8-column group wholly past N skips it), its row sums,
   // bf16(P) and the chunk's P.V, which runs under the next chunk's
-  // exponent
+  // exponent (#11: every chunk's exponent first, then P = e / l)
   const bool live = row0 + wr < N;      // the warp holds a row < N
   float mx[2] = {0.f, 0.f}, ms[2] = {0.f, 0.f}, l[2] = {0.f, 0.f};
   if (live) {
@@ -624,12 +502,8 @@ __device__ __forceinline__ void res_tile(unsigned char* Qt,
       ms[hf] = mx[hf] * kLog2e;
     }
   }
-  float acc[8][4];
-  zero(acc);
-  wg_hold(acc);
-#pragma unroll
-  for (int c = 0; c < (NJ + 7) / 8; ++c) {
-    const int j0 = 8 * c, jn = NJ - j0 < 8 ? NJ - j0 : 8;   // NK = 208: 2
+  // the exponent of column groups j0 .. j0 + jn - 1 and its row sums
+  auto exponent = [&](int j0, int jn) {
 #pragma unroll
     for (int j = j0; j < j0 + jn; ++j)
 #pragma unroll
@@ -639,6 +513,36 @@ __device__ __forceinline__ void res_tile(unsigned char* Qt,
                        : 0.f;
         l[e >> 1] += sc[j][e];
       }
+  };
+  // the row sums of the warp's rows, over the four threads of a row
+  auto row_sums = [&](float (&sum)[2]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float s = l[hf] + __shfl_xor_sync(kFull, l[hf], 1);
+      sum[hf] = s + __shfl_xor_sync(kFull, s, 2);
+    }
+  };
+  float sum[2], inv[2];
+  if constexpr (kSaveP) {
+    exponent(0, NJ);
+    row_sums(sum);
+    inv[0] = live ? 1.f / sum[0] : 0.f;
+    inv[1] = live ? 1.f / sum[1] : 0.f;
+  }
+  float acc[8][4];
+  zero(acc);
+  wg_hold(acc);
+#pragma unroll
+  for (int c = 0; c < (NJ + 7) / 8; ++c) {
+    const int j0 = 8 * c, jn = NJ - j0 < 8 ? NJ - j0 : 8;   // NK = 208: 2
+    if constexpr (kSaveP) {
+#pragma unroll
+      for (int j = j0; j < j0 + jn; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];   // P = e / l
+    } else {
+      exponent(j0, jn);
+    }
     if (c > 0) wg_wait0();              // the last chunk's P.V read its P
     unsigned pa[4][4];
 #pragma unroll
@@ -655,42 +559,45 @@ __device__ __forceinline__ void res_tile(unsigned char* Qt,
       wgmma_rs_n64(acc, pa[kk],
                    dv + (4 * c + kk) * (2 * Swz<64>::kAtom >> 4));
     wg_commit();
+    if constexpr (kSaveP) po.put(pa, jn / 2, c, row0);   // under the P.V
   }
   wg_wait0();
   wg_hold(acc);
-  float sum[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const float s = l[hf] + __shfl_xor_sync(kFull, l[hf], 1);
-    sum[hf] = s + __shfl_xor_sync(kFull, s, 2);
+  if constexpr (!kSaveP) {
+    row_sums(sum);
+    inv[0] = live ? 1.f / sum[0] : 0.f;
+    inv[1] = live ? 1.f / sum[1] : 0.f;
+  } else {
+    inv[0] = inv[1] = 1.f;              // P is normalised already
   }
   // O / l over the warp's own Q rows; each row's log-sum-exp
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int row = row0 + wr + g + 8 * hf;
-    if (c2 == 0 && row < N) lse[row] = mx[hf] + logf(sum[hf]);
-    const float inv = live ? 1.f / sum[hf] : 0.f;
+    if (!kSaveP && c2 == 0 && row < N) lse[row] = mx[hf] + logf(sum[hf]);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(
           Qt + Swz<64>::offset(wr + g + 8 * hf, n) + c2 * 2) =
-          __floats2bfloat162_rn(acc[n][2 * hf] * inv,
-                                acc[n][2 * hf + 1] * inv);
+          __floats2bfloat162_rn(acc[n][2 * hf] * inv[hf],
+                                acc[n][2 * hf + 1] * inv[hf]);
   }
 }
 
-// mKV, mQ: qkv's maps (K and V boxes; Q boxes), mO: out's (Q's box shape).
-template <int NK, bool kWindow>
+// mKV, mQ: qkv's maps (K and V boxes; Q boxes), mO: out's (Q's box shape),
+// mP: #11's P (64 x 64 boxes; unused otherwise).
+template <int NK, bool kWindow, bool kSaveP>
 __global__ void __launch_bounds__(ResTma<NK>::kThreads, 1)
 res_fwd_tma(const __grid_constant__ CUtensorMap mKV,
             const __grid_constant__ CUtensorMap mQ,
             const __grid_constant__ CUtensorMap mO,
+            const __grid_constant__ CUtensorMap mP,
             const __grid_constant__ ResTmaArgs a) {
-  using T = ResTma<NK>;
+  using T = ResTma<NK, kSaveP>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1k(smem_raw);
   unsigned long long* full =
-      reinterpret_cast<unsigned long long*>(smem + kTmaStages * T::kStage);
+      reinterpret_cast<unsigned long long*>(smem + T::kBar);
   unsigned long long* done = full + kTmaStages;
   // K and V rows that no box writes (windows of fewer than NK tokens):
   // zeros, so that P = 0 meets no NaN in V
@@ -727,6 +634,8 @@ res_fwd_tma(const __grid_constant__ CUtensorMap mKV,
   const bool loads = !kResProducer && threadIdx.x == 0;
   const int n_qt = (a.N + 63) >> 6;
   const float qscale = __bfloat162float(__float2bfloat16(a.scale));
+  POut po{&mP, smem + T::kPOut + w * 2 * kPBox, 2 + w, 0,
+          (threadIdx.x & 127) == 0};
   if (loads) loader.step(a);            // every block has a sequence
   if (w == 1) named_sync(1, 256);       // behind consumer 0's first S
   int j = 0;
@@ -737,17 +646,20 @@ res_fwd_tma(const __grid_constant__ CUtensorMap mKV,
     mbar_wait(full + s, (j >> 1) & 1);
     const unsigned long long dk = Swz<64>::desc(buf);
     const unsigned long long dv = Swz<64>::desc(buf + T::kKV);
-    float* lse = a.lse + ((size_t)sw.seq * a.H + sw.h) * a.N;
+    po.plane = sw.seq * a.H + sw.h;
+    float* lse = kSaveP ? nullptr : a.lse + (size_t)po.plane * a.N;
     for (int qt = w; qt < n_qt; qt += 2)
-      res_tile<NK>(buf + 2 * T::kKV + qt * 64 * kRowBytes, dk, dv, qt * 64,
-                   a.N, qscale, lse, w == 0 && j == 0 && qt == 0);
+      res_tile<NK, kSaveP>(buf + 2 * T::kKV + qt * 64 * kRowBytes, dk, dv,
+                           qt * 64, a.N, qscale, lse,
+                           w == 0 && j == 0 && qt == 0, po);
     fence_async();                      // the O rows, before TMA reads them
     mbar_arrive(done + s);
   }
   if (loads) loader.drain(a);
+  if (kSaveP && po.issuer) bulk_wait();   // the last P stores
 }
 
-// ------------------------------------------------ backward (#10, #12)
+// ------------------------------------------------ backward (#10, #11, #12)
 // `res_bwd_tma`: dQ, dK and dV of a sequence in one pass, persistent and
 // warp-specialised like res_fwd_tma, on the same walk (SeqWalk), with the
 // forward's lse. Per sequence (one whole-sequence stage in shared memory,
@@ -798,25 +710,53 @@ res_fwd_tma(const __grid_constant__ CUtensorMap mKV,
 //   zeroed once; the outputs written over Q, K and V are zeros there
 //   again, so no row meets a NaN. At NK = 208 a 64-key tile's rows past
 //   208 lie in the next buffer: finite, masked, never written.
+// - #11 (kSaveP, dense, NK = 208) reads the forward's P in place of S^T
+//   and the exponent, and takes no O and no lse:
+//   - The producer thread loads Q, K, V and dO. P streams in 64 x 64 boxes
+//     of a 3-D map over P (NK, N, seqs H) through a ring of kPRing slots a
+//     consumer (PRing), each fed by a thread of producer warp 1 + w
+//     (load_p_ring) in the order the consumer takes them; TMA zero-fills a
+//     box's rows >= N and columns >= NK.
+//   - Per sequence the consumers first take delta = rowsum(P * dP), from
+//     the bf16 P as the TPU kernel, a 64-row query tile at a time
+//     (savep_delta): dP = dO.V^T over all NK keys, one register-A product
+//     as the forward's S, and P of the tile's rows from its boxes by
+//     ldmatrix in dP's accumulator layout.
+//   - Then the key-major loop above with P^T from the box of (chunk c, key
+//     tile), by ldmatrix .trans straight into the A layout of dV += P^T.dO
+//     (registers, as #10's) and, unpacked, dS^T's accumulator layout; the
+//     box goes back to the ring at once. Four products a (key tile,
+//     chunk), no exponent. A step first waits for chunk c - 1's products,
+//     whose P^T registers it reuses: the other consumer's products fill
+//     the tensor cores meanwhile. Keys >= N are masked here (the plain
+//     backward reads P's first N columns only, whatever lies beyond).
+//   - Three P slots a consumer (a two-slot ring, or dV reading P^T from
+//     its box and so holding the slot through chunk c's products, was
+//     6-13% slower; PERF.md, section 6). At NK = 208: 206 KiB with two
+//     slots, 222 KiB with three.
 
-template <int NK>
+constexpr int kPRing = 3;                 // #11's P boxes a consumer
+template <int NK, bool kSaveP = false>
 struct ResBwd {
   static constexpr int kOp = NK * kRowBytes;        // Q, K, V or dO rows
   static constexpr int kQ = 0, kK = kOp, kV = 2 * kOp, kG = 3 * kOp;
   static constexpr int kAcc = 4 * kOp;              // dQ's f32 sums; O first
   static constexpr int kStage = kAcc + NK * 256;    // a dS^T tile a consumer
-  static constexpr int kLse = kStage + 2 * 64 * kRowBytes;  // -lse log2(e)
-  static constexpr int kDelta = kLse + NK * 4;
-  static constexpr int kBar = kDelta + NK * 4;      // full, done
-  static constexpr int kSmem = 1024 + kBar + 16;
-  static constexpr int kThreads = kResProducer ? 384 : 256;
+  static constexpr int kRing = kStage + 2 * 64 * kRowBytes;   // #11's P
+  static constexpr int kLse =                       // -lse log2(e)
+      kRing + (kSaveP ? 2 * kPRing * kPBox : 0);
+  static constexpr int kDelta = kLse + (kSaveP ? 0 : NK * 4);
+  static constexpr int kBar = kDelta + NK * 4;      // full, done; #11: rings
+  static constexpr int kSmem = 1024 + kBar + 16 + (kSaveP ? 32 * kPRing : 0);
+  static constexpr int kThreads = kResProducer || kSaveP ? 384 : 256;
   static constexpr int kChunks = (NK + 63) / 64;    // query chunks
   // the width of query chunk c: 64, the last 16 at NK = 208
   __host__ __device__ static constexpr int width(int c) {
     return NK - 64 * c < 64 ? NK - 64 * c : 64;
   }
 };
-static_assert(ResBwd<256>::kSmem <= 232448 && ResBwd<208>::kSmem <= 232448,
+static_assert(ResBwd<256>::kSmem <= 232448 && ResBwd<208>::kSmem <= 232448 &&
+                  ResBwd<208, true>::kSmem <= 232448,
               "one stage fits the block's shared memory");
 
 // named barriers: 1 + w a consumer's own, the prologue's, then one per
@@ -844,16 +784,6 @@ __device__ __forceinline__ void wgmma_ss_n64t(float (&d)[8][4],
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// Four 8 x 8 b16 matrices into shared memory, lane l addressing row l % 8
-// of matrix l / 8, thread t giving row t / 4, columns 2 (t % 4) and + 1 of
-// each (the accumulator layout of a 16 x 16 block, bf16-packed)
-__device__ __forceinline__ void stmatrix_x4(void* p, const unsigned (&r)[4]) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
-      ::"r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-      : "memory");
 }
 
 // keep the compiler from touching A fragments a wgmma in flight reads
@@ -917,10 +847,10 @@ __device__ __forceinline__ void load_lse(unsigned char* smem,
 }
 
 // The producer's walk: loads sequence j once sequence j - 1's outputs are
-// stored and read (one stage).
-template <int NK, bool kWindow>
+// stored and read (one stage). #11 loads no O.
+template <int NK, bool kWindow, bool kSaveP>
 struct BwdLoader {
-  using T = ResBwd<NK>;
+  using T = ResBwd<NK, kSaveP>;
   unsigned char* smem;
   unsigned long long *full, *done;
   const CUtensorMap *mIn, *mO, *mG, *mD;
@@ -958,12 +888,14 @@ struct BwdLoader {
     seq_load<kWindow>(mIn, smem + T::kK, full, C + col, ld.seq, a);
     seq_load<kWindow>(mIn, smem + T::kV, full, 2 * C + col, ld.seq, a);
     seq_load<kWindow>(mG, smem + T::kG, full, col, ld.seq, a);
-    seq_load<kWindow>(mO, smem + T::kAcc, full, col, ld.seq, a);
+    if constexpr (!kSaveP)
+      seq_load<kWindow>(mO, smem + T::kAcc, full, col, ld.seq, a);
     ld.next(a);
     ++j;
     // the next sequence into L2 while this one is computed: its loads
-    // wait for this one's stores, but then read L2
-    if (ld.more(a)) {
+    // wait for this one's stores, but then read L2 (not #11: its P boxes
+    // stream meanwhile, and the prefetch cost it 10%: PERF.md, section 6)
+    if (!kSaveP && ld.more(a)) {
       const int ncol = ld.h * 64;
       seq_prefetch<kWindow>(mIn, ncol, ld.seq, a);
       seq_prefetch<kWindow>(mIn, C + ncol, ld.seq, a);
@@ -978,14 +910,134 @@ struct BwdLoader {
   }
 };
 
-// One key tile kt (keys 64 kt..) of a sequence, by consumer w: every query
-// chunk's five products, the chunks' dQ turns, then dK and dV over the
-// tile's K and V rows.
+// #11: a consumer's ring of P boxes (kPRing slots of kPBox bytes): box n
+// is taken (once it has landed) and given back (once read), in the order
+// load_p_ring fills them; `empty` counts the consumer's 128 threads.
+struct PRing {
+  unsigned char* slots;
+  unsigned long long *full, *empty;
+  int n;                    // boxes given back
+  __device__ __forceinline__ const unsigned char* take() const {
+    mbar_wait(full + n % kPRing, (n / kPRing) & 1);
+    return slots + n % kPRing * kPBox;
+  }
+  __device__ __forceinline__ void give() {
+    mbar_arrive(empty + n % kPRing);
+    ++n;
+  }
+};
+
+// #11: the P boxes of consumer w, by one thread of the producer warpgroup,
+// in the order the consumer takes them: per sequence its query tiles'
+// boxes of every key chunk (savep_delta), then its key tiles' boxes of
+// every query chunk (bwd_key_tile). A box of rows >= N only is not loaded:
+// its full barrier is arrived at, and the consumer reads it as zeros.
 template <int NK>
+__device__ __forceinline__ void load_p_ring(const CUtensorMap* map,
+                                            const PRing& r, int w,
+                                            const ResTmaArgs& a) {
+  const int n_t = (a.N + 63) >> 6;
+  int n = 0;
+  auto put = [&](int row, int col, int plane) {
+    const int s = n % kPRing;
+    if (n >= kPRing) mbar_wait(r.empty + s, (n / kPRing - 1) & 1);
+    if (row < a.N) {
+      mbar_expect_tx(r.full + s, kPBox);
+      tma_load_3d(map, r.slots + s * kPBox, r.full + s, col, row, plane);
+    } else {
+      mbar_arrive(r.full + s);
+    }
+    ++n;
+  };
+  for (SeqWalk sw(a); sw.more(a); sw.next(a)) {
+    const int plane = sw.seq * a.H + sw.h;
+    for (int qt = w; qt < n_t; qt += 2)
+      for (int kc = 0; kc < n_t; ++kc) put(qt * 64, kc * 64, plane);
+    for (int kt = w; kt < n_t; kt += 2)
+      for (int c = 0; c < ResBwd<NK, true>::kChunks; ++c)
+        put(c * 64, kt * 64, plane);
+  }
+}
+
+// #11: delta = rowsum(P * dP) of query tile qt (rows 64 qt..), by a
+// consumer: dP = dO.V^T over all NK keys (dO by ldmatrix into registers,
+// one register-A product as the forward's S), then P of the tile's rows
+// from its box of every key chunk by ldmatrix, in dP's accumulator layout
+// (lanes 0-15 address rows 0-15 at keys 0-7 of a 16-key step, lanes 16-31
+// the same rows at keys 8-15). Keys >= N are masked: the plain backward
+// reads P's first N columns only. Rows >= N of the tile get delta 0 (the
+// prologue zeroes the rows past the last tile).
+template <int NK>
+__device__ __forceinline__ void savep_delta(unsigned char* smem, int qt,
+                                            int N, PRing& ring) {
+  using T = ResBwd<NK, true>;
+  using S = Swz<64>;
+  constexpr int NJ = NK / 8;
+  const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5 & 3) * 16;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const bool live = qt * 64 + wr < N;   // the warp holds a row < N
+  unsigned ga[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (live)
+      ldmatrix_x4(ga[kk], smem + T::kG + S::offset(qt * 64 + wr + (lane & 15),
+                                                   2 * kk + (lane >> 4)));
+    else
+      ga[kk][0] = ga[kk][1] = ga[kk][2] = ga[kk][3] = 0u;
+  }
+  float dp[NJ][4];
+  const unsigned long long vd = S::desc(smem + T::kV);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_wide(dp, ga[kk], vd + 2 * kk, kk);
+  wg_commit();
+  wg_wait0();
+  wg_hold(dp);
+  float s[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kc = 0; kc < (NK + 63) / 64; ++kc) {
+    if (kc * 64 >= N) break;
+    const unsigned char* b = ring.take();
+    const bool edge = kc * 64 + 64 > N;
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kc * 64 + kk * 16 >= NK) break;
+        unsigned pr[4];
+        ldmatrix_x4(pr, b + S::offset(wr + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 8 * kc + 2 * kk + (e >> 1), hf = e & 1;
+          float2 pf = unpack_bf16(pr[e]);
+          if (edge) {
+            pf.x = j * 8 + c2 < N ? pf.x : 0.f;
+            pf.y = j * 8 + c2 + 1 < N ? pf.y : 0.f;
+          }
+          s[hf] = fmaf(pf.x, dp[j][2 * hf], s[hf]);
+          s[hf] = fmaf(pf.y, dp[j][2 * hf + 1], s[hf]);
+        }
+      }
+    }
+    ring.give();
+  }
+  float* dl = reinterpret_cast<float*>(smem + T::kDelta);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float v = s[hf] + __shfl_xor_sync(kFull, s[hf], 1);
+    v += __shfl_xor_sync(kFull, v, 2);
+    const int row = qt * 64 + wr + g + 8 * hf;
+    if (c2 == 0 && row < NK) dl[row] = row < N ? v : 0.f;
+  }
+}
+
+// One key tile kt (keys 64 kt..) of a sequence, by consumer w: every query
+// chunk's products (#10 / #12 five, #11 four with P^T from `ring`), the
+// chunks' dQ turns, then dK and dV over the tile's K and V rows.
+template <int NK, bool kSaveP>
 __device__ __forceinline__ void bwd_key_tile(unsigned char* smem, int w,
                                              int kt, int n_kt, int N,
-                                             float scale) {
-  using T = ResBwd<NK>;
+                                             float scale, PRing& ring) {
+  using T = ResBwd<NK, kSaveP>;
   using S = Swz<64>;
   constexpr unsigned long long kStep = 2 * S::kAtom >> 4;   // 16 rows
   const int lane = threadIdx.x & 31, wr = (threadIdx.x >> 5 & 3) * 16;
@@ -1007,13 +1059,15 @@ __device__ __forceinline__ void bwd_key_tile(unsigned char* smem, int w,
   zero(dka);
   zero(dva);
 
-  // S^T and dP^T of chunk c, two groups
+  // S^T and dP^T of chunk c, two groups (#11: dP^T, one)
   auto issue_s = [&](auto cc) {
     constexpr int c = decltype(cc)::value, W = T::width(c);
     const unsigned long long off = c * 4 * kStep;           // 64 c rows
     wg_fence();
-    mma_scores<64, W>(cols<W>(st), kd, qd + off);
-    wg_commit();
+    if constexpr (!kSaveP) {
+      mma_scores<64, W>(cols<W>(st), kd, qd + off);
+      wg_commit();
+    }
     mma_scores<64, W>(cols<W>(dpt), vd, gd + off);
     wg_commit();
   };
@@ -1058,29 +1112,62 @@ __device__ __forceinline__ void bwd_key_tile(unsigned char* smem, int w,
   auto chunk = [&](auto cc) {
     constexpr int c = decltype(cc)::value, W = T::width(c);
     const unsigned long long off = c * 4 * kStep;
-    // pending: S^T(c), dP^T(c), and chunk c - 1's two groups
-    if constexpr (c == 0) wg_wait1();
-    else wg_wait<3>();
-    wg_hold(cols<W>(st));
-    if (edge) {
+    if constexpr (kSaveP) {
+      // chunk c - 1's products and dP^T(c) are through (nothing of this
+      // consumer's runs under the few operations to dS^T: the other
+      // consumer's products fill the tensor cores), so the P^T fragments
+      // are free: P^T of the box (queries 64 c.., keys 64 kt..) by
+      // ldmatrix .trans straight in the A layout of dV += P^T.dO and in
+      // dS^T's accumulator layout (lanes 0-7 / 16-23 address queries 0-7 /
+      // 8-15 of a 16-query step at the warp's keys 0-7, lanes 8-15 / 24-31
+      // the same queries at keys 8-15), and the box goes back to the ring
+      // at once. Keys >= N are 0, and so is a box of queries >= N only
+      // (not loaded).
+      wg_wait0();
+      wg_hold_a(pa);
+      const unsigned char* pb = ring.take();
+      const int q = (lane & 7) + (lane >> 4) * 8;
+      const int ch = (wr >> 3) + (lane >> 3 & 1);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        if (kt * 64 + wr + g + 8 * hf >= N)
+      for (int kk = 0; kk < W / 16; ++kk) {
+        if (c * 64 < N)
+          ldmatrix_x4_trans(pa[kk], pb + S::offset(16 * kk + q, ch));
+        else
+          pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
 #pragma unroll
-          for (int j = 0; j < W / 8; ++j)
-            st[j][2 * hf] = st[j][2 * hf + 1] = -CUDART_INF_F;
+        for (int e = 0; e < 4; ++e) {
+          if (edge && kt * 64 + wr + g + 8 * (e & 1) >= N) pa[kk][e] = 0u;
+          const float2 pf = unpack_bf16(pa[kk][e]);
+          st[2 * kk + (e >> 1)][2 * (e & 1)] = pf.x;
+          st[2 * kk + (e >> 1)][2 * (e & 1) + 1] = pf.y;
+        }
+      }
+      ring.give();
+    } else {
+      // pending: S^T(c), dP^T(c), and chunk c - 1's two groups
+      if constexpr (c == 0) wg_wait1();
+      else wg_wait<3>();
+      wg_hold(cols<W>(st));
+      if (edge) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (kt * 64 + wr + g + 8 * hf >= N)
+#pragma unroll
+            for (int j = 0; j < W / 8; ++j)
+              st[j][2 * hf] = st[j][2 * hf + 1] = -CUDART_INF_F;
+      }
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(nl + c * 64 +
+                                                          j * 8 + c2);
+        st[j][0] = exp2_approx(fmaf(st[j][0], kLog2e, l.x));
+        st[j][1] = exp2_approx(fmaf(st[j][1], kLog2e, l.y));
+        st[j][2] = exp2_approx(fmaf(st[j][2], kLog2e, l.x));
+        st[j][3] = exp2_approx(fmaf(st[j][3], kLog2e, l.y));
+      }
+      if constexpr (c == 0) wg_wait0();
+      else wg_wait<2>();
     }
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
-      const float2 l = *reinterpret_cast<const float2*>(nl + c * 64 + j * 8 +
-                                                        c2);
-      st[j][0] = exp2_approx(fmaf(st[j][0], kLog2e, l.x));
-      st[j][1] = exp2_approx(fmaf(st[j][1], kLog2e, l.y));
-      st[j][2] = exp2_approx(fmaf(st[j][2], kLog2e, l.x));
-      st[j][3] = exp2_approx(fmaf(st[j][3], kLog2e, l.y));
-    }
-    if constexpr (c == 0) wg_wait0();
-    else wg_wait<2>();
     wg_hold(cols<W>(dpt));
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
@@ -1102,19 +1189,10 @@ __device__ __forceinline__ void bwd_key_tile(unsigned char* smem, int w,
       wg_hold_a(pa);
       turn(std::integral_constant<int, c - 1>());
     }
-    pack_a(cols<W>(st), steps<W>(pa));                  // bf16(P^T)
+    if constexpr (!kSaveP) pack_a(cols<W>(st), steps<W>(pa));   // bf16(P^T)
     if constexpr (c + 1 < T::kChunks)
       issue_s(std::integral_constant<int, c + 1>());
-    // bf16(dS^T) by stmatrix: per k-step four 8 x 8 matrices, lane l
-    // addressing row l % 8 of matrix l / 8 (rows + 8 for odd matrices,
-    // 16-byte chunk + 1 for matrices 2 and 3)
-    {
-      const int lane = threadIdx.x & 31, m = lane >> 3;
-      unsigned char* row = Dt + (wr + (lane & 7) + 8 * (m & 1)) * kRowBytes;
-#pragma unroll
-      for (int kk = 0; kk < W / 16; ++kk)
-        stmatrix_x4(row + (((2 * kk + (m >> 1)) ^ (lane & 7)) << 4), da[kk]);
-    }
+    stage_a(Dt, da, W / 16);            // bf16(dS^T)
     fence_async();
     named_sync(1 + w, 128);             // the whole dS^T tile is written
     wg_fence();
@@ -1157,21 +1235,25 @@ __device__ __forceinline__ void bwd_key_tile(unsigned char* smem, int w,
 }
 
 // mIn: qkv's map (Q, K, V boxes), mO, mG: out's and dout's, mD: dqkv's
-// (the boxes of mIn); a.lse the forward's lse.
-template <int NK, bool kWindow>
-__global__ void __launch_bounds__(ResBwd<NK>::kThreads, 1)
+// (the boxes of mIn); a.lse the forward's lse. #11 (kSaveP): mO is P's map
+// (64 x 64 boxes), and there is no lse.
+template <int NK, bool kWindow, bool kSaveP>
+__global__ void __launch_bounds__(ResBwd<NK, kSaveP>::kThreads, 1)
 res_bwd_tma(const __grid_constant__ CUtensorMap mIn,
             const __grid_constant__ CUtensorMap mO,
             const __grid_constant__ CUtensorMap mG,
             const __grid_constant__ CUtensorMap mD,
             const __grid_constant__ ResTmaArgs a) {
-  using T = ResBwd<NK>;
+  using T = ResBwd<NK, kSaveP>;
   using S = Swz<64>;
+  constexpr bool kProducer = kResProducer || kSaveP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1k(smem_raw);
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(smem + T::kBar);
   unsigned long long* done = full + 1;
+  unsigned long long* pfull = full + 2;         // #11: the rings' barriers
+  unsigned long long* pempty = pfull + 2 * kPRing;
   // Q, K, V and dO rows that no box writes (windows of fewer than NK
   // tokens): zeros
   for (int i = a.kv_rows * 8 + threadIdx.x; i < NK * 8; i += T::kThreads)
@@ -1180,20 +1262,36 @@ res_bwd_tma(const __grid_constant__ CUtensorMap mIn,
       *reinterpret_cast<uint4*>(smem + b * T::kOp + i * 16) =
           make_uint4(0, 0, 0, 0);
   if (threadIdx.x == 0) {
-    mbar_init(full, kLseArrivals + 1);   // + the loads' expect_tx
+    // + the loads' expect_tx
+    mbar_init(full, kSaveP ? 1 : kLseArrivals + 1);
     mbar_init(done, 256);             // every consumer thread arrives
+    if constexpr (kSaveP)
+      for (int i = 0; i < 2 * kPRing; ++i) {
+        mbar_init(pfull + i, 1);
+        mbar_init(pempty + i, 128);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   fence_async();
   __syncthreads();
-  BwdLoader<NK, kWindow> loader(smem, full, done, &mIn, &mO, &mG, &mD, a);
+  BwdLoader<NK, kWindow, kSaveP> loader(smem, full, done, &mIn, &mO, &mG,
+                                        &mD, a);
+  // #11: consumer c's ring of P boxes
+  auto ring_of = [&](int c) {
+    return PRing{smem + T::kRing + c * kPRing * kPBox, pfull + c * kPRing,
+                 pempty + c * kPRing, 0};
+  };
   const int wg = threadIdx.x >> 7;
-  if constexpr (kResProducer) {
+  if constexpr (kProducer) {
     if (wg == 0) {
       setmaxnreg_dec<24>();
+      const int warp = threadIdx.x >> 5;
       if (threadIdx.x == 0) {
         while (loader.ld.more(a)) loader.step(a);
         loader.drain(a);
+      } else if constexpr (kSaveP) {
+        if ((threadIdx.x & 31) == 0 && warp <= 2)
+          load_p_ring<NK>(&mO, ring_of(warp - 1), warp - 1, a);
       } else if (threadIdx.x >> 5 == 1) {
         int j = 0;
         for (SeqWalk sw(a); sw.more(a); sw.next(a), ++j)
@@ -1203,18 +1301,19 @@ res_bwd_tma(const __grid_constant__ CUtensorMap mIn,
     }
     setmaxnreg_inc<240>();
   }
-  const int w = kResProducer ? wg - 1 : wg;
-  const int t = threadIdx.x - (kResProducer ? 128 : 0);   // 0..255
-  const bool loads = !kResProducer && threadIdx.x == 0;
+  const int w = kProducer ? wg - 1 : wg;
+  const int t = threadIdx.x - (kProducer ? 128 : 0);   // 0..255
+  const bool loads = !kProducer && threadIdx.x == 0;
+  PRing ring = ring_of(w);
   const int n_kt = (a.N + 63) >> 6;
   const float qscale = __bfloat162float(__float2bfloat16(a.scale));
   int j = 0;
   for (SeqWalk sw(a); sw.more(a); sw.next(a), ++j) {
     if (loads) loader.step(a);
-    if (!kResProducer && t < 32) load_lse<NK>(smem, full, done, sw, j, a);
+    if (!kProducer && t < 32) load_lse<NK>(smem, full, done, sw, j, a);
     mbar_wait(full, j & 1);
     // row t: q scaled in place, delta = rowsum(dO * O) (O where the sums
-    // go; rows >= N: 0)
+    // go; rows >= N: 0; #11: savep_delta below)
     if (t < NK) {
       float* dl = reinterpret_cast<float*>(smem + T::kDelta);
       float sum = 0.f;
@@ -1228,416 +1327,30 @@ res_bwd_tma(const __grid_constant__ CUtensorMap mIn,
         u.z = scale_pair(u.z, qscale);
         u.w = scale_pair(u.w, qscale);
         *q = u;
-        sum = dot8(*reinterpret_cast<const uint4*>(smem + T::kAcc + o),
-                   *reinterpret_cast<const uint4*>(smem + T::kG + o), sum);
+        if constexpr (!kSaveP)
+          sum = dot8(*reinterpret_cast<const uint4*>(smem + T::kAcc + o),
+                     *reinterpret_cast<const uint4*>(smem + T::kG + o), sum);
       }
-      dl[t] = t < a.N ? sum : 0.f;
+      if constexpr (!kSaveP) dl[t] = t < a.N ? sum : 0.f;
+      else if (t >= n_kt * 64) dl[t] = 0.f;   // rows savep_delta leaves
     }
+    if constexpr (kSaveP)
+      for (int qt = w; qt < n_kt; qt += 2)
+        savep_delta<NK>(smem, qt, a.N, ring);
     fence_async();                      // the scaled Q, before wgmma reads
     named_sync(kBarPro, 256);           // ... and O is read: the sums start
     for (int kt = w; kt < n_kt; kt += 2)
-      bwd_key_tile<NK>(smem, w, kt, n_kt, a.N, a.scale);
+      bwd_key_tile<NK, kSaveP>(smem, w, kt, n_kt, a.N, a.scale, ring);
     fence_async();                      // the outputs, before TMA reads them
     mbar_arrive(done);
   }
   if (loads) loader.drain(a);
 }
 
-// ------------------------------------------------------ save-P forward
-// #11's forward. grid (ceil(seqs / G), H), 256 threads; block x takes
-// sequences x G .. x G + G - 1 (< seqs) of head blockIdx.y. q, k, v point
-// at head 0's columns of their row slices (row stride ld_in, head h at
-// + 64 h), o at head 0's output columns (row stride ld_out); p (seqs, H, N,
-// NK). A sequence's K, V and Q (NK rows each) come by cp.async into one
-// buffer; with G > 1 there are two, and the next sequence's copies fly
-// while this one is computed.
-template <int NK, class Rows>
-__global__ void __launch_bounds__(kResThreads, 1)
-res_savep_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, int ld_in, bf16* __restrict__ o,
-              int ld_out, bf16* __restrict__ p, Rows rows, int seqs, int G,
-              int N, float scale) {
-  using S = Swz<64>;
-  constexpr int NJ = NK / 8, NR = kResRows<NK>, QR = kQRows<NK>;
-  constexpr int kTile = NR * kRowBytes;            // K or V of a sequence
-  constexpr int kSeq = 2 * kTile + QR * kRowBytes; // K, V and Q
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1k(smem_raw);
-  const int h = blockIdx.y, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2, wr = (warp & 3) * 16;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  const int n_qt = (N + 63) / 64;
-  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  // K, V, Q of sequence first + i into buffer i % 2 (rows >= N: zeros)
-  auto load_seq = [&](int i) {
-    unsigned char* b = smem + (i & 1) * kSeq;
-    const size_t off = rows.base(first + i) * ld_in + h * 64;
-    load_rows<64, NR, kResThreads>(b, k + off, ld_in, rows, 0, N, tid);
-    load_rows<64, NR, kResThreads>(b + kTile, v + off, ld_in, rows, 0, N,
-                                   tid);
-    load_rows<64, QR, kResThreads>(b + 2 * kTile, q + off, ld_in, rows, 0, N,
-                                   tid);
-    cp_async_commit();
-  };
-  load_seq(0);
-
-  for (int gi = 0; gi < n_seq; ++gi) {
-    const int seq = first + gi;
-    bf16* ob = o + rows.base(seq) * ld_out + h * 64;
-    const size_t stat = ((size_t)seq * H + h) * N;
-    unsigned char* Ks = smem + (gi & 1) * kSeq;
-    unsigned char* Qs = Ks + 2 * kTile;
-    cp_async_wait<0>();              // this sequence's copies
-    scale_rows<QR, kResThreads>(Qs, tid, qscale);
-    fence_async();
-    __syncthreads();                 // ... everyone's; the last one is read
-    if (gi + 1 < n_seq) load_seq(gi + 1);
-    const unsigned long long dk = S::desc(Ks), dv = S::desc(Ks + kTile);
-
-    for (int qt = wg; qt < n_qt; qt += 2) {
-      unsigned char* Qt = Qs + qt * 64 * kRowBytes;
-      // S = Qs.K^T over all NK keys
-      float sc[NJ][4];
-      zero(sc);
-      wg_fence();
-      mma_wide<NK>(sc, S::desc(Qt), dk);
-      wg_commit();
-      wg_wait0();
-      wg_hold(sc);
-      if (N < NK) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (j * 8 + c2 + e >= N) sc[j][e] = sc[j][e + 2] = -CUDART_INF_F;
-      }
-      // single-pass softmax of rows g (half 0) and g + 8 (half 1)
-      float sum[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float m = -CUDART_INF_F;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          m = fmaxf(m, fmaxf(sc[j][2 * hf], sc[j][2 * hf + 1]));
-        m = fmaxf(m, __shfl_xor_sync(kFull, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(kFull, m, 2));
-        const float ms = m * kLog2e;
-        float l = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
-            sc[j][e] = exp2_approx(fmaf(sc[j][e], kLog2e, -ms));
-            l += sc[j][e];
-          }
-        l += __shfl_xor_sync(kFull, l, 1);
-        l += __shfl_xor_sync(kFull, l, 2);
-        sum[hf] = l;
-      }
-      const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];
-      unsigned pa[NJ / 2][4];
-      pack_a(sc, pa);
-      // P's rows < N, all NK columns
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = qt * 64 + wr + g + 8 * hf;
-        if (row < N) {
-          bf16* pr = p + (stat + row) * NK + c2;
-#pragma unroll
-          for (int kk = 0; kk < NJ / 2; ++kk) {
-            *reinterpret_cast<unsigned*>(pr + 16 * kk) = pa[kk][hf];
-            *reinterpret_cast<unsigned*>(pr + 16 * kk + 8) = pa[kk][2 + hf];
-          }
-        }
-      }
-      // O = bf16(P).V, all NK keys
-      float acc[8][4];
-      zero(acc);
-      wg_hold(acc);
-      wg_fence();
-      mma_pv<64, NJ / 2>(acc, pa, dv);
-      wg_commit();
-      wg_wait0();
-      wg_hold(acc);
-      wg_sync(wg);                 // every wgmma read of this Q tile is done
-      store_rows<64>(Qt + wr * kRowBytes, acc, 1.f, ob, ld_out, rows,
-                     qt * 64 + wr, N);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- #11's dq
-// grid and sequences as res_savep_fwd. K and V of a sequence resident (in
-// one of two buffers when G > 1); a dO tile
-// and a P row tile (64 x NK of p (seqs, H, N, NK)) per warpgroup; per query
-// tile dP = dO.V^T over all NK keys, P by ldmatrix in the accumulator
-// layout, delta = rowsum(P * dP) (written for the dk/dv kernel), dS = P (dP
-// - delta), dQ = bf16(dS).K.
-template <int NK, class Rows>
-__global__ void __launch_bounds__(kResThreads, 1)
-res_savep_dq(const bf16* __restrict__ k, const bf16* __restrict__ v,
-             int ld_in, const bf16* __restrict__ p,
-             const bf16* __restrict__ dout, int ld_out,
-             float* __restrict__ delta, bf16* __restrict__ dq, int ld_dq,
-             Rows rows, int seqs, int G, int N, float scale) {
-  using S = Swz<64>;
-  constexpr int NJ = NK / 8, NR = kResRows<NK>, kTile = NR * kRowBytes;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1k(smem_raw);
-  const int h = blockIdx.y, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
-  const int g = lane >> 2, c2 = (lane & 3) * 2;
-  unsigned char* Gs = smem + resident_bytes<NK>(2, G) +
-                      wg * 64 * kRowBytes;                      // dO
-  unsigned char* Pt = smem + resident_bytes<NK>(2, G) + 2 * 64 * kRowBytes +
-                      wg * 64 * kPRowBytes<NK>;                 // P rows
-  const unsigned long long dgd = S::desc(Gs);
-  // ldmatrix rows of this lane: lanes 0-15 rows 0-15 of the warp's 16 at
-  // keys 0-7 of a 16-key step, lanes 16-31 the same rows at keys 8-15
-  const unsigned char* pl = Pt + (wr + (lane & 15)) * kPRowBytes<NK> +
-                            (lane >> 4) * 16;
-  const int n_qt = (N + 63) / 64;
-  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
-  auto load_kv = [&](int i) {        // K, V of sequence first + i
-    unsigned char* b = smem + (i & 1) * 2 * kTile;
-    const size_t off = rows.base(first + i) * ld_in + h * 64;
-    load_rows<64, NR, kResThreads>(b, k + off, ld_in, rows, 0, N, tid);
-    load_rows<64, NR, kResThreads>(b + kTile, v + off, ld_in, rows, 0, N,
-                                   tid);
-    cp_async_commit();
-  };
-  load_kv(0);
-
-  for (int gi = 0; gi < n_seq; ++gi) {
-    const int seq = first + gi;
-    const size_t base = rows.base(seq);
-    const bf16* gb = dout + base * ld_out + h * 64;
-    bf16* dqb = dq + base * ld_dq + h * 64;
-    const size_t stat = ((size_t)seq * H + h) * N;
-    const unsigned char* Ks = smem + (gi & 1) * 2 * kTile;
-    const unsigned long long dkd = S::desc(Ks), dvd = S::desc(Ks + kTile);
-    cp_async_wait<0>();              // this sequence's K and V
-    fence_async();
-    __syncthreads();                 // ... everyone's; the last one is read
-    if (gi + 1 < n_seq) load_kv(gi + 1);
-
-    for (int qt = wg; qt < n_qt; qt += 2) {
-      wg_sync(wg);                   // the staged rows are read back
-      {
-        uint4 x[kPCopies<64, NK / 8>];
-        load_p<64, NK / 8>(x, p + stat * NK, NK, qt * 64, 0, N, wt);
-        copy_rows<64, 128>(Gs, gb, ld_out, rows, qt * 64, N, wt);
-        store_p<64, NK / 8>(Pt, x, wt);
-      }
-      fence_async();
-      wg_sync(wg);
-      float dp[NJ][4];
-      zero(dp);
-      wg_fence();
-      mma_wide<NK>(dp, dgd, dvd);
-      wg_commit();
-      wg_wait0();
-      wg_hold(dp);
-      // P of rows g and g + 8 in the accumulator layout, 16 keys a step
-      // (a[0], a[1]: rows g, g + 8 at keys c2..; a[2], a[3] at keys 8 + c2..;
-      // rows >= N are zeros): delta = rowsum(P * dP), then dS
-      float s[2] = {0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < NJ / 2; ++kk) {
-        unsigned a[4];
-        ldmatrix_x4(a, pl + kk * 32);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 pf = unpack_bf16(a[e]);
-          const int j = 2 * kk + (e >> 1), hf = e & 1;
-          s[hf] = fmaf(pf.x, dp[j][2 * hf], s[hf]);
-          s[hf] = fmaf(pf.y, dp[j][2 * hf + 1], s[hf]);
-        }
-      }
-      float dl[2];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        dl[hf] = s[hf] + __shfl_xor_sync(kFull, s[hf], 1);
-        dl[hf] += __shfl_xor_sync(kFull, dl[hf], 2);
-        const int row = qt * 64 + wr + g + 8 * hf;
-        if (c2 == 0 && row < N) delta[stat + row] = dl[hf];
-      }
-#pragma unroll
-      for (int kk = 0; kk < NJ / 2; ++kk) {
-        unsigned a[4];
-        ldmatrix_x4(a, pl + kk * 32);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 pf = unpack_bf16(a[e]);
-          const int j = 2 * kk + (e >> 1), hf = e & 1;
-          dp[j][2 * hf] = pf.x * (dp[j][2 * hf] - dl[hf]);
-          dp[j][2 * hf + 1] = pf.y * (dp[j][2 * hf + 1] - dl[hf]);
-        }
-      }
-      unsigned da[NJ / 2][4];
-      pack_a(dp, da);
-      float acc[8][4];
-      zero(acc);
-      wg_hold(acc);
-      wg_fence();
-      mma_pv<64, NJ / 2>(acc, da, dkd);
-      wg_commit();
-      wg_wait0();
-      wg_hold(acc);
-      wg_sync(wg);                   // every wgmma read of dO is done
-      store_rows<64>(Gs + wr * kRowBytes, acc, scale, dqb, ld_dq, rows,
-                     qt * 64 + wr, N);
-    }
-  }
-}
-
-// The save-P dk/dv step (#11): W queries from query c0 at the 64-key tile
-// kt, with P's tile (queries c0.., keys 64 kt..; pb: this sequence and
-// head's P, row stride NK) in place of S^T and the exponent. dP^T = V.dO^T
-// is issued, the P tile goes through registers to pt, P^T comes by
-// ldmatrix .trans straight in the A layout (lanes 0-7 / 16-23 address
-// queries 0-7 / 8-15 of a 16-query step at the warp's keys 0-7, lanes
-// 8-15 / 24-31 the same at keys 8-15), then dkv_tail. P's columns >= N
-// are zeros, as the forward writes them.
-template <int NK, int W>
-__device__ __forceinline__ void savep_dkv_step(
-    float (&dka)[8][4], float (&dva)[8][4], unsigned long long dv,
-    unsigned long long dq, unsigned long long dg, unsigned char* pt,
-    const bf16* pb, int c0, int kt, int N, const float* dl) {
-  constexpr int kPt = 64 * 2 + 16;                 // a P tile's row bytes
-  const int tid = threadIdx.x, lane = tid & 31, wt = tid & 127;
-  const int wr = (tid >> 5 & 3) * 16;
-  float st[W / 8][4], dpt[W / 8][4];
-  unsigned pa[W / 16][4];
-  zero(dpt);
-  uint4 px[kPCopies<W, 8>];
-  load_p<W, 8>(px, pb, NK, c0, kt * 64, N, wt);
-  wg_fence();
-  mma_scores<64, W>(dpt, dv, dg);
-  wg_commit();
-  store_p<W, 8>(pt, px, wt);
-  wg_sync(tid >> 7);
-  const unsigned char* pl = pt + ((lane & 7) + (lane >> 4) * 8) * kPt +
-                            (wr + (lane >> 3 & 1) * 8) * 2;
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) {
-    ldmatrix_x4_trans(pa[kk], pl + kk * 16 * kPt);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 pf = unpack_bf16(pa[kk][e]);
-      st[2 * kk + (e >> 1)][2 * (e & 1)] = pf.x;
-      st[2 * kk + (e >> 1)][2 * (e & 1) + 1] = pf.y;
-    }
-  }
-  dkv_tail<64, W>(dka, dva, st, pa, dpt, dl, dq, dg);
-}
-
-// ---------------------------------------------------------- #11's dk, dv
-// grid and sequences as res_savep_fwd, over KEY tiles. Scaled Q and dO of the
-// sequence resident (in one of two buffers when G > 1) with delta of each
-// query; warpgroup wg takes key tiles wg, wg + 2, .. with its own V tile.
-// No S, no exponent: per query chunk the 64 x 64 tile of p (seqs, H, N,
-// NK) goes to one of two tiles of the warpgroup and P^T comes by ldmatrix
-// .trans, straight in the A layout (P's columns >= N are zeros, as the
-// forward writes them). dk, dv (row stride ld_dkv); delta from the dq
-// kernel.
-template <int NK, class Rows>
-__global__ void __launch_bounds__(kResThreads, 1)
-res_savep_dkv(const bf16* __restrict__ q, const bf16* __restrict__ v,
-              int ld_in, const bf16* __restrict__ dout, int ld_out,
-              const bf16* __restrict__ p, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int ld_dkv,
-              Rows rows, int seqs, int G, int N, float scale) {
-  using S = Swz<64>;
-  constexpr int NR = kResRows<NK>, kTile = NR * kRowBytes;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align1k(smem_raw);
-  const int h = blockIdx.y, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wg = warp >> 2, wr = (warp & 3) * 16, wt = tid & 127;
-  unsigned char* Kt = smem + resident_bytes<NK>(2, G) + wg * 128 * kRowBytes;
-  unsigned char* Vt = Kt + 64 * kRowBytes;
-  float* dls = reinterpret_cast<float*>(smem + resident_bytes<NK>(2, G) +
-                                        256 * kRowBytes) + NR;
-  unsigned char* Pts = reinterpret_cast<unsigned char*>(dls + NR) +
-                       wg * 2 * kPtBytes;          // two P tiles
-  const unsigned long long dvt = S::desc(Vt);
-  const int n_kt = (N + 63) / 64;
-  const int first = blockIdx.x * G, n_seq = min(G, seqs - first);
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  auto load_qg = [&](int i) {        // Q, dO of sequence first + i
-    unsigned char* b = smem + (i & 1) * 2 * kTile;
-    const size_t base = rows.base(first + i);
-    load_rows<64, NR, kResThreads>(b, q + base * ld_in + h * 64, ld_in, rows,
-                                   0, N, tid);
-    load_rows<64, NR, kResThreads>(b + kTile, dout + base * ld_out + h * 64,
-                                   ld_out, rows, 0, N, tid);
-    cp_async_commit();
-  };
-  load_qg(0);
-
-  for (int gi = 0; gi < n_seq; ++gi) {
-    const int seq = first + gi;
-    const size_t base = rows.base(seq);
-    const bf16* vb = v + base * ld_in + h * 64;
-    bf16* dkb = dk + base * ld_dkv + h * 64;
-    bf16* dvb = dv + base * ld_dkv + h * 64;
-    const size_t stat = ((size_t)seq * H + h) * N;
-    const bf16* pb = p + stat * NK;
-    unsigned char* Qs = smem + (gi & 1) * 2 * kTile;
-    const unsigned long long dqs = S::desc(Qs), dgs = S::desc(Qs + kTile);
-    cp_async_wait<0>();              // this sequence's Q and dO
-    __syncthreads();                 // the last sequence's statistics are read
-    for (int i = tid; i < NR; i += kResThreads)     // masked: i >= N
-      dls[i] = i < N ? delta[stat + i] : 0.f;
-    scale_rows<NR, kResThreads>(Qs, tid, qscale);
-    fence_async();
-    __syncthreads();
-    if (gi + 1 < n_seq) load_qg(gi + 1);
-
-    for (int kt = wg; kt < n_kt; kt += 2) {
-      wg_sync(wg);                   // the staged rows are read back
-      copy_rows<64, 128>(Vt, vb, ld_in, rows, kt * 64, N, wt);
-      fence_async();
-      wg_sync(wg);
-      float dka[8][4], dva[8][4];
-      zero(dka);
-      zero(dva);
-      // chunks of 64 queries, then NK % 64
-      auto chunk = [&](auto width, int c0) {
-        constexpr int W = decltype(width)::value;
-        const unsigned long long qoff = (unsigned long long)c0 * 8;  // rows
-        savep_dkv_step<NK, W>(dka, dva, dvt, dqs + qoff, dgs + qoff,
-                              Pts + (c0 / 64 & 1) * kPtBytes, pb, c0, kt, N,
-                              dls + c0);
-      };
-#pragma unroll
-      for (int c = 0; c < NK / 64; ++c)
-        if (c * 64 < N) chunk(std::integral_constant<int, 64>(), c * 64);
-      if constexpr (NK % 64 != 0)
-        if (NK / 64 * 64 < N)
-          chunk(std::integral_constant<int, NK % 64>(), NK / 64 * 64);
-      wg_sync(wg);                   // every wgmma read of K and V is done
-      // keys < N; the scale is in Qs already
-      store_rows<64>(Kt + wr * kRowBytes, dka, 1.f, dkb, ld_dkv, rows,
-                     kt * 64 + wr, N);
-      store_rows<64>(Vt + wr * kRowBytes, dva, 1.f, dvb, ld_dkv, rows,
-                     kt * 64 + wr, N);
-    }
-  }
-}
-
 // ---------------------------------------------------------------- launch
-// Packed-QKV layouts: qkv (tokens, 3C) with C = 64 H; out and dout (tokens,
-// C); dqkv (tokens, 3C); `seqs` sequences of N <= NK rows placed by `rows`,
-// G of them a block.
+// Packed-QKV layouts: qkv (B, N, 3C) with C = 64 H, or its (B, GH, GW, 3C)
+// grid; out and dout (..., C); dqkv as qkv; #11's P (B, H, N, NK). Every
+// kernel walks its sequences round-robin, G of one head adjacent.
 
 // A kernel's shared-memory cap, set on the current device once: `done` is
 // a static of the calling launcher, one per kernel instantiation. The cap
@@ -1654,61 +1367,58 @@ cudaError_t allow_smem_once(Kern kernel, size_t bytes,
   return err;
 }
 
-// #11's forward
-template <int NK, class Rows>
-cudaError_t launch_savep_fwd(const void* qkv, void* out, void* p, Rows rows,
-                             int seqs, int N, int H, int G, float scale,
-                             void* stream) {
-  const size_t smem = res_fwd_smem<NK>(G);
-  static bool attributed[kDevices] = {};
-  cudaError_t err = allow_smem_once(res_savep_fwd<NK, Rows>,
-                                    res_fwd_smem<NK>(2), attributed);
-  if (err != cudaSuccess) return err;
-  const int C = 64 * H;
-  const bf16* x = (const bf16*)qkv;
-  dim3 grid((seqs + G - 1) / G, H);
-  res_savep_fwd<NK, Rows><<<grid, kResThreads, smem, (cudaStream_t)stream>>>(
-      x, x + C, x + 2 * C, 3 * C, (bf16*)out, C, (bf16*)p, rows, seqs, G, N,
-      scale);
-  return cudaGetLastError();
-}
-
-// #10 / #12's forward on its three tensor maps (a's items set here)
-template <int NK, bool kWindow>
+// The forward on its tensor maps (a's items set here)
+template <int NK, bool kWindow, bool kSaveP = false>
 cudaError_t run_res_fwd_tma(const CUtensorMap& mKV, const CUtensorMap& mQ,
-                            const CUtensorMap& mO, ResTmaArgs a,
-                            void* stream) {
-  using T = ResTma<NK>;
+                            const CUtensorMap& mO, const CUtensorMap& mP,
+                            ResTmaArgs a, void* stream) {
+  using T = ResTma<NK, kSaveP>;
   a.items = (a.seqs + a.G - 1) / a.G * a.H;
   const int sms = sm_count();
   if (!sms) return cudaErrorNoDevice;
   static bool attributed[kDevices] = {};
-  cudaError_t err =
-      allow_smem_once(res_fwd_tma<NK, kWindow>, T::kSmem, attributed);
+  cudaError_t err = allow_smem_once(res_fwd_tma<NK, kWindow, kSaveP>,
+                                    T::kSmem, attributed);
   if (err != cudaSuccess) return err;
   const int grid = kResPersistent ? min(sms, a.seqs * a.H) : a.items;
-  res_fwd_tma<NK, kWindow><<<grid, T::kThreads, T::kSmem,
-                             (cudaStream_t)stream>>>(mKV, mQ, mO, a);
+  res_fwd_tma<NK, kWindow, kSaveP><<<grid, T::kThreads, T::kSmem,
+                                     (cudaStream_t)stream>>>(mKV, mQ, mO, mP,
+                                                             a);
   return cudaGetLastError();
 }
 
-// #10: qkv (B, N, 3C) -> out (B, N, C), lse (B, H, N); N <= NK
-template <int NK>
-cudaError_t launch_v2_fwd(const void* qkv, void* out, void* lse, int B,
-                          int N, int H, int G, float scale, void* stream) {
+// #11's P (B H planes of N rows of NK bf16) as 64 x 64 boxes in the
+// 128-byte swizzle: a row pitch of 2 NK bytes, a plane's of 2 N NK (both
+// multiples of 16); rows >= N and columns >= NK read as zeros and are not
+// written
+inline bool encode_p_map(CUtensorMap* map, const void* p, int planes, int N,
+                         int NK) {
+  const cuuint64_t dims[3] = {(cuuint64_t)NK, (cuuint64_t)N,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)NK * 2, (cuuint64_t)N * NK * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  return encode_map(map, p, 3, dims, strides, box);
+}
+
+// #10: qkv (B, N, 3C) -> out (B, N, C), lse (B, H, N); #11 (kSaveP): P
+// (B, H, N, NK) in place of lse; N <= NK
+template <int NK, bool kSaveP>
+cudaError_t launch_dense_fwd(const void* qkv, void* out, void* stats, int B,
+                             int N, int H, int G, float scale, void* stream) {
   const cuuint64_t C = 64 * H, q_rows = (N + 63) / 64 * 64;
   const cuuint64_t din[3] = {3 * C, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t sin[2] = {3 * C * 2, N * 3 * C * 2};
   const cuuint64_t dout[3] = {C, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t sout[2] = {C * 2, N * C * 2};
   const cuuint32_t bkv[3] = {64, NK, 1}, bq[3] = {64, (cuuint32_t)q_rows, 1};
-  CUtensorMap mKV, mQ, mO;
+  CUtensorMap mKV, mQ, mO, mP;
   if (!encode_map(&mKV, qkv, 3, din, sin, bkv) ||
       !encode_map(&mQ, qkv, 3, din, sin, bq) ||
-      !encode_map(&mO, out, 3, dout, sout, bq))
+      !encode_map(&mO, out, 3, dout, sout, bq) ||
+      (kSaveP && !encode_p_map(&mP, stats, B * H, N, NK)))
     return cudaErrorInvalidValue;
   ResTmaArgs a{};
-  a.lse = (float*)lse;
+  a.lse = kSaveP ? nullptr : (float*)stats;
   a.seqs = B;
   a.G = G;
   a.H = H;
@@ -1716,7 +1426,8 @@ cudaError_t launch_v2_fwd(const void* qkv, void* out, void* lse, int B,
   a.kv_rows = NK;
   a.tx_bytes = (int)(2 * NK + q_rows) * kRowBytes;
   a.scale = scale;
-  return run_res_fwd_tma<NK, false>(mKV, mQ, mO, a, stream);
+  return run_res_fwd_tma<NK, false, kSaveP>(mKV, mQ, mO, kSaveP ? mP : mO,
+                                            a, stream);
 }
 
 // #12: qkv (B, GH, GW, 3C) -> out (B, GH, GW, C), lse (windows, H, ws^2),
@@ -1749,33 +1460,35 @@ inline cudaError_t launch_window_v2_fwd(const void* qkv, void* out,
   a.kv_rows = ws * ws;
   a.tx_bytes = 3 * ws * ws * kRowBytes;
   a.scale = scale;
-  return run_res_fwd_tma<256, true>(mKV, mKV, mO, a, stream);
+  return run_res_fwd_tma<256, true>(mKV, mKV, mO, mO, a, stream);
 }
 
-// #10 / #12's backward on its four tensor maps (a's items set here)
-template <int NK, bool kWindow>
+// The backward on its four tensor maps (a's items set here)
+template <int NK, bool kWindow, bool kSaveP = false>
 cudaError_t run_res_bwd_tma(const CUtensorMap (&m)[4], ResTmaArgs a,
                             void* stream) {
-  using T = ResBwd<NK>;
+  using T = ResBwd<NK, kSaveP>;
   a.items = (a.seqs + a.G - 1) / a.G * a.H;
   const int sms = sm_count();
   if (!sms) return cudaErrorNoDevice;
   static bool attributed[kDevices] = {};
-  cudaError_t err =
-      allow_smem_once(res_bwd_tma<NK, kWindow>, T::kSmem, attributed);
+  cudaError_t err = allow_smem_once(res_bwd_tma<NK, kWindow, kSaveP>,
+                                    T::kSmem, attributed);
   if (err != cudaSuccess) return err;
   const int grid = kResPersistent ? min(sms, a.seqs * a.H) : a.items;
-  res_bwd_tma<NK, kWindow><<<grid, T::kThreads, T::kSmem,
-                             (cudaStream_t)stream>>>(m[0], m[1], m[2], m[3],
-                                                     a);
+  res_bwd_tma<NK, kWindow, kSaveP><<<grid, T::kThreads, T::kSmem,
+                                     (cudaStream_t)stream>>>(
+      m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
 }
 
-// #10: qkv, dqkv (B, N, 3C), out, dout (B, N, C), lse (B, H, N); N <= NK
-template <int NK>
-cudaError_t launch_v2_bwd(const void* qkv, const void* out, const void* lse,
-                          const void* dout, void* dqkv, int B, int N, int H,
-                          int G, float scale, void* stream) {
+// #10: qkv, dqkv (B, N, 3C), out, dout (B, N, C), lse (B, H, N); #11
+// (kSaveP): P (B, H, N, NK) in place of out, no lse; N <= NK
+template <int NK, bool kSaveP>
+cudaError_t launch_dense_bwd(const void* qkv, const void* out,
+                             const void* lse, const void* dout, void* dqkv,
+                             int B, int N, int H, int G, float scale,
+                             void* stream) {
   const cuuint64_t C = 64 * H;
   const cuuint64_t din[3] = {3 * C, (cuuint64_t)N, (cuuint64_t)B};
   const cuuint64_t sin[2] = {3 * C * 2, N * 3 * C * 2};
@@ -1784,7 +1497,8 @@ cudaError_t launch_v2_bwd(const void* qkv, const void* out, const void* lse,
   const cuuint32_t box[3] = {64, NK, 1};
   CUtensorMap m[4];
   if (!encode_map(&m[0], qkv, 3, din, sin, box) ||
-      !encode_map(&m[1], out, 3, dout_, sout, box) ||
+      !(kSaveP ? encode_p_map(&m[1], out, B * H, N, NK)
+               : encode_map(&m[1], out, 3, dout_, sout, box)) ||
       !encode_map(&m[2], dout, 3, dout_, sout, box) ||
       !encode_map(&m[3], dqkv, 3, din, sin, box))
     return cudaErrorInvalidValue;
@@ -1795,9 +1509,9 @@ cudaError_t launch_v2_bwd(const void* qkv, const void* out, const void* lse,
   a.H = H;
   a.N = N;
   a.kv_rows = NK;
-  a.tx_bytes = 5 * NK * kRowBytes;
+  a.tx_bytes = (kSaveP ? 4 : 5) * NK * kRowBytes;
   a.scale = scale;
-  return run_res_bwd_tma<NK, false>(m, a, stream);
+  return run_res_bwd_tma<NK, false, kSaveP>(m, a, stream);
 }
 
 // #12: qkv, dqkv (B, GH, GW, 3C), out, dout (B, GH, GW, C), lse (windows,
@@ -1834,37 +1548,6 @@ inline cudaError_t launch_window_v2_bwd(const void* qkv, const void* out,
   a.tx_bytes = 5 * ws * ws * kRowBytes;
   a.scale = scale;
   return run_res_bwd_tma<256, true>(m, a, stream);
-}
-
-// #11: dq (and delta = rowsum(P * dP)), then dk and dv, both reading P
-template <int NK, class Rows>
-cudaError_t launch_savep_bwd(const void* qkv, const void* p, const void* dout,
-                             void* delta, void* dqkv, Rows rows, int seqs,
-                             int N, int H, int G, float scale, void* stream) {
-  const size_t dq_smem = res_dq_smem<NK>(G);
-  const size_t dkv_smem = res_dkv_smem<NK>(G);
-  static bool dq_attributed[kDevices] = {}, dkv_attributed[kDevices] = {};
-  cudaError_t err = allow_smem_once(res_savep_dq<NK, Rows>,
-                                    res_dq_smem<NK>(2), dq_attributed);
-  if (err != cudaSuccess) return err;
-  err = allow_smem_once(res_savep_dkv<NK, Rows>, res_dkv_smem<NK>(2),
-                        dkv_attributed);
-  if (err != cudaSuccess) return err;
-  const int C = 64 * H;
-  const bf16* x = (const bf16*)qkv;
-  bf16* dx = (bf16*)dqkv;
-  dim3 grid((seqs + G - 1) / G, H);
-  cudaStream_t s = (cudaStream_t)stream;
-  res_savep_dq<NK, Rows><<<grid, kResThreads, dq_smem, s>>>(
-      x + C, x + 2 * C, 3 * C, (const bf16*)p, (const bf16*)dout, C,
-      (float*)delta, dx, 3 * C, rows, seqs, G, N, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  res_savep_dkv<NK, Rows><<<grid, kResThreads, dkv_smem, s>>>(
-      x, x + 2 * C, 3 * C, (const bf16*)dout, C, (const bf16*)p,
-      (const float*)delta, dx + C, dx + 2 * C, 3 * C, rows, seqs, G, N,
-      scale);
-  return cudaGetLastError();
 }
 
 }  // namespace

@@ -16,18 +16,21 @@
 //   also writes the normalised softmax P as bf16, (B, H, N, Nb) here, and
 //   the backward reads it instead of recomputing S and the exponent: delta
 //   = rowsum(P * dP) from the bf16 P, dS = P (dP - delta), dQ, dK, dV. Here:
-//   `res_savep_fwd`, then `res_savep_dq` and `res_savep_dkv`, five
-//   products, as #10's backward.
+//   the same two persistent kernels as #10 in their kSaveP instance, P
+//   stored and read by TMA in 64 x 64 boxes; the backward one kernel, four
+//   products a key tile and query chunk and one more a query tile for
+//   delta.
 // The TPU's pad handling (zeroed k / v rows and the analytic l - pad
 // exp(-m)) is not carried over: keys >= N are masked by index. P's rows >= N
-// are never written (the TPU kernel fills them from out-of-bounds q).
+// are never written (the TPU kernel fills them from out-of-bounds q), and
+// the backward ignores its columns >= N.
 //
 // What bounds them on the card: at ViT-B 224 (B = 64, N = 197, 12 heads of
-// 64) device memory, by a factor of two to three over the products (#11's P
-// adds 63 MB at Nb = 208 each way); the resident design reads each K and V
-// (or Q and dO) once per (sequence, head) from device memory, where the
-// streaming core re-reads them once per 64-row tile. chip_smoke.py prints
-// each kernel's time beside its bound.
+// 64) device memory (#11's P, 63 MB at Nb = 208, is written by the forward
+// and read by the backward: about 44% and 31% of their bytes); the
+// resident design reads each K and V (or Q and dO) once per (sequence,
+// head) from device memory, where the streaming core re-reads them once per
+// 64-row tile. chip_smoke.py prints each kernel's time beside its bound.
 
 #include "attention_resident.cuh"
 
@@ -36,15 +39,17 @@
 // built for: 208 or 256 for #10, 208 for #11, the harness's; or a tensor
 // map that could not be made). The Python
 // wrapper checks the shapes, the dtype (bf16), Dh == 64, Nb, 1 <= N <= Nb
-// and G >= 1 before calling. lse and #11's delta are (B, H, N) float32; p
-// is (B, H, N, Nb) bf16.
+// and G >= 1 before calling. lse is (B, H, N) float32; p is (B, H, N, Nb)
+// bf16.
 extern "C" int ssl4gie_attn_v2_fwd(const void* qkv, void* out, void* lse,
                                    int B, int N, int H, int Nb, int G,
                                    float scale, void* stream) {
   if (Nb == 256)
-    return (int)launch_v2_fwd<256>(qkv, out, lse, B, N, H, G, scale, stream);
+    return (int)launch_dense_fwd<256, false>(qkv, out, lse, B, N, H, G, scale,
+                                              stream);
   if (Nb == 208)
-    return (int)launch_v2_fwd<208>(qkv, out, lse, B, N, H, G, scale, stream);
+    return (int)launch_dense_fwd<208, false>(qkv, out, lse, B, N, H, G, scale,
+                                              stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -53,11 +58,11 @@ extern "C" int ssl4gie_attn_v2_bwd(const void* qkv, const void* out,
                                    void* dqkv, int B, int N, int H, int Nb,
                                    int G, float scale, void* stream) {
   if (Nb == 256)
-    return (int)launch_v2_bwd<256>(qkv, out, lse, dout, dqkv, B, N, H, G,
-                                   scale, stream);
+    return (int)launch_dense_bwd<256, false>(qkv, out, lse, dout, dqkv, B, N,
+                                             H, G, scale, stream);
   if (Nb == 208)
-    return (int)launch_v2_bwd<208>(qkv, out, lse, dout, dqkv, B, N, H, G,
-                                   scale, stream);
+    return (int)launch_dense_bwd<208, false>(qkv, out, lse, dout, dqkv, B, N,
+                                             H, G, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -65,15 +70,15 @@ extern "C" int ssl4gie_attn_savep_fwd(const void* qkv, void* out, void* p,
                                       int B, int N, int H, int Nb, int G,
                                       float scale, void* stream) {
   if (Nb != 208) return (int)cudaErrorInvalidValue;
-  return (int)launch_savep_fwd<208>(qkv, out, p, DenseRows{N}, B, N, H, G,
-                                    scale, stream);
+  return (int)launch_dense_fwd<208, true>(qkv, out, p, B, N, H, G, scale,
+                                          stream);
 }
 
 extern "C" int ssl4gie_attn_savep_bwd(const void* qkv, const void* p,
-                                      const void* dout, void* delta,
-                                      void* dqkv, int B, int N, int H, int Nb,
-                                      int G, float scale, void* stream) {
+                                      const void* dout, void* dqkv, int B,
+                                      int N, int H, int Nb, int G,
+                                      float scale, void* stream) {
   if (Nb != 208) return (int)cudaErrorInvalidValue;
-  return (int)launch_savep_bwd<208>(qkv, p, dout, delta, dqkv, DenseRows{N},
-                                    B, N, H, G, scale, stream);
+  return (int)launch_dense_bwd<208, true>(qkv, p, nullptr, dout, dqkv, B, N,
+                                          H, G, scale, stream);
 }

@@ -56,8 +56,7 @@ SIGNATURES = {
     "ssl4gie_attn_v2_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ssl4gie_attn_v2_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ssl4gie_attn_savep_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    "ssl4gie_attn_savep_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                               _P),
+    "ssl4gie_attn_savep_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "ssl4gie_window_attn_v2_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                    _P),
     "ssl4gie_window_attn_v2_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -22,16 +22,18 @@ design:
 On a CUDA tensor each wrapper launches its hand-written kernel of
 `csrc/attention_variants.cu` or `csrc/window_attention_v2.cu` (the resident
 core of `csrc/attention_resident.cuh`: bf16, Dh = 64, N <= Nb, Nb in
-{208, 256}, 208 for save-P; anything else raises). The forwards of #10 and
-#12 are one persistent kernel, `res_fwd_tma`, and their backwards another,
-`res_bwd_tma` (dQ, dK and dV of a sequence in one pass): each block takes
-every n-th (sequence, head) in an order G sets (G adjacent sequences of one
-head together), loaded and stored by TMA from a producer warpgroup,
-multiplied by two `wgmma` warpgroups. On a CPU tensor it runs
-the plain PyTorch version below: the TPU kernel's arithmetic at its rounding points, in the
-input dtype with float32 sums, which is also what the kernels are checked
-against on the card. The TPU kernels' pad handling (zeroed k and v rows, the
-analytic row-sum correction) is not carried over: keys >= N are masked.
+{208, 256}, 208 for save-P; anything else raises). The forwards of all
+three are one persistent kernel, `res_fwd_tma`, and their backwards another,
+`res_bwd_tma` (dQ, dK and dV of a sequence in one pass; #11's instance
+streams the saved P in 64 x 64 boxes and takes delta = rowsum(P * dP) from
+it, with no scratch): each block takes every n-th (sequence, head) in an
+order G sets (G adjacent sequences of one head together), loaded and stored
+by TMA from a producer warpgroup, multiplied by two `wgmma` warpgroups. On
+a CPU tensor it runs the plain PyTorch version below: the TPU kernel's
+arithmetic at its rounding points, in the input dtype with float32 sums,
+which is also what the kernels are checked against on the card. The TPU
+kernels' pad handling (zeroed k and v rows, the analytic row-sum
+correction) is not carried over: keys >= N are masked.
 
 Each wrapper counts its launches (`launches`), so a run can show that it
 went through the kernel.
@@ -271,8 +273,8 @@ attention_v2_bwd.launches = 0
 def attention_save_p_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
                          G: int = 2, block: int = 208):
     """#11's forward: (B, N, 3C) -> (out (B, N, C), P (B, H, N, block) in
-    qkv's dtype). Launches `res_savep_fwd` on a CUDA tensor; the plain
-    version on a CPU tensor."""
+    qkv's dtype). Launches `res_fwd_tma`'s save-P instance (P stored by
+    TMA) on a CUDA tensor; the plain version on a CPU tensor."""
     if not _on_cuda(qkv):
         return packed_attention_save_p_fwd_plain(qkv, num_heads, scale, block)
     B, N, C = _check_dense(qkv, num_heads, block, SAVE_P_ROWS)
@@ -294,7 +296,8 @@ def attention_save_p_bwd(qkv: torch.Tensor, p: torch.Tensor,
                          dout: torch.Tensor, num_heads: int, scale: float,
                          G: int = 2) -> torch.Tensor:
     """#11's backward: (qkv, the forward's P, dO) -> dqkv (B, N, 3C).
-    Launches `res_savep_dq` then `res_savep_dkv` on CUDA tensors; the
+    Launches `res_bwd_tma`'s save-P instance on CUDA tensors (one kernel:
+    delta = rowsum(P * dP) in shared memory, P's columns >= N ignored); the
     plain backward on CPU tensors."""
     if not _on_cuda(qkv):
         return packed_attention_save_p_bwd_plain(qkv, p, dout, num_heads,
@@ -306,12 +309,10 @@ def attention_save_p_bwd(qkv: torch.Tensor, p: torch.Tensor,
     _check_cuda("p", p, (B, num_heads, N, block))
     _check_cuda("dout", dout, (B, N, C))
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((B, num_heads, N), dtype=torch.float32,
-                        device=qkv.device)   # scratch: rowsum(P * dP)
     with torch.cuda.device(qkv.device):
         _build.launch("ssl4gie_attn_savep_bwd", qkv.data_ptr(), p.data_ptr(),
-                      dout.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B,
-                      N, num_heads, block, G, float(scale), _stream(qkv))
+                      dout.data_ptr(), dqkv.data_ptr(), B, N, num_heads,
+                      block, G, float(scale), _stream(qkv))
     attention_save_p_bwd.launches += 1
     return dqkv
 

@@ -338,6 +338,12 @@ def _close_lse(got, ref):
     ("v2", 3, 256, 256, 2), ("v2", 64, 197, 256, 1), ("v2", 64, 197, 208, 4),
     ("save_p", 4, 197, 208, 2), ("save_p", 3, 50, 208, 1),
     ("save_p", 2, 208, 208, 4),
+    # the same edges of the persistent save-P kernels: a box of P holding
+    # only rows >= N, key tiles past N, more work items than SMs
+    ("save_p", 5, 1, 208, 2), ("save_p", 3, 63, 208, 2),
+    ("save_p", 5, 64, 208, 4), ("save_p", 3, 65, 208, 2),
+    ("save_p", 7, 197, 208, 4), ("save_p", 5, 208, 208, 2),
+    ("save_p", 64, 197, 208, 2), ("save_p", 64, 197, 208, 1),
 ])
 def test_dense_variants_match_plain_on_card(cuda, kind, batch, n, block, G):
     """#10 and #11: forward, P and backward against the plain versions at
@@ -409,15 +415,20 @@ def test_groups_repeat_bit_for_bit_on_card(cuda, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["v2", "v3", "window"])
+@pytest.mark.parametrize("kind", ["v2", "v3", "save_p", "window"])
 def test_forward_repeats_bit_for_bit_on_card(cuda, kind):
-    """The persistent forward of #10 / #12 twice on the same input, at
-    every G the harnesses use: the same bits (no atomics, one order)."""
+    """The persistent forward of #10 / #11 / #12 twice on the same input,
+    at every G the harnesses use: the same bits (no atomics, one order;
+    #11's second output is P)."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     if kind == "window":
         x = _rand((4, 64, 64, 3 * C), gen, cuda)
         runs = [(G, [av.window_v2_fwd(x, H, 16, SCALE, G) for _ in range(2)])
                 for G in (1, 2, 4)]
+    elif kind == "save_p":
+        x = _rand((64, N, 3 * C), gen, cuda)
+        runs = [(G, [av.attention_save_p_fwd(x, H, SCALE, G, 208)
+                     for _ in range(2)]) for G in (1, 2, 4)]
     else:
         block = 256 if kind == "v2" else 208
         x = _rand((64, N, 3 * C), gen, cuda)
@@ -429,17 +440,23 @@ def test_forward_repeats_bit_for_bit_on_card(cuda, kind):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["v2", "v3", "window"])
+@pytest.mark.parametrize("kind", ["v2", "v3", "save_p", "window"])
 def test_backward_repeats_bit_for_bit_on_card(cuda, kind):
-    """The fused backward of #10 / #12 twice on the same input, at every G
-    the harnesses use: the same bits (dQ's partials are summed in one fixed
-    order, no atomics)."""
+    """The fused backward of #10 / #11 / #12 twice on the same input, at
+    every G the harnesses use: the same bits (dQ's partials are summed in
+    one fixed order, no atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     if kind == "window":
         x = _rand((4, 64, 64, 3 * C), gen, cuda)
         dout = _rand((4, 64, 64, C), gen, cuda)
         out, lse = av.window_v2_fwd(x, H, 16, SCALE)
         runs = [(G, [av.window_v2_bwd(x, out, lse, dout, H, 16, SCALE, G)
+                     for _ in range(2)]) for G in (1, 2, 4)]
+    elif kind == "save_p":
+        x = _rand((64, N, 3 * C), gen, cuda)
+        dout = _rand((64, N, C), gen, cuda)
+        _, p = av.attention_save_p_fwd(x, H, SCALE, 2, 208)
+        runs = [(G, [av.attention_save_p_bwd(x, p, dout, H, SCALE, G)
                      for _ in range(2)]) for G in (1, 2, 4)]
     else:
         block = 256 if kind == "v2" else 208
@@ -452,6 +469,25 @@ def test_backward_repeats_bit_for_bit_on_card(cuda, kind):
     torch.cuda.synchronize()
     for G, (g1, g2) in runs:
         assert torch.equal(g1, g2), G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [150, N])
+def test_save_p_backward_ignores_columns_past_n_on_card(cuda, n):
+    """P's columns >= N hold garbage (large values, inf and NaN): the save-P
+    backward gives the plain backward's dqkv, which reads P's first N
+    columns only."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qkv, dout = _rand((6, n, 3 * C), gen, cuda), _rand((6, n, C), gen, cuda)
+    _, p = av.attention_save_p_fwd(qkv, H, SCALE, 2, 208)
+    junk = 1e4 * torch.randn(p[..., n:].shape, generator=gen, device=cuda)
+    junk[..., ::5] = float("nan")
+    junk[..., 1::7] = float("inf")
+    p[..., n:] = junk.to(p.dtype)
+    dq = av.attention_save_p_bwd(qkv, p, dout, H, SCALE, 2)
+    dq_p = av.packed_attention_save_p_bwd_plain(qkv, p, dout, H, SCALE)
+    torch.cuda.synchronize()
+    _close("dqkv", dq, dq_p)
 
 
 @pytest.mark.gpu
