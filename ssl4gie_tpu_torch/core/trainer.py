@@ -36,7 +36,9 @@ and the best-val choice see one number on every rank, a preemption signal
 on any rank stops all of them at the same step, and the checkpoints hold
 the full state (`core/checkpoint.py:state_dicts`), written by rank 0.
 `aug_mode="none"` normalizes the uint8 batch without augmentation, as
-the JAX Trainer's.
+the JAX Trainer's. With `profile_dir` the first epoch's steps 5-10 are
+recorded with `torch.profiler` into it (`core/spans.py:StepTrace`), as the
+JAX Trainer traces them; the steps run under the spans of `core/spans.py`.
 With `SSL4GIE_HOST_AUG=1` a classification epoch is augmented on the host
 by the C++ loader (`data/native_loader.py:augment_classification`, one
 seed a step from the epoch's generator) before the copy to the device, as
@@ -61,6 +63,7 @@ from ssl4gie_tpu_torch.core.logger import (MetricsLogger, Throughput,
                                            peak_memory_mb)
 from ssl4gie_tpu_torch.core.preempt import Preempted, PreemptionGuard
 from ssl4gie_tpu_torch.core.schedule import ReduceLROnPlateau
+from ssl4gie_tpu_torch.core.spans import StepTrace, span
 from ssl4gie_tpu_torch.core.train_state import (apply_gradients, get_lr,
                                                 set_lr)
 from ssl4gie_tpu_torch.data.augment import (apply_classification, apply_depth,
@@ -121,16 +124,20 @@ def make_train_step(task: TaskDefinition, accum_steps: int = 1):
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
             with dist_lib.gradient_sync(model, i == accum_steps - 1):
-                loss = task.loss_fn(model(images[sl], generator),
-                                    targets[sl])
-                loss.backward()        # sums the microbatch gradients
+                with span("ssl4gie.forward"):
+                    loss = task.loss_fn(model(images[sl], generator),
+                                        targets[sl])
+                with span("ssl4gie.backward"):
+                    loss.backward()    # sums the microbatch gradients
             loss_sum += loss.detach()
-        dist_lib.finish_gradients(model)
-        if accum_steps > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-        apply_gradients(optimizer)
+        with span("ssl4gie.backward"):
+            dist_lib.finish_gradients(model)
+            if accum_steps > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+        with span("ssl4gie.optimizer"):
+            apply_gradients(optimizer)
         return {"loss": dist_lib.global_mean(loss_sum / accum_steps)}
 
     return train_step
@@ -161,8 +168,7 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
                  else per_image_jitter)
     step = make_train_step(task, accum_steps)
 
-    def full_step(model, optimizer, img_u8, targets, generator,
-                  model_generator=None):
+    def augment(img_u8, targets, generator):
         B = img_u8.shape[0]
         draw = functools.partial(dist_lib.draw_global,
                                  accum_steps=accum_steps)
@@ -183,8 +189,17 @@ def make_full_step(task: TaskDefinition, accum_steps: int = 1,
             img = apply_classification(img_u8, params, exact)
         if task.mixup_fn is not None:
             img, targets = task.mixup_fn(img, targets, generator)
-        return step(model, optimizer, {"image": img, task.target_key: targets},
-                    generator if model_generator is None else model_generator)
+        return img, targets
+
+    def full_step(model, optimizer, img_u8, targets, generator,
+                  model_generator=None):
+        with span("ssl4gie.step"):
+            with span("ssl4gie.augment"):
+                img, targets = augment(img_u8, targets, generator)
+            return step(model, optimizer,
+                        {"image": img, task.target_key: targets},
+                        generator if model_generator is None
+                        else model_generator)
 
     return full_step
 
@@ -220,7 +235,7 @@ class Trainer:
                  epochs: int, accum_steps: int = 1, seed: int = 42,
                  plateau: Optional[ReduceLROnPlateau] = None,
                  eval_finalize: Optional[Callable] = None,
-                 log_every: int = 10):
+                 log_every: int = 10, profile_dir: Optional[str] = None):
         self.task = task
         self.model = model
         self.optimizer = optimizer
@@ -236,6 +251,7 @@ class Trainer:
         self.eval_finalize = eval_finalize   # meanF1 over accumulated preds
         self.log_every = log_every
         self.accum_steps = accum_steps
+        self.profile_dir = profile_dir    # steps 5-10 of the first epoch
         self.full_step, self.eval_step = self._steps(accum_steps)
         self._native_aug_pool = None
         self.start_epoch = 1
@@ -297,38 +313,44 @@ class Trainer:
             batches = self._host_augmented(batches, seeds)
             train_step = make_train_step(self.task, self.accum_steps)
         it = prefetch_to_device(batches, self.device)
-        for step, batch in enumerate(it):
-            if self._stop_requested(step):
-                # mid-epoch preemption: the state as of the last COMPLETE
-                # epoch is what resumes (the per-epoch generators make the
-                # replay deterministic)
-                self._check_preempted(epoch - 1)
-            if host_aug:
-                metrics = train_step(self.model, self.optimizer,
-                                     {"image": batch["image"],
-                                      key: batch[key]}, model_gen)
-            else:
-                metrics = self.full_step(self.model, self.optimizer,
-                                         batch["image"], batch[key], aug_gen,
-                                         model_gen)
-            meter.update(batch["image"].shape[0])
-            if ((step + 1) % self.log_every == 0
-                    or step + 1 == len(self.train_loader)):
-                last_loss = float(metrics["loss"])
-                if not math.isfinite(last_loss):
-                    # NaN abort, as the vendored MAE engine's
-                    # (`engine_pretrain.py:52-54`)
-                    raise FloatingPointError(
-                        f"Loss is {last_loss} at epoch {epoch} step "
-                        f"{step + 1}, stopping training")
-                payload = {"epoch": epoch, "step": step + 1,
-                           "loss": last_loss, "lr": get_lr(self.optimizer),
-                           **meter.rates(n_steps - (step + 1))}
-                if step + 1 == len(self.train_loader):
-                    mem = peak_memory_mb(self.device)
-                    if mem is not None:
-                        payload["max_mem_mb"] = mem
-                self.logger.log(payload)
+        with StepTrace(self.profile_dir if epoch == self.start_epoch
+                       else None, self.device,
+                       dist_lib.process_index()) as trace:
+            for step, batch in enumerate(it):
+                if self._stop_requested(step):
+                    # mid-epoch preemption: the state as of the last
+                    # COMPLETE epoch is what resumes (the per-epoch
+                    # generators make the replay deterministic)
+                    self._check_preempted(epoch - 1)
+                trace.step(step)
+                if host_aug:
+                    with span("ssl4gie.step"):
+                        metrics = train_step(self.model, self.optimizer,
+                                             {"image": batch["image"],
+                                              key: batch[key]}, model_gen)
+                else:
+                    metrics = self.full_step(self.model, self.optimizer,
+                                             batch["image"], batch[key],
+                                             aug_gen, model_gen)
+                meter.update(batch["image"].shape[0])
+                if ((step + 1) % self.log_every == 0
+                        or step + 1 == len(self.train_loader)):
+                    last_loss = float(metrics["loss"])
+                    if not math.isfinite(last_loss):
+                        # NaN abort, as the vendored MAE engine's
+                        # (`engine_pretrain.py:52-54`)
+                        raise FloatingPointError(
+                            f"Loss is {last_loss} at epoch {epoch} step "
+                            f"{step + 1}, stopping training")
+                    payload = {"epoch": epoch, "step": step + 1,
+                               "loss": last_loss,
+                               "lr": get_lr(self.optimizer),
+                               **meter.rates(n_steps - (step + 1))}
+                    if step + 1 == len(self.train_loader):
+                        mem = peak_memory_mb(self.device)
+                        if mem is not None:
+                            payload["max_mem_mb"] = mem
+                    self.logger.log(payload)
         return last_loss
 
     def evaluate(self, loader, epoch: int, split: str) -> float:

@@ -6,13 +6,15 @@ once, so the loop costs k iterations whatever the batch. Output is always k
 indices and a validity mask per image; exhausted slots are invalid. This is
 torchvision's greedy NMS for the top-k survivors, which is all callers
 consume (RPN post_nms_top_n, detections_per_img). No value leaves the device
-inside the loop. The loop runs under a profiler range "nms_topk", so a
-`torch.profiler` trace shows its share of a step.
+inside the loop. The loop runs under the span "nms_topk"
+(`core/spans.py`), so a `torch.profiler` trace shows its share of a step.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ssl4gie_tpu_torch.core.spans import span
 
 
 def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -24,7 +26,7 @@ def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     image's N boxes in descending score order; out_valid False for exhausted
     slots. `torch.argmax` returns the first maximum, as `jnp.argmax` does.
     """
-    with torch.profiler.record_function("nms_topk"):
+    with span("nms_topk"):
         return _nms_topk(boxes, scores, iou_threshold, k, valid)
 
 

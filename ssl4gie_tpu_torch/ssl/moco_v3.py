@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssl4gie_tpu_torch.core.spans import span
 from ssl4gie_tpu_torch.core.train_state import set_lr
 from ssl4gie_tpu_torch.models.batchnorm import BatchNorm
 from ssl4gie_tpu_torch.models.layers import default_device, lecun_normal_
@@ -233,23 +234,27 @@ def make_moco_train_step(temperature: float = 0.2, schedule=None,
     def train_step(moco: MoCo, optimizer, x1, x2, m: float, step: int):
         inner = unwrap(moco)      # `moco` may be placed (DDP, FSDP, TP)
         moco.train()
-        momentum_update(inner, m)
-        pq1, pq2, k1, k2 = moco(x1, x2)
-        loss = (contrastive_loss(pq1, k2, temperature)
-                + contrastive_loss(pq2, k1, temperature))
+        with span("ssl4gie.optimizer"):
+            momentum_update(inner, m)
+        with span("ssl4gie.forward"):
+            pq1, pq2, k1, k2 = moco(x1, x2)
+            loss = (contrastive_loss(pq1, k2, temperature)
+                    + contrastive_loss(pq2, k1, temperature))
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        finish_gradients(moco)
-        grad_norm = global_grad_norm(inner.trained_parameters())
-        if schedule is not None:
-            set_lr(optimizer, schedule(step))
-        frozen = [local(p) for p in inner.patch_embed_parameters()] \
-            if stop_grad_patch_embed else []
-        kept = [p.detach().clone() for p in frozen]
-        optimizer.step()
-        if frozen:
-            with torch.no_grad():
-                torch._foreach_copy_(frozen, kept)
+        with span("ssl4gie.backward"):
+            loss.backward()
+            finish_gradients(moco)
+        with span("ssl4gie.optimizer"):
+            grad_norm = global_grad_norm(inner.trained_parameters())
+            if schedule is not None:
+                set_lr(optimizer, schedule(step))
+            frozen = [local(p) for p in inner.patch_embed_parameters()] \
+                if stop_grad_patch_embed else []
+            kept = [p.detach().clone() for p in frozen]
+            optimizer.step()
+            if frozen:
+                with torch.no_grad():
+                    torch._foreach_copy_(frozen, kept)
         return {"loss": global_mean(loss.detach()), "grad_norm": grad_norm}
 
     return train_step

@@ -24,6 +24,11 @@ mid-epoch exits without saving, so the epoch replays from the last save;
 after an epoch it exits after the save). The JAX package's `scan_steps`
 superbatches are a TPU dispatch device and are not ported.
 
+With `runtime.profile_dir` set, `run_loop` records steps 5-10 of its
+first epoch with `torch.profiler` into that directory
+(`core/spans.py:StepTrace`); the steps run under the spans of
+`core/spans.py`.
+
 Randomness: each epoch one host generator, seeded from (seed, epoch),
 draws the crops, the augmentation's factors and MAE's masking noise, which
 go to the card from pinned memory without blocking; with the Loader's
@@ -75,6 +80,7 @@ from ssl4gie_tpu_torch.core.mesh import (axis_shard, axis_size,
                                          local_batch_size, make_mesh)
 from ssl4gie_tpu_torch.core.preempt import Preempted, PreemptionGuard
 from ssl4gie_tpu_torch.core.schedule import cosine_momentum
+from ssl4gie_tpu_torch.core.spans import StepTrace, span
 from ssl4gie_tpu_torch.core.train_state import make_adamw, set_lr
 from ssl4gie_tpu_torch.core.trainer import epoch_seed
 from ssl4gie_tpu_torch.data.augment import _on
@@ -175,13 +181,16 @@ def make_mae_train_step(schedule):
     def train_step(model, optimizer, imgs, noise, step: int):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss, _, _ = model(imgs, noise)
-        loss.backward()
-        dist_lib.finish_gradients(model)
-        # optax.global_norm: the norm of all (float32) gradients together
-        norm = grad_norm(model.parameters())
-        set_lr(optimizer, schedule(step))
-        optimizer.step()
+        with span("ssl4gie.forward"):
+            loss, _, _ = model(imgs, noise)
+        with span("ssl4gie.backward"):
+            loss.backward()
+            dist_lib.finish_gradients(model)
+        with span("ssl4gie.optimizer"):
+            # optax.global_norm: the norm of all (float32) gradients
+            norm = grad_norm(model.parameters())
+            set_lr(optimizer, schedule(step))
+            optimizer.step()
         return {"loss": dist_lib.global_mean(loss.detach()),
                 "grad_norm": norm}
 
@@ -197,13 +206,16 @@ def make_mae_full_step(schedule, img_size: int = 224):
 
     def full_step(model, optimizer, img_u8, generator, step: int):
         B = img_u8.shape[0]
-        params = dist_lib.draw_global(sample_mae_params, B, generator,
-                                      canvas=img_u8.shape[1])
-        imgs = mae_augment(img_u8, params, out_size=img_size)
-        noise = _on({"noise": dist_lib.draw_global(
-            dist_lib.unwrap(model).draw_noise, B, generator)},
-            img_u8.device)["noise"]
-        return step_fn(model, optimizer, imgs, noise, step)
+        with span("ssl4gie.step"):
+            with span("ssl4gie.augment"):
+                params = dist_lib.draw_global(sample_mae_params, B,
+                                              generator,
+                                              canvas=img_u8.shape[1])
+                imgs = mae_augment(img_u8, params, out_size=img_size)
+                noise = _on({"noise": dist_lib.draw_global(
+                    dist_lib.unwrap(model).draw_noise, B, generator)},
+                    img_u8.device)["noise"]
+            return step_fn(model, optimizer, imgs, noise, step)
 
     return full_step
 
@@ -221,11 +233,14 @@ def make_moco_full_step(total_steps: int, *, temperature: float = 0.2,
                                    stop_grad_patch_embed)
 
     def full_step(moco, optimizer, img_u8, generator, step: int):
-        params = dist_lib.draw_global(sample_moco_params, img_u8.shape[0],
-                                      generator, canvas=img_u8.shape[1])
-        x1, x2 = moco_two_crops(img_u8, params, out_size=img_size)
-        m = cosine_momentum(step, base_m=base_m, total_steps=total_steps)
-        return step_fn(moco, optimizer, x1, x2, m, step)
+        with span("ssl4gie.step"):
+            with span("ssl4gie.augment"):
+                params = dist_lib.draw_global(
+                    sample_moco_params, img_u8.shape[0], generator,
+                    canvas=img_u8.shape[1])
+                x1, x2 = moco_two_crops(img_u8, params, out_size=img_size)
+            m = cosine_momentum(step, base_m=base_m, total_steps=total_steps)
+            return step_fn(moco, optimizer, x1, x2, m, step)
 
     return full_step
 
@@ -422,26 +437,30 @@ def run_loop(run: PretrainRun) -> None:
             gen = torch.Generator().manual_seed(
                 epoch_seed(cfg.runtime.seed, epoch))
             batches = prefetch_to_device(run.loader.epoch(epoch), run.device)
-            for i, batch in enumerate(batches):
-                if dist_lib.poll_stop(guard.should_stop, i, log_every):
-                    # mid-epoch: no save; the last epoch's slot is the
-                    # requeue state and this epoch replays
-                    run.logger.log({"preempted_in_epoch": epoch},
-                                   echo=f"preemption signal mid-epoch "
-                                        f"{epoch}: exiting for requeue, "
-                                        f"epoch {epoch} replays from the "
-                                        "last .resume state")
-                    raise Preempted()
-                img = batch["image"]
-                out = run.full_step(run.model, run.optimizer, img, gen,
-                                    run.step)
-                run.step += 1
-                meter.update(img.shape[0])
-                if (i + 1) % log_every == 0:
-                    run.logger.log({"epoch": epoch, "step": i + 1,
-                                    "loss": float(out["loss"]),
-                                    "grad_norm": float(out["grad_norm"]),
-                                    **meter.rates(n_steps - (i + 1))})
+            with StepTrace(cfg.runtime.profile_dir
+                           if epoch == run.start_epoch else None,
+                           run.device, dist_lib.process_index()) as trace:
+                for i, batch in enumerate(batches):
+                    if dist_lib.poll_stop(guard.should_stop, i, log_every):
+                        # mid-epoch: no save; the last epoch's slot is the
+                        # requeue state and this epoch replays
+                        run.logger.log({"preempted_in_epoch": epoch},
+                                       echo=f"preemption signal mid-epoch "
+                                            f"{epoch}: exiting for requeue, "
+                                            f"epoch {epoch} replays from the "
+                                            "last .resume state")
+                        raise Preempted()
+                    trace.step(i)
+                    img = batch["image"]
+                    out = run.full_step(run.model, run.optimizer, img, gen,
+                                        run.step)
+                    run.step += 1
+                    meter.update(img.shape[0])
+                    if (i + 1) % log_every == 0:
+                        run.logger.log({"epoch": epoch, "step": i + 1,
+                                        "loss": float(out["loss"]),
+                                        "grad_norm": float(out["grad_norm"]),
+                                        **meter.rates(n_steps - (i + 1))})
             run.save(epoch)
             mem = peak_memory_mb(run.device)
             if mem is not None:

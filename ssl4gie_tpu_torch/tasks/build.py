@@ -250,7 +250,8 @@ def build_trainer(cfg: TrainConfig, **widths) -> Trainer:
                    test_loader=test_loader, logger=logger, ckpt=ckpt,
                    epochs=cfg.epochs, accum_steps=o.accum_steps, seed=seed,
                    plateau=plateau, eval_finalize=finalize,
-                   log_every=cfg.runtime.log_every)
+                   log_every=cfg.runtime.log_every,
+                   profile_dir=cfg.runtime.profile_dir)
 
 
 def load_backbone(cfg: TrainConfig, model: torch.nn.Module) -> None:
