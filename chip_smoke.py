@@ -37,6 +37,11 @@
      the forward's two products alone at their N tile and at the other N
      tile that divides C (`products_b2b_ms`); and the dense attention at
      Dh=32, (256, 197, 3*512), 16 heads;
+   - LayerNorm (port-only, `csrc/layer_norm.cu`): the bf16 forward and
+     backward at the MAE encoder's (12800, 768) and decoder's (50432, 512)
+     rows, per call and back to back, beside the plain version (the
+     three-pass forward and four-pass backward the route ran before) and
+     `F.layer_norm` with bf16-cast scale and bias (a yardstick only);
    - A/B variants (the kernels of the JAX package's kernel harnesses):
      every configuration that a harness leg launches (#10 packed-QKV v2 at
      G 2 and 4, Nb 256 and 208, and #11 save-P at G 2, Nb 208, at the
@@ -310,6 +315,7 @@ from ssl4gie_tpu_torch.kernels import attention_variants as av
 from ssl4gie_tpu_torch.kernels import dense_attention as da
 from ssl4gie_tpu_torch.kernels import flash_attention as fa
 from ssl4gie_tpu_torch.kernels import fused_mlp as fm
+from ssl4gie_tpu_torch.kernels import layer_norm as lnk
 from ssl4gie_tpu_torch.kernels import rotate as rot
 from ssl4gie_tpu_torch.kernels import window_attention as wa
 from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
@@ -1511,6 +1517,80 @@ def mae_kernel_phase(card: str) -> list[dict]:
     return results
 
 
+# the MAE cell's LayerNorm rows: the encoder's 25 (norm1, norm2 of 12
+# blocks, norm) over 50 tokens, the decoder's 17 over 197
+LN_SHAPES = {"encoder": (MAE_ENC_TOKENS, 768), "decoder": (MAE_DEC_TOKENS,
+                                                           MAE_DEC_DIM)}
+
+
+def layer_norm_kernel_phase(card: str) -> list[dict]:
+    """The bf16 LayerNorm kernels (`csrc/layer_norm.cu`, port-only) at the
+    MAE encoder's and decoder's rows against their plain version (the
+    route's former three passes forward, four backward by autograd), and
+    against `F.layer_norm` on bf16 rows with bf16-cast scale and bias, a
+    yardstick only: the port never calls it, as it rounds the scale, the
+    bias and their gradients. Bytes: forward x in, y out (2 + 2 a value),
+    mean and rstd out; backward dy and x in, dx out (2 + 2 + 2), mean, rstd
+    and the scale in, dgamma and dbeta out."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    F = torch.nn.functional
+    tol = 2.0 ** -8          # one bf16 ulp (of the element or the largest)
+    eps = 1e-6
+    results = []
+    for where, (m, c) in LN_SHAPES.items():
+        x = (torch.randn((m, c), generator=gen, device=dev) * 1.5 + 0.3
+             ).to(torch.bfloat16)
+        dy = torch.randn((m, c), generator=gen, device=dev).to(torch.bfloat16)
+        w = 1 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        y, stats = lnk.layer_norm_fwd(x, w, b, eps)
+        dx, dw, db = lnk.layer_norm_bwd(dy, x, stats, w)
+        torch.cuda.synchronize()
+        y_p, stats_p = lnk.layer_norm_fwd_plain(x, w, b, eps)
+        err_f = check_close(f"layer_norm_fwd {where}", y, y_p, tol)
+        for k, stat in enumerate(("mean", "rstd")):
+            check_close(f"layer_norm_fwd {where} {stat}", stats[k],
+                        stats_p[k], 1e-6)
+        xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, b))
+        yg = lnk.layer_norm_plain(xg, wg, bg, eps)
+        dx_p, dw_p, db_p = torch.autograd.grad(yg, (xg, wg, bg), dy,
+                                               retain_graph=True)
+        err_b = check_close(f"layer_norm_bwd {where} dx", dx, dx_p, tol)
+        for name, got, want in (("dgamma", dw, dw_p), ("dbeta", db, db_p)):
+            check_close(f"layer_norm_bwd {where} {name}", got, want, 1e-5)
+        fwd_ms = cuda_ms(lambda: lnk.layer_norm_fwd(x, w, b, eps))
+        fwd_b2b = cuda_ms_b2b(lambda: lnk.layer_norm_fwd(x, w, b, eps))
+        bwd_ms = cuda_ms(lambda: lnk.layer_norm_bwd(dy, x, stats, w))
+        bwd_b2b = cuda_ms_b2b(lambda: lnk.layer_norm_bwd(dy, x, stats, w))
+        fwd_plain = cuda_ms(lambda: lnk.layer_norm_plain(x, w, b, eps))
+        bwd_plain = cuda_ms(lambda: torch.autograd.grad(
+            yg, (xg, wg, bg), dy, retain_graph=True))
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        fwd_lib = cuda_ms(lambda: F.layer_norm(x, (c,), w16, b16, eps))
+        xl, wl, bl = (t.detach().requires_grad_(True) for t in (x, w16, b16))
+        yl = F.layer_norm(xl, (c,), wl, bl, eps)
+        bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl, bl), dy, retain_graph=True))
+        del xg, wg, bg, yg, xl, wl, bl, yl
+        fwd = result(f"layer_norm_fwd_{where}", "layer_norm.cu", None,
+                     err_f, fwd_ms, fwd_plain, fwd_lib, 0,
+                     m * c * 4 + m * 8 + c * 8, b2b_ms=fwd_b2b)
+        bwd = result(f"layer_norm_bwd_{where}", "layer_norm.cu", None,
+                     err_b, bwd_ms, bwd_plain, bwd_lib, 0,
+                     m * c * 6 + m * 8 + c * 4 + c * 8, b2b_ms=bwd_b2b)
+        results += [fwd, bwd]
+        for r in (fwd, bwd):
+            print(f"[kernel] {r['name']} ({m}, {c}) bf16: max|err|="
+                  f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms (b2b "
+                  f"{r['b2b_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}; b2b at "
+                  f"{100 * r['bound_ms'] / r['b2b_ms']:.1f}%), plain "
+                  f"{r['plain_ms']:.4f} ms, F.layer_norm with bf16 scale "
+                  f"and bias {r['library_ms']:.4f} ms  [{card}]", flush=True)
+    return results
+
+
 def attention_rows(tag: str, seqs: int, heads: int, dh: int,
                    card: str) -> list[dict]:
     """#1 and #2 at (seqs, TOKENS, 3 * heads * dh) against their plain
@@ -1617,10 +1697,12 @@ def mae_path(card: str) -> dict:
     fused_flag = layers.FUSED_MLP
     layers.FUSED_MLP = True          # this phase only
     try:
-        for fn in MAE_COUNTERS.values():
+        for fn in (*MAE_COUNTERS.values(), lnk.layer_norm_fwd,
+                   lnk.layer_norm_bwd):
             fn.launches = 0
-        fm.mlp_fwd.by_width.clear()
-        fm.mlp_bwd.by_width.clear()
+        for fn in (fm.mlp_fwd, fm.mlp_bwd, lnk.layer_norm_fwd,
+                   lnk.layer_norm_bwd):
+            fn.by_width.clear()
         outs = []
         n_steps = MAE_WARMUP_STEPS + MAE_TIMED_STEPS
         for step in range(n_steps):
@@ -1653,6 +1735,22 @@ def mae_path(card: str) -> dict:
                                          f"{fn.by_width[d]} launches")
         counts.update({k: v for k, v in launches.items()
                        if k.startswith("dense")})
+        # the bf16 LayerNorm: 2 a block and the final norm, both ways, each
+        # width counted where it launches
+        for kind, fn in (("fwd", lnk.layer_norm_fwd),
+                         ("bwd", lnk.layer_norm_bwd)):
+            print(f"[mae] layer_norm_{kind} launches over {n_steps} steps: "
+                  f"{fn.launches}, by width {dict(fn.by_width)}", flush=True)
+            for d, where, blocks in ((768, "encoder", enc),
+                                     (MAE_DEC_DIM, "decoder", dec)):
+                counts[f"layer_norm_{kind}_{where}"] = fn.by_width[d]
+                if fn.by_width[d] != (2 * blocks + 1) * n_steps:
+                    raise AssertionError(f"the MAE path's LayerNorm {kind} "
+                                         f"at width {d}: {fn.by_width[d]} "
+                                         f"launches")
+            if fn.launches != (2 * (enc + dec) + 2) * n_steps:
+                raise AssertionError(f"the MAE path's LayerNorm {kind}: "
+                                     f"{fn.launches} launches")
         hist = [{k: float(v) for k, v in o.items()} for o in outs]
         print(f"[mae] loss / grad_norm: {hist}", flush=True)
         if not all(np.isfinite(list(h.values())).all() for h in hist):
@@ -4379,6 +4477,7 @@ def main() -> None:
               ("kernels (rotation, its path shapes)", rotate_kernel_phase),
               ("kernels (detection shapes)", det_kernel_phase),
               ("kernels (MAE shapes)", mae_kernel_phase),
+              ("kernels (LayerNorm, MAE rows)", layer_norm_kernel_phase),
               ("kernels (MoCo shapes)", moco_kernel_phase),
               ("kernels (A/B variants)", variant_kernel_phase),
               ("kernels (float32 instances, Dh 80)", f32_kernel_phase),

@@ -30,6 +30,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
@@ -61,6 +63,9 @@ SIGNATURES = {
                                    _P),
     "ssl4gie_window_attn_v2_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _F, _P),
+    "ssl4gie_layer_norm_fwd": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "ssl4gie_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _P),
 }
 # the float32 instances of the attention kernels take what the bf16 ones take
 SIGNATURES.update({
@@ -180,3 +185,19 @@ def launch(name: str, *args) -> None:
     if code != 0:
         msg = lib.ssl4gie_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+
+
+def launch_on(device: torch.device, name: str, *args) -> None:
+    """`launch` on `device`'s current stream, which goes last among the
+    entry point's arguments, making `device` current only where it is not.
+    The current device and stream are read through torch's raw accessors,
+    the ones torch's own generated kernels launch with:
+    `torch.cuda.current_stream` builds a Stream object and
+    `torch.cuda.device` a context manager at each call, host time on the
+    step's critical path at every launch."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        launch(name, *args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            launch(name, *args, torch._C._cuda_getCurrentRawStream(index))

@@ -44,8 +44,7 @@ from __future__ import annotations
 import torch
 
 from ssl4gie_tpu_torch.kernels import _build
-from ssl4gie_tpu_torch.kernels.dense_attention import (HEAD_DIM, _check_cuda,
-                                                       _stream)
+from ssl4gie_tpu_torch.kernels.dense_attention import HEAD_DIM, _check_cuda
 from ssl4gie_tpu_torch.kernels.window_attention import (_dims, _lse_shape,
                                                         merge, partition)
 
@@ -232,10 +231,9 @@ def attention_v2_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
     out = qkv.new_empty((B, N, C))
     lse = torch.empty((B, num_heads, N), dtype=torch.float32,
                       device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_attn_v2_fwd", qkv.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), B, N, num_heads, block, G, float(scale),
-                      _stream(qkv))
+    _build.launch_on(qkv.device, "ssl4gie_attn_v2_fwd", qkv.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), B, N, num_heads, block, G,
+                     float(scale))
     attention_v2_fwd.launches += 1
     return out, lse
 
@@ -259,10 +257,9 @@ def attention_v2_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     _check_cuda("dout", dout, (B, N, C))
     _check_stats("lse", lse, (B, num_heads, N))
     dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_attn_v2_bwd", qkv.data_ptr(), out.data_ptr(),
-                      lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
-                      num_heads, block, G, float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, "ssl4gie_attn_v2_bwd", qkv.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                     dqkv.data_ptr(), B, N, num_heads, block, G, float(scale))
     attention_v2_bwd.launches += 1
     return dqkv
 
@@ -281,10 +278,9 @@ def attention_save_p_fwd(qkv: torch.Tensor, num_heads: int, scale: float,
     G = _check_group(G)
     out = qkv.new_empty((B, N, C))
     p = qkv.new_empty((B, num_heads, N, block))
-    with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_attn_savep_fwd", qkv.data_ptr(),
-                      out.data_ptr(), p.data_ptr(), B, N, num_heads, block, G,
-                      float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, "ssl4gie_attn_savep_fwd", qkv.data_ptr(),
+                     out.data_ptr(), p.data_ptr(), B, N, num_heads, block, G,
+                     float(scale))
     attention_save_p_fwd.launches += 1
     return out, p
 
@@ -309,10 +305,9 @@ def attention_save_p_bwd(qkv: torch.Tensor, p: torch.Tensor,
     _check_cuda("p", p, (B, num_heads, N, block))
     _check_cuda("dout", dout, (B, N, C))
     dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_attn_savep_bwd", qkv.data_ptr(), p.data_ptr(),
-                      dout.data_ptr(), dqkv.data_ptr(), B, N, num_heads,
-                      block, G, float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, "ssl4gie_attn_savep_bwd", qkv.data_ptr(),
+                     p.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
+                     num_heads, block, G, float(scale))
     attention_save_p_bwd.launches += 1
     return dqkv
 
@@ -346,10 +341,9 @@ def window_v2_fwd(qkv: torch.Tensor, num_heads: int, window: int,
     out = qkv.new_empty((B, GH, GW, C))
     lse = torch.empty(_lse_shape(B, GH, GW, num_heads, window),
                       dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_window_attn_v2_fwd", qkv.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), B, GH, GW, window,
-                      num_heads, int(G), float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, "ssl4gie_window_attn_v2_fwd", qkv.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), B, GH, GW, window,
+                     num_heads, int(G), float(scale))
     window_v2_fwd.launches += 1
     return out, lse
 
@@ -373,11 +367,10 @@ def window_v2_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
     _check_cuda("dout", dout, (B, GH, GW, C))
     _check_stats("lse", lse, _lse_shape(B, GH, GW, num_heads, window))
     dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        _build.launch("ssl4gie_window_attn_v2_bwd", qkv.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                      dqkv.data_ptr(), B, GH, GW, window, num_heads, int(G),
-                      float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, "ssl4gie_window_attn_v2_bwd", qkv.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                     dqkv.data_ptr(), B, GH, GW, window, num_heads, int(G),
+                     float(scale))
     window_v2_bwd.launches += 1
     return dqkv
 

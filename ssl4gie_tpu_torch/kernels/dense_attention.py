@@ -118,10 +118,6 @@ def _check_qkv(qkv: torch.Tensor, num_heads: int):
     return B, N, C, Dh
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def attention_fwd(qkv: torch.Tensor, num_heads: int, scale: float):
     """Forward: (B, N, 3C) -> (out (B, N, C), lse (B, H, N) f32). Launches
     `attn_fwd` (bf16) or `attn_fwd_f32` on a CUDA tensor; the plain version
@@ -133,10 +129,9 @@ def attention_fwd(qkv: torch.Tensor, num_heads: int, scale: float):
     B, N, C, Dh = _check_qkv(qkv, num_heads)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        _build.launch(_entry("ssl4gie_attn_fwd", qkv), qkv.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), B, N, num_heads, Dh,
-                      float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, _entry("ssl4gie_attn_fwd", qkv),
+                     qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, N,
+                     num_heads, Dh, float(scale))
     _count(attention_fwd, qkv, Dh)
     return out, lse
 
@@ -168,11 +163,10 @@ def attention_bwd(qkv: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
                          "float32 tensor")
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
-    with torch.cuda.device(qkv.device):
-        _build.launch(_entry("ssl4gie_attn_bwd", qkv), qkv.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                      delta.data_ptr(), dqkv.data_ptr(), B, N, num_heads, Dh,
-                      float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, _entry("ssl4gie_attn_bwd", qkv),
+                     qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     dout.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, N,
+                     num_heads, Dh, float(scale))
     _count(attention_bwd, qkv, Dh)
     return dqkv
 

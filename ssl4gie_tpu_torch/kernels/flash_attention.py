@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels.dense_attention import (HEAD_DIM, _check_cuda,
-                                                       _count, _entry, _stream)
+                                                       _count, _entry)
 
 Q_BLOCK = 256
 MASK_VALUE = -1e30        # the masked score, as the Pallas kernel's
@@ -92,10 +92,9 @@ def flash_fwd(q, k, v, scale: float, n_valid=None):
     n = _n_valid(N, n_valid)
     o = torch.empty_like(q)
     lse = torch.empty((BH, N), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _build.launch(_entry("ssl4gie_flash_fwd", q), q.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                      BH, N, n, float(scale), _stream(q))
+    _build.launch_on(q.device, _entry("ssl4gie_flash_fwd", q), q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                     BH, N, n, float(scale))
     _count(flash_fwd, q)
     return o, lse
 
@@ -122,12 +121,10 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, n_valid=None):
                          "on q's device")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
-    with torch.cuda.device(q.device):
-        _build.launch(_entry("ssl4gie_flash_bwd", q), q.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                      dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr(), BH, N, n, float(scale),
-                      _stream(q))
+    _build.launch_on(q.device, _entry("ssl4gie_flash_bwd", q), q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                     dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), BH, N, n, float(scale))
     _count(flash_bwd, q)
     return dq, dk, dv
 

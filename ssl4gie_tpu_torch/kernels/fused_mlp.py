@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ssl4gie_tpu_torch.kernels import _build
-from ssl4gie_tpu_torch.kernels.dense_attention import _check_cuda, _stream
+from ssl4gie_tpu_torch.kernels.dense_attention import _check_cuda
 
 WIDTH_MULTIPLE = 128     # C and H: the kernels' 128-wide output tiles
 
@@ -94,11 +94,10 @@ def mlp_fwd(x2, w1, b1, w2, b2, approximate: bool = True):
                              ("b2", b2, (C,))))
     h = torch.empty((M, H), dtype=x2.dtype, device=x2.device)
     y = torch.empty((M, C), dtype=x2.dtype, device=x2.device)
-    with torch.cuda.device(x2.device):
-        _build.launch("ssl4gie_mlp_fwd", x2.data_ptr(), w1.data_ptr(),
-                      b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                      h.data_ptr(), y.data_ptr(), M, C, H, int(approximate),
-                      _stream(x2))
+    _build.launch_on(x2.device, "ssl4gie_mlp_fwd", x2.data_ptr(),
+                     w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                     b2.data_ptr(), h.data_ptr(), y.data_ptr(), M, C, H,
+                     int(approximate))
     mlp_fwd.launches += 1
     mlp_fwd.by_width[C] += 1
     return y, h
@@ -122,10 +121,9 @@ def mlp_bwd(h, dy, w2, approximate: bool = True):
                             ("w2^T", w2.t(), (C, H))))
     dh = torch.empty_like(h)
     g = torch.empty_like(h)
-    with torch.cuda.device(h.device):
-        _build.launch("ssl4gie_mlp_bwd", h.data_ptr(), dy.data_ptr(),
-                      w2.data_ptr(), dh.data_ptr(), g.data_ptr(), M, C, H,
-                      int(approximate), _stream(h))
+    _build.launch_on(h.device, "ssl4gie_mlp_bwd", h.data_ptr(), dy.data_ptr(),
+                     w2.data_ptr(), dh.data_ptr(), g.data_ptr(), M, C, H,
+                     int(approximate))
     mlp_bwd.launches += 1
     mlp_bwd.by_width[C] += 1
     return dh, g

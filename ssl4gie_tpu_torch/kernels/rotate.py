@@ -94,12 +94,10 @@ def shear_rotate(g: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous ({B},) {dt} tensor "
                              f"on {g.device}")
     out = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        _build.launch("ssl4gie_shear_rotate", g.data_ptr(), alpha.data_ptr(),
-                      beta.data_ptr(),
-                      None if quarter is None else quarter.data_ptr(),
-                      out.data_ptr(), B, H, W, C, float(fill),
-                      torch.cuda.current_stream(g.device).cuda_stream)
+    _build.launch_on(g.device, "ssl4gie_shear_rotate", g.data_ptr(),
+                     alpha.data_ptr(), beta.data_ptr(),
+                     None if quarter is None else quarter.data_ptr(),
+                     out.data_ptr(), B, H, W, C, float(fill))
     shear_rotate.launches += 1
     return out
 

@@ -21,7 +21,7 @@ import torch
 
 from ssl4gie_tpu_torch.kernels import _build
 from ssl4gie_tpu_torch.kernels.dense_attention import (
-    HEAD_DIM, MAX_FUSED_SEQ, _check_cuda, _count, _entry, _stream,
+    HEAD_DIM, MAX_FUSED_SEQ, _check_cuda, _count, _entry,
     fused_qkv_attention_fwd_plain)
 
 
@@ -110,10 +110,9 @@ def window_attention_fwd(qkv: torch.Tensor, num_heads: int, window: int,
     out = torch.empty((B, GH, GW, C), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(_lse_shape(B, GH, GW, num_heads, window),
                       dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        _build.launch(_entry("ssl4gie_window_attn_fwd", qkv), qkv.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), B, GH, GW, window,
-                      num_heads, float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, _entry("ssl4gie_window_attn_fwd", qkv),
+                     qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), B, GH, GW,
+                     window, num_heads, float(scale))
     _count(window_attention_fwd, qkv)
     return out, lse
 
@@ -145,11 +144,10 @@ def window_attention_bwd(qkv: torch.Tensor, out: torch.Tensor,
         raise ValueError(f"lse must be a contiguous {shape} float32 tensor")
     dqkv = torch.empty_like(qkv)
     delta = torch.empty_like(lse)          # scratch: rowsum(dO * O)
-    with torch.cuda.device(qkv.device):
-        _build.launch(_entry("ssl4gie_window_attn_bwd", qkv), qkv.data_ptr(),
-                      out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                      delta.data_ptr(), dqkv.data_ptr(), B, GH, GW, window,
-                      num_heads, float(scale), _stream(qkv))
+    _build.launch_on(qkv.device, _entry("ssl4gie_window_attn_bwd", qkv),
+                     qkv.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     dout.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), B, GH,
+                     GW, window, num_heads, float(scale))
     _count(window_attention_bwd, qkv)
     return dqkv
 

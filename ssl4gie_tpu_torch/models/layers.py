@@ -2,8 +2,9 @@
 
 Parameters are float32 masters with timm names; `dtype` is the compute dtype.
 Under bfloat16 each layer casts its weights to bfloat16 where it uses them, as
-flax `dtype=bfloat16` does: LayerNorm statistics are taken in float32 (eps
-1e-6) and the result cast back, GELU is the tanh form under bfloat16 and the
+flax `dtype=bfloat16` does: LayerNorm statistics, scale and bias are taken in
+float32 (eps 1e-6) and the result cast back (on the card in one pass each
+way, `kernels.layer_norm`), GELU is the tanh form under bfloat16 and the
 exact erf form under float32. Activations are NHWC images and (B, N, C) token
 sequences, as in the JAX package.
 
@@ -49,6 +50,7 @@ from torch import nn
 from ssl4gie_tpu_torch.kernels.dense_attention import (MAX_FUSED_SEQ,
                                                        fused_qkv_attention)
 from ssl4gie_tpu_torch.kernels.flash_attention import flash_attention_heads
+from ssl4gie_tpu_torch.kernels import layer_norm as ln_kernel
 from ssl4gie_tpu_torch.kernels.fused_mlp import fused_mlp
 from ssl4gie_tpu_torch.kernels.window_attention import windowed_flash_attention
 from ssl4gie_tpu_torch.ops.resize import resize_bilinear_ac
@@ -183,8 +185,18 @@ def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm,
                dtype: torch.dtype) -> torch.Tensor:
-    return F.layer_norm(x.to(torch.float32), ln.normalized_shape, ln.weight,
-                        ln.bias, ln.eps).to(dtype)
+    """flax `nn.LayerNorm(dtype=dtype)` over the last dim: statistics,
+    scale and bias in float32, the result rounded to `dtype`. A bfloat16 x
+    under bfloat16 compute goes through `kernels.layer_norm` (on the card
+    one pass each way; on the CPU its plain version, this same formula);
+    every other case runs the formula here."""
+    w, b = ln.weight, ln.bias
+    if (x.dtype == dtype == torch.bfloat16
+            and w.dtype == b.dtype == torch.float32
+            and ln.normalized_shape == (x.shape[-1],)):
+        return ln_kernel.layer_norm(x.contiguous(), w, b, ln.eps)
+    return F.layer_norm(x.to(torch.float32), ln.normalized_shape, w, b,
+                        ln.eps).to(dtype)
 
 
 def plain_attention(q, k, v, scale: float):

@@ -262,7 +262,7 @@ def test_port_imports_no_jax():
         " 'data.transfer', 'ssl.lr_decay', 'ssl.probe',"
         " 'convert.torch_names', 'convert.loaders', 'utils', 'cli.convert',"
         " 'core.mesh', 'parallel.distributed', 'parallel.tp',"
-        " 'benchmarks.ablate_resident_backward'):\n"
+        " 'benchmarks.ablate_resident_backward', 'kernels.layer_norm'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax', 'ssl4gie_tpu')"
         " if m in sys.modules))\n")
