@@ -37,6 +37,11 @@
      the forward's two products alone at their N tile and at the other N
      tile that divides C (`products_b2b_ms`); and the dense attention at
      Dh=32, (256, 197, 3*512), 16 heads;
+   - NMS (port-only, `csrc/nms.cu`): the RPN's train call (16 x 8,768
+     candidates, k 1,000) and the detections' eval call (2 x 1,000, k
+     100), bit for bit against the slot loop on the card, per call, back to
+     back, beside the slot loop's time and the bound
+     (`ssl4gie_tpu_torch/benchmarks/bench_nms.py`);
    - LayerNorm (port-only, `csrc/layer_norm.cu`): the bf16 forward and
      backward at the MAE encoder's (12800, 768) and decoder's (50432, 512)
      rows, per call and back to back, beside the plain version (the
@@ -285,6 +290,7 @@ import numpy as np
 import torch
 
 from ssl4gie_tpu_torch.benchmarks import bench_attention_kernel as bak
+from ssl4gie_tpu_torch.benchmarks import bench_nms
 from ssl4gie_tpu_torch.benchmarks import bench_rotate as brot
 from ssl4gie_tpu_torch.benchmarks import bench_window_kernel as bwk
 from ssl4gie_tpu_torch.cli import args as targs
@@ -316,6 +322,7 @@ from ssl4gie_tpu_torch.kernels import dense_attention as da
 from ssl4gie_tpu_torch.kernels import flash_attention as fa
 from ssl4gie_tpu_torch.kernels import fused_mlp as fm
 from ssl4gie_tpu_torch.kernels import layer_norm as lnk
+from ssl4gie_tpu_torch.kernels import nms as nmsk
 from ssl4gie_tpu_torch.kernels import rotate as rot
 from ssl4gie_tpu_torch.kernels import window_attention as wa
 from ssl4gie_tpu_torch.metrics.classification import weighted_cross_entropy
@@ -1591,6 +1598,32 @@ def layer_norm_kernel_phase(card: str) -> list[dict]:
     return results
 
 
+def nms_kernel_phase(card: str) -> list[dict]:
+    """The NMS kernel (`csrc/nms.cu`, port-only) at the RPN's train call
+    (16 x 8,768 candidates, k 1,000) and the detections' eval call (2 x
+    1,000, k 100), bit for bit against the slot loop on the card, per call,
+    back to back and beside the slot loop's time
+    (`benchmarks/bench_nms.py`, whose `work` and float32 peak the bound
+    takes)."""
+    results = []
+    for name, r in bench_nms.phase().items():
+        (B, N), k = r["shape"], r["k"]
+        row = result(name, "nms.cu", None, 0.0, r["kernel_ms"],
+                     r["slot_loop_ms"], None, *bench_nms.work(B, N, k),
+                     bench_nms.PEAK_FP32,
+                     b2b_ms=r["b2b_ms"], kept_per_image=r["kept_per_image"])
+        if r["launches_per_call"] != 1:
+            raise AssertionError(f"{name}: {r['launches_per_call']} launches "
+                                 "a call, want 1")
+        print(f"[kernel] {name} ({B}, {N}), k {k}: bitwise the slot loop; "
+              f"kernel {row['ms']:.4f} ms (b2b {row['b2b_ms']:.4f}), bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}), slot loop "
+              f"{row['plain_ms']:.2f} ms, kept {r['kept_per_image']:.1f} an "
+              f"image  [{card}]", flush=True)
+        results.append(row)
+    return results
+
+
 def attention_rows(tag: str, seqs: int, heads: int, dh: int,
                    card: str) -> list[dict]:
     """#1 and #2 at (seqs, TOKENS, 3 * heads * dh) against their plain
@@ -1988,6 +2021,7 @@ def det_path(card: str) -> dict:
 
     for fn in DET_COUNTERS.values():
         fn.launches = 0
+    nmsk.nms_topk.launches = 0
     losses = []
     n_steps = DET_WARMUP_STEPS + DET_TIMED_STEPS
     for step in range(n_steps):
@@ -2008,6 +2042,10 @@ def det_path(card: str) -> dict:
     if launches != expected:
         raise AssertionError("the detection path did not run through the "
                              f"kernels as expected: {launches} != {expected}")
+    # the RPN's NMS, one launch a step
+    nms_step = nmsk.nms_topk.launches / n_steps
+    if nms_step != 1:
+        raise AssertionError(f"{nms_step} NMS launches a step, want 1")
     losses = [{k: float(v) for k, v in d.items()} for d in losses]
     print(f"[det] losses: {losses}", flush=True)
     if not all(np.isfinite(list(d.values())).all() for d in losses):
@@ -2023,9 +2061,14 @@ def det_path(card: str) -> dict:
           flush=True)
 
     model.eval()
+    nmsk.nms_topk.launches = 0
     with torch.no_grad():
         det = model(batch["image"].to(torch.float32) / 255.0)
     torch.cuda.synchronize()
+    # the RPN's and the detections' NMS, one launch each
+    nms_eval = nmsk.nms_topk.launches
+    if nms_eval != 2:
+        raise AssertionError(f"{nms_eval} NMS launches an eval batch, want 2")
     D = model.detections_per_img
     shapes = {k: tuple(v.shape) for k, v in det.items()}
     want = {"boxes": (DET_B, D, 4), "scores": (DET_B, D),
@@ -2057,7 +2100,8 @@ def det_path(card: str) -> dict:
     if not bool(torch.isfinite(fmap).all()) or err > LOGIT_TOL * scale:
         raise AssertionError(f"backbone maps disagree: {err} > {LOGIT_TOL} "
                              f"* {scale}")
-    return {k: v for k, v in launches.items() if not k.endswith("_f32")}
+    return {**{k: v for k, v in launches.items() if not k.endswith("_f32")},
+            "nms_rpn_train": nms_step, "nms_eval": nms_eval}
 
 
 def det_rn50_path(card: str) -> dict:
@@ -4478,6 +4522,7 @@ def main() -> None:
               ("kernels (detection shapes)", det_kernel_phase),
               ("kernels (MAE shapes)", mae_kernel_phase),
               ("kernels (LayerNorm, MAE rows)", layer_norm_kernel_phase),
+              ("kernels (NMS, detection shapes)", nms_kernel_phase),
               ("kernels (MoCo shapes)", moco_kernel_phase),
               ("kernels (A/B variants)", variant_kernel_phase),
               ("kernels (float32 instances, Dh 80)", f32_kernel_phase),

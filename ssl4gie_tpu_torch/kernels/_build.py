@@ -66,6 +66,7 @@ SIGNATURES = {
     "ssl4gie_layer_norm_fwd": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
     "ssl4gie_layer_norm_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _P),
+    "ssl4gie_nms_topk": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 # the float32 instances of the attention kernels take what the bf16 ones take
 SIGNATURES.update({

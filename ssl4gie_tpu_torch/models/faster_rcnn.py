@@ -6,8 +6,9 @@ The reference's two detectors: the ViT-B detector (`arch="vit_b"`,
 detector (`arch="resnet50"`, `fasterrcnn_resnet50_fpn`, whose canvas is
 torchvision's 1333 rounded up to 1344). Images arrive pre-padded to a fixed
 square, proposal and detection counts are fixed top-k with validity masks,
-NMS is the exact greedy slot loop (`ops/nms.py`), RoIAlign the single-pass
-gather (`ops/roi_align.py`). ImageNet normalization happens inside the
+NMS is the exact greedy slot loop (`ops/nms.py`; on the card one launch of
+the NMS kernel, `kernels/nms.py`, that runs the same loop), RoIAlign the
+single-pass gather (`ops/roi_align.py`). ImageNet normalization happens inside the
 model, as in torchvision's GeneralizedRCNNTransform. Module names follow
 torchvision where the JAX tree has a counterpart: `backbone` (with `fpn`
 beside it for the ViT, inside it for the RN50: `backbone.body`,

@@ -5,9 +5,12 @@ suppress IoU > threshold), each a handful of vector ops over all images at
 once, so the loop costs k iterations whatever the batch. Output is always k
 indices and a validity mask per image; exhausted slots are invalid. This is
 torchvision's greedy NMS for the top-k survivors, which is all callers
-consume (RPN post_nms_top_n, detections_per_img). No value leaves the device
-inside the loop. The loop runs under the span "nms_topk"
-(`core/spans.py`), so a `torch.profiler` trace shows its share of a step.
+consume (RPN post_nms_top_n, detections_per_img). The loop (`_nms_topk`)
+is the definition and runs on CPU tensors; CUDA tensors go to the NMS
+kernel (`kernels/nms.py`, `csrc/nms.cu`), one launch a call that runs the
+same loop on the card and returns its indices and validity bit for bit.
+Either runs under the span "nms_topk" (`core/spans.py`), so a
+`torch.profiler` trace shows its share of a step.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ssl4gie_tpu_torch.core.spans import span
+from ssl4gie_tpu_torch.kernels import nms as nms_kernel
 
 
 def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
@@ -25,8 +29,11 @@ def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     Returns (indices (B, k) int64, out_valid (B, k) bool): indices into each
     image's N boxes in descending score order; out_valid False for exhausted
     slots. `torch.argmax` returns the first maximum, as `jnp.argmax` does.
+    CUDA tensors: one launch of the NMS kernel; CPU tensors: the slot loop.
     """
     with span("nms_topk"):
+        if boxes.device.type == "cuda":
+            return nms_kernel.nms_topk(boxes, scores, iou_threshold, k, valid)
         return _nms_topk(boxes, scores, iou_threshold, k, valid)
 
 

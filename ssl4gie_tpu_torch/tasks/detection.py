@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ssl4gie_tpu_torch.core.logger import Throughput
+from ssl4gie_tpu_torch.core.spans import span
 from ssl4gie_tpu_torch.core.train_state import apply_gradients
 from ssl4gie_tpu_torch.core.trainer import TaskDefinition, Trainer
 from ssl4gie_tpu_torch.data.augment import (HUE, JITTER, SIGMA_RANGE,
@@ -283,7 +284,10 @@ def detection_augment(img_u8: torch.Tensor, gt_boxes: torch.Tensor,
 def make_detection_train_step(accum_steps: int = 1):
     """Returns train_step(model, optimizer, batch, generator=None,
     noise=None) -> {"loss": total, and each loss of the dict}, averaged over
-    the microbatches. `batch` holds "image", "gt_boxes", "gt_labels",
+    the microbatches. Spans (`core/spans.py`): `ssl4gie.forward` (the model
+    and its loss dict, `nms_topk` inside) and `ssl4gie.backward` once a
+    microbatch, then `ssl4gie.optimizer` (the accumulated gradients'
+    division and the update). `batch` holds "image", "gt_boxes", "gt_labels",
     "gt_valid" (batch on dim 0, divisible by `accum_steps`). The samplers'
     noise comes from `noise` (one dict per microbatch, as
     `FasterRCNN.draw_noise` gives) or is drawn from `generator`."""
@@ -302,19 +306,23 @@ def make_detection_train_step(accum_steps: int = 1):
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
             with dist_lib.gradient_sync(model, i == accum_steps - 1):
-                losses = model(images[sl], batch["gt_boxes"][sl],
-                               batch["gt_labels"][sl], batch["gt_valid"][sl],
-                               train=True, generator=generator,
-                               noise=None if noise is None else noise[i])
-                total = sum(losses.values())
-                total.backward()       # sums the microbatch gradients
+                with span("ssl4gie.forward"):
+                    losses = model(images[sl], batch["gt_boxes"][sl],
+                                   batch["gt_labels"][sl],
+                                   batch["gt_valid"][sl], train=True,
+                                   generator=generator,
+                                   noise=None if noise is None else noise[i])
+                    total = sum(losses.values())
+                with span("ssl4gie.backward"):
+                    total.backward()       # sums the microbatch gradients
             for k, v in {"loss": total, **losses}.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
-        if accum_steps > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum_steps)
-        apply_gradients(optimizer)
+        with span("ssl4gie.optimizer"):
+            if accum_steps > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
+            apply_gradients(optimizer)
         return {k: dist_lib.global_mean(v / accum_steps)
                 for k, v in sums.items()}
 
@@ -325,18 +333,25 @@ def make_detection_full_step(accum_steps: int = 1):
     """Returns full_step(model, optimizer, batch, generator,
     model_generator=None): sample the augmentation from `generator`,
     augment the uint8 batch on its device, then take one train step, whose
-    sampler noise comes from `model_generator` (by default `generator`)."""
+    sampler noise comes from `model_generator` (by default `generator`).
+    The whole is the span `ssl4gie.step`, the draws and the augmentation
+    `ssl4gie.augment`."""
     step = make_detection_train_step(accum_steps)
 
     def full_step(model, optimizer, batch: dict, generator: torch.Generator,
                   model_generator: torch.Generator | None = None):
-        params = dist_lib.draw_global(sample_detection_params,
-                                      batch["image"].shape[0], generator,
-                                      accum_steps=accum_steps)
-        img, boxes = detection_augment(batch["image"], batch["gt_boxes"],
-                                       params)
-        return step(model, optimizer, dict(batch, image=img, gt_boxes=boxes),
-                    generator if model_generator is None else model_generator)
+        with span("ssl4gie.step"):
+            with span("ssl4gie.augment"):
+                params = dist_lib.draw_global(sample_detection_params,
+                                              batch["image"].shape[0],
+                                              generator,
+                                              accum_steps=accum_steps)
+                img, boxes = detection_augment(batch["image"],
+                                               batch["gt_boxes"], params)
+            return step(model, optimizer,
+                        dict(batch, image=img, gt_boxes=boxes),
+                        generator if model_generator is None
+                        else model_generator)
 
     return full_step
 

@@ -125,6 +125,46 @@ def test_a_full_step_is_one_step_span_holding_its_layers(tmp_path, make,
     assert layers_in_order(traced(tmp_path, make())) == order
 
 
+def _detection_step():
+    from ssl4gie_tpu_torch.models.faster_rcnn import MAX_GT, build_detector
+    from ssl4gie_tpu_torch.tasks.detection import make_detection_full_step
+    model = build_detector("vit_b", img_size=256, embed_dim=32, depth=1,
+                           num_heads=2, rpn_pre_nms_top_n_train=50,
+                           rpn_post_nms_top_n_train=20,
+                           box_batch_size_per_image=16, device="cpu")
+    optimizer = make_adamw(model.parameters(), 1e-3)
+    step = make_detection_full_step(accum_steps=2)
+    boxes = torch.zeros((2, MAX_GT, 4))
+    boxes[:, 0] = torch.tensor([20.0, 30.0, 120.0, 150.0])
+    valid = torch.zeros((2, MAX_GT), dtype=torch.bool)
+    valid[:, 0] = True
+    batch = {"image": torch.randint(0, 256, (2, 256, 256, 3),
+                                    dtype=torch.uint8),
+             "gt_boxes": boxes, "gt_labels": valid.long(), "gt_valid": valid}
+    gen = torch.Generator().manual_seed(1)
+    return lambda: step(model, optimizer, batch, gen)
+
+
+def test_the_detection_step_is_one_step_span_holding_its_layers(tmp_path):
+    """Two microbatches: forward and backward twice, then the division of
+    the accumulated gradients and the update; the NMS inside each
+    forward."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _detection_step()()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    found = spans_of(path)
+    assert layers_in_order(found) == ["augment", "forward", "backward",
+                                      "forward", "backward", "optimizer"]
+    with open(path) as f:
+        nms = [(e["ts"], e["ts"] + e["dur"])
+               for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and e.get("name") == "nms_topk"]
+    forwards = [(a, b) for a, b, name in found if name == "forward"]
+    assert len(nms) == 2
+    assert all(any(a <= s and e <= b for a, b in forwards) for s, e in nms)
+
+
 def test_without_a_profiler_a_span_is_the_shared_null_context():
     assert spans.span("ssl4gie.step") is spans.span("ssl4gie.forward")
     with spans.span("ssl4gie.step") as inside:

@@ -234,8 +234,9 @@ def test_port_imports_no_jax():
     predict CLI, the native loader, the SSL recipes (RandAugment, layer
     decay, the probes, the transfer datasets) and checkpoint ingestion (the
     loaders, the facade, the convert CLI) and the multi-GPU layer (the
-    mesh, the process group, tensor parallelism and the placements) among
-    them, leaves jax, flax, optax and the JAX package out of sys.modules."""
+    mesh, the process group, tensor parallelism and the placements) and
+    the NMS kernel's wrapper and benchmark among them, leaves jax, flax,
+    optax and the JAX package out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssl4gie_tpu_torch as pkg\n"
@@ -262,7 +263,8 @@ def test_port_imports_no_jax():
         " 'data.transfer', 'ssl.lr_decay', 'ssl.probe',"
         " 'convert.torch_names', 'convert.loaders', 'utils', 'cli.convert',"
         " 'core.mesh', 'parallel.distributed', 'parallel.tp',"
-        " 'benchmarks.ablate_resident_backward', 'kernels.layer_norm'):\n"
+        " 'benchmarks.ablate_resident_backward', 'kernels.layer_norm',"
+        " 'kernels.nms', 'benchmarks.bench_nms'):\n"
         "    assert pkg.__name__ + '.' + m in names, m\n"
         "print(sorted(m for m in ('jax', 'flax', 'optax', 'ssl4gie_tpu')"
         " if m in sys.modules))\n")
